@@ -1,0 +1,285 @@
+"""The slice as a whole: the port's ``Engine`` on the CPU (plain kernel
+versions), on params carried across from ``dense.init(OPT_TINY,
+PRNGKey(0))``, against the JAX ``Engine`` (compiled, ``exec_mode`` XLA and
+PALLAS) in the tests/test_engine_jit.py scenarios: the same greedy tokens
+and the same per-step stats. Plus the port's admission checks, cancel and
+backpressure."""
+from __future__ import annotations
+
+import dataclasses
+import threading
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.paper_models import OPT_TINY as J_OPT_TINY
+from repro.core.erdpe import ExecMode
+from repro.core.scheduler import AdmissionConfig as JAdmission
+from repro.models import dense as jdense
+from repro.serving.engine import Engine as JEngine
+from repro_torch import interop
+from repro_torch.configs import OPT_TINY
+from repro_torch.core.scheduler import AdmissionConfig as TAdmission
+from repro_torch.kernels import ecdp, paged_attn
+from repro_torch.serving.engine import Engine as TEngine
+
+torch.set_num_threads(2)
+
+
+def _hetero(mk):
+    """Two slots, one prompt long enough to prefill in chunks."""
+    eng = mk()
+    r1 = eng.submit(list(range(1, 30)), max_new=8)
+    r2 = eng.submit([9, 8], max_new=8)
+    res = eng.run()
+    return eng, [res[r1], res[r2]]
+
+
+def _per_slot_positions(mk):
+    """A short request decoded next to a longer one decodes at ITS
+    position (kv_aware off, as in the reference test)."""
+    solo = mk(kv_aware=False)
+    r = solo.submit([9, 8], max_new=6)
+    alone = solo.run()[r]
+    both = mk(kv_aware=False)
+    both.submit([1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11], max_new=6)
+    r2 = both.submit([9, 8], max_new=6)
+    res = both.run()
+    assert res[r2] == alone
+    return both, [alone, res[0], res[r2]]
+
+
+def _slot_churn(mk):
+    eng = mk()
+    r1 = eng.submit([1, 2, 3], max_new=2)
+    r2 = eng.submit([5, 6, 7, 8, 9], max_new=12)
+    while not eng.requests[r1].done:
+        eng.step()
+    r3 = eng.submit([2, 2], max_new=4)          # into r1's released slot
+    out = eng.run()
+    return eng, [out[r1], out[r2], out[r3]]
+
+
+def _mixed(mk):
+    """Prompt lengths, chunked prefills, slot churn and oversubscribed
+    admission (5 requests, 2 slots).
+
+    The reference test's second prompt, range(1, 9), puts a near-tie at
+    its second token (top-2 logit margin 1.4e-3): the compiled JAX engine
+    breaks it one way, the eager JAX engine and the port the other. This
+    prompt, range(2, 10), keeps every greedy margin of the run above
+    1.6e-2, past the few-1e-3 logit spread between compiled and eager."""
+    eng = mk(admission=dict(chunk_tokens=8, token_budget=16))
+    prompts = [[7], list(range(2, 10)), list(range(1, 21)),
+               list(range(1, 30)), [3, 1, 4]]
+    rids = [eng.submit(p, max_new=4 + i) for i, p in enumerate(prompts)]
+    out = eng.run()
+    assert [len(out[r]) for r in rids] == [4, 5, 6, 7, 8]
+    assert any(s["prefill_tokens"] and s["decode_tokens"] for s in eng.stats)
+    return eng, [out[r] for r in rids]
+
+
+def _decode_during_prefill(mk):
+    eng = mk(admission=dict(chunk_tokens=8, token_budget=16))
+    r1 = eng.submit([5, 6], max_new=40)
+    for _ in range(3):
+        eng.step()
+    r2 = eng.submit(list(range(1, 41)), max_new=4)   # 40 tokens: 5 chunks
+    while eng.requests[r2].prefilling:
+        eng.step()
+    out = eng.run()
+    return eng, [out[r1], out[r2]]
+
+
+def _realloc(mk):
+    eng = mk()
+    r1 = eng.submit([4, 4, 4], max_new=2)
+    r2 = eng.submit([5, 6, 7], max_new=9)
+    while not eng.requests[r1].done:
+        eng.step()
+    r3 = eng.submit([2, 2], max_new=4)
+    res = eng.run()
+    return eng, [res[r1], res[r2], res[r3]]
+
+
+def _noisy_flash(mk):
+    """The heterogeneous batch over a flash tier read at RBER 2e-3: ECC
+    corrects on every read in both packages."""
+    eng = mk(rber=2e-3)
+    r1 = eng.submit(list(range(1, 30)), max_new=8)
+    r2 = eng.submit([9, 8], max_new=8)
+    res = eng.run()
+    return eng, [res[r1], res[r2]]
+
+
+SCENARIOS = {"heterogeneous_batch": _hetero,
+             "per_slot_positions": _per_slot_positions,
+             "slot_churn": _slot_churn, "mixed_workload": _mixed,
+             "decode_during_prefill": _decode_during_prefill,
+             "realloc": _realloc, "noisy_flash": _noisy_flash}
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    return jdense.init(J_OPT_TINY, jax.random.PRNGKey(0))
+
+
+def _jax_maker(params, mode):
+    def mk(kv_aware=True, admission=None, rber=0.0):
+        return JEngine(J_OPT_TINY, params, max_slots=2, max_seq=96,
+                       rber=rber, kv_aware=kv_aware, exec_mode=mode,
+                       admission_cfg=JAdmission(**(admission or {})))
+    return mk
+
+
+def _port_maker(params, **fixed):
+    def mk(kv_aware=True, admission=None, rber=0.0):
+        kw = dict(max_slots=2, max_seq=96, rber=rber, kv_aware=kv_aware,
+                  admission_cfg=TAdmission(**(admission or {})), device="cpu")
+        kw.update(fixed)
+        return TEngine(OPT_TINY, params, **kw)
+    return mk
+
+
+@pytest.fixture(scope="module")
+def port_params(jax_params):
+    return interop.params_from_numpy(jax.tree.map(np.asarray, jax_params))
+
+
+def _launches():
+    return ecdp.ecdp_matmul.launches + paged_attn.paged_attn.launches
+
+
+@pytest.fixture(scope="module")
+def port_runs(port_params):
+    before = _launches()
+    runs = {name: fn(_port_maker(port_params))
+            for name, fn in SCENARIOS.items()}
+    runs["kernel_launches"] = _launches() - before
+    return runs
+
+
+@pytest.fixture(scope="module")
+def jax_runs(jax_params):
+    return {mode: {name: fn(_jax_maker(jax_params, mode))
+                   for name, fn in SCENARIOS.items()}
+            for mode in (ExecMode.XLA, ExecMode.PALLAS)}
+
+
+@pytest.mark.parametrize("mode", [ExecMode.XLA, ExecMode.PALLAS],
+                         ids=["xla", "pallas"])
+@pytest.mark.parametrize("scenario", list(SCENARIOS))
+def test_engine_emits_the_reference_tokens(port_runs, jax_runs, scenario,
+                                           mode):
+    t_eng, t_out = port_runs[scenario]
+    j_eng, j_out = jax_runs[mode][scenario]
+    assert t_out == j_out
+    # the control plane and Algorithm 2 take the same decisions each step
+    assert t_eng.stats == j_eng.stats
+    np.testing.assert_array_equal(t_eng.pool.lengths, j_eng.pool.lengths)
+    np.testing.assert_array_equal(t_eng.pool.lengths_dev.numpy(),
+                                  np.asarray(j_eng.pool.lengths_dev))
+
+
+def test_cpu_engine_launches_no_kernel(port_runs):
+    """On CPU tensors every wrapper takes its plain version."""
+    assert port_runs["kernel_launches"] == 0
+
+
+def test_engine_on_a_rope_swiglu_gqa_config_matches_reference():
+    """The engine's other dense-family branches — RMSNorm, SwiGLU, RoPE and
+    grouped-query attention (2 KV heads for 4 query heads, so the paged
+    kernel's TR = T * rep) — against the JAX engine (XLA), tokens and
+    stats."""
+    kw = dict(norm_type="rms", ffn_type="swiglu", use_rope=True,
+              n_kv_heads=2, name="tiny-gqa")
+    jcfg = dataclasses.replace(J_OPT_TINY, **kw)
+    tcfg = dataclasses.replace(OPT_TINY, **kw)
+    jp = jdense.init(jcfg, jax.random.PRNGKey(3))
+    tp = interop.params_from_numpy(jax.tree.map(np.asarray, jp))
+    outs = []
+    for eng in (JEngine(jcfg, jp, max_slots=2, max_seq=96, rber=1e-4),
+                TEngine(tcfg, tp, max_slots=2, max_seq=96, rber=1e-4,
+                        device="cpu")):
+        r1 = eng.submit(list(range(3, 25)), max_new=6)
+        r2 = eng.submit([11, 4, 9], max_new=6)
+        res = eng.run()
+        outs.append(([res[r1], res[r2]], eng.stats))
+    assert outs[1] == outs[0]
+
+
+def test_padding_lanes_never_poison_the_pool():
+    """A request decoding at the learned-position table's end puts padding
+    lanes past the table; they must be steered to a safe row (on CUDA an
+    out-of-range index is a device assert)."""
+    cfg = dataclasses.replace(OPT_TINY, max_seq=64)
+    jp = jdense.init(dataclasses.replace(J_OPT_TINY, max_seq=64),
+                     jax.random.PRNGKey(1))
+    p = interop.params_from_numpy(jax.tree.map(np.asarray, jp))
+    eng = TEngine(cfg, p, max_slots=2, max_seq=64, device="cpu")
+    rid = eng.submit(list(range(1, 41)), max_new=25)   # needs all 64 rows
+    assert len(eng.run()[rid]) == 25
+    assert not torch.isnan(eng.pool.k[:, 1:].float()).any()
+    assert not torch.isnan(eng.pool.v[:, 1:].float()).any()
+
+
+def test_submit_rejects_what_the_pool_cannot_hold(port_params):
+    mk = _port_maker(port_params)
+    eng = mk()
+    with pytest.raises(ValueError, match="empty prompt"):
+        eng.submit([], max_new=4)
+    with pytest.raises(ValueError, match="max_new"):
+        eng.submit([1, 2, 3], max_new=0)
+    assert not eng.requests and not eng.waiting
+    small = _port_maker(port_params, max_seq=60)()
+    with pytest.raises(ValueError, match="max_seq"):
+        small.submit(list(range(1, 41)), max_new=25)    # 64 rows > 60
+    small.submit(list(range(1, 41)), max_new=21)        # 60 rows: admitted
+    table = dataclasses.replace(OPT_TINY, max_seq=32)   # 32-row pos table
+    jp = jdense.init(dataclasses.replace(J_OPT_TINY, max_seq=32),
+                     jax.random.PRNGKey(2))
+    eng = TEngine(table, interop.params_from_numpy(
+        jax.tree.map(np.asarray, jp)), max_slots=2, max_seq=64, device="cpu")
+    with pytest.raises(ValueError, match="max_seq"):
+        eng.submit(list(range(1, 30)), max_new=5)       # 33 rows > 32
+    rid = eng.submit(list(range(1, 30)), max_new=4)
+    assert len(eng.run()[rid]) == 4
+
+
+def test_cancel_frees_the_slot_within_one_step(port_params):
+    eng = _port_maker(port_params)()
+    r1 = eng.submit(list(range(1, 20)), max_new=8)
+    r2 = eng.submit([3, 4], max_new=8)
+    eng.step()
+    free_before = eng.pool.n_free_blocks
+    assert eng.cancel(r1) and not eng.cancel(r1)
+    eng.step()
+    assert eng.pool.n_free_blocks > free_before
+    assert r1 not in eng.pool.active.values()
+    assert eng.forget(r1) and r1 not in eng.requests
+    out = eng.run()
+    assert len(out[r2]) == 8
+
+
+def test_backpressure_times_out_and_close_wakes_submitters(port_params):
+    eng = _port_maker(port_params, max_slots=1)(admission=None)
+    eng.max_waiting = 1
+    eng.submit([1, 2], max_new=4)                # admitted
+    eng.submit([3, 4], max_new=4)                # waits: queue full now
+    with pytest.raises(TimeoutError):
+        eng.submit([5, 6], max_new=4, timeout=0.05)
+    errors = []
+
+    def blocked():
+        try:
+            eng.submit([7, 8], max_new=4)
+        except RuntimeError as e:
+            errors.append(e)
+    th = threading.Thread(target=blocked)
+    th.start()
+    eng.close()
+    eng.close()                                  # idempotent
+    th.join(timeout=10)
+    assert not th.is_alive() and len(errors) == 1
