@@ -14,15 +14,21 @@ Phases (any failure exits non-zero; nothing is caught):
                 flash matmul shapes (wq/wo 4096x4096, w_up 4096x16384,
                 w_down 16384x4096, lm_head 4096x50272), M in {4, 64}, RBER
                 0 and 2e-3, ECC on and off; times at the serving shapes.
-  3. paged    — the paged-attention kernel against its plain version at
-                B=4, KV=32, TR=16, Dh=128, block 16, ragged contexts
-                (0 .. 2047) over scrambled block tables.
+  3. paged    — the paged-attention kernel against its plain version and
+                its plain version in the kernel's order (the bounds are
+                stated at kernel_errors in kernels/paged_attn.py) at B=4,
+                KV=32, TR=16, Dh=128, block 16, ragged contexts (0 .. 2047)
+                over scrambled block tables.
   4. serving  — Engine(OPT_6_7B) on the card: seeded init, deploy at RBER
                 1e-4, full width and depth, 4 slots, max_seq 2048, chunk
                 16; 6 requests (prompts 7..512 tokens, 32 new each) run to
                 completion. The kernels' launch counters are zeroed just
                 before and read just after: ECDP = steps x (32 x 4 + 1),
-                paged attention = steps x 32.
+                paged attention = steps x 32. Then the same requests again:
+                8 steps, 12 timed steps, 12 steps traced with
+                torch.profiler (device time per kernel group, idle share);
+                and one step's 129 flash matmuls replayed back to back on
+                the engine's weights (the ECDP times of the kernels line).
   5. parity   — the same seeded engine at OPT-6.7B width cut to 2 layers,
                 on the card (kernels) and on the CPU (plain versions):
                 byte-identical deploy, per-step logits within 2^-6 of the
@@ -31,10 +37,11 @@ Phases (any failure exits non-zero; nothing is caught):
 
 The second-to-last line is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Times are CUDA-event medians with the
-L2 cache flushed before each launch (the serving step streams more weight
-bytes than L2 holds). bound_ms is the larger of the bytes each call must
-move at 3.35 TB/s and its operations at the bf16 tensor-core peak of
-989 TFLOP/s (H100 SXM data sheet, 700 W).
+L2 cache flushed before each timed call (the serving step streams more
+weight bytes than L2 holds). bound_ms is the larger of the bytes a call
+must move at 3.35 TB/s and its operations at the bf16 tensor-core peak of
+989 TFLOP/s (H100 SXM data sheet, 700 W). In the kernels line ``ms`` and
+``kernel_ms`` are the same number under the two names it is read by.
 """
 from __future__ import annotations
 
@@ -72,9 +79,9 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    def __call__(self, fn, reps: int = 10) -> float:
+    def __call__(self, fn, reps: int = 10, warmup: int = 2) -> float:
         torch = self.torch
-        for _ in range(2):
+        for _ in range(warmup):
             fn()
         times = []
         for _ in range(reps):
@@ -94,10 +101,9 @@ class Timer:
 
 ECDP_SHAPES = {"wq/wo": (4096, 4096), "w_up": (4096, 16384),
                "w_down": (16384, 4096), "lm_head": (4096, 50272)}
-# launches per full-width serving step: 32 layers x (wq, wo, w_up, w_down)
-# at M = slots x chunk = 64, and lm_head at M = slots = 4
-ECDP_STEP = {"wq/wo": (64, 64), "w_up": (32, 64), "w_down": (32, 64),
-             "lm_head": (1, 4)}
+# M of each shape's flash matmul in a serving step: slots x chunk = 64 for
+# the layers' weights, slots = 4 for lm_head
+ECDP_M = {"wq/wo": 64, "w_up": 64, "w_down": 64, "lm_head": 4}
 
 
 def phase_ecdp(torch, timer):
@@ -133,8 +139,7 @@ def phase_ecdp(torch, timer):
                     worst_abs = max(worst_abs, float(err.max()))
                     worst_rel = max(worst_rel, float(
                         (err / want.abs().clamp_min(1e-3)).max()))
-            m_step = ECDP_STEP[name][1]
-            if m != m_step:
+            if m != ECDP_M[name]:
                 continue
             fw = flash[2e-3]
             t_kernel = timer(lambda: ecdp_matmul(a, fw.q, fw.parity,
@@ -153,19 +158,15 @@ def phase_ecdp(torch, timer):
         del flash, w_deq
     log(f"  ecdp vs plain: max abs err {worst_abs:.3e}, max rel err "
         f"{worst_rel:.3e} (32 cases)")
-    step = {key: sum(ECDP_STEP[s][0] * per_shape[s][key] for s in per_shape)
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    log(f"  ecdp per serving step (129 launches): kernel {step['ms']:.3f} ms,"
-        f" plain {step['plain_ms']:.3f} ms, library {step['library_ms']:.3f}"
-        f" ms, bound {step['bound_ms']:.3f} ms")
-    return dict(max_abs_err=worst_abs, shapes=per_shape, **step)
+    return dict(max_abs_err=worst_abs, per_launch=per_shape)
 
 
 # --- phase 3: paged attention ----------------------------------------------------
 
 def phase_paged(torch, timer):
     import torch.nn.functional as F
-    from repro_torch.kernels.paged_attn import paged_attn, paged_attn_plain
+    from repro_torch.kernels.paged_attn import (kernel_errors, paged_attn,
+                                                paged_attn_plain)
 
     b, n_kv, tr, dh, bs, max_blocks = 4, 32, 16, 128, 16, 128
     ctx = [0, 2047, 513, 1200]
@@ -186,21 +187,14 @@ def phase_paged(torch, timer):
     q = (bf(b, n_kv, tr, dh).float() * dh ** -0.5).to(torch.bfloat16)
     k_pool, v_pool = bf(n_blocks, bs, n_kv, dh), bf(n_blocks, bs, n_kv, dh)
     acc, m, l = paged_attn(q, k_pool, v_pool, tables, lens)
-    acc_w, m_w, l_w = paged_attn_plain(q, k_pool, v_pool, tables, lens)
     torch.cuda.synchronize()
-    torch.testing.assert_close(m, m_w, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(l, l_w, rtol=1e-4, atol=1e-5)
-    # p is rounded to bf16 against the running max in the kernel and the
-    # global max in the plain version: |d acc| <= 2^-7 * l * max|v|
-    tol = 2.0 ** -7 * l_w[..., None] * v_pool.float().abs().max() + 1e-4
-    err = (acc - acc_w).abs()
-    if not bool((err <= tol).all()):
-        raise AssertionError(f"paged attention: max err {float(err.max())}")
-    empty = lens == 0
-    assert bool(torch.isneginf(m[empty]).all()) and bool((l[empty] == 0).all())
-    max_abs = max(float(err.max()),
-                  float((m - m_w)[~empty].abs().max()),
-                  float((l - l_w).abs().max()))
+    # each check's error over its bound (stated at kernel_errors)
+    errs = kernel_errors(q, k_pool, v_pool, tables, lens, acc, m, l)
+    max_abs = errs.pop("max_abs_err")
+    if not all(v <= 1 for v in errs.values()):
+        raise AssertionError(f"paged attention: error / bound {errs}")
+    log("  paged_attn error / bound: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items()))
     t_kernel = timer(lambda: paged_attn(q, k_pool, v_pool, tables, lens))
     t_plain = timer(lambda: paged_attn_plain(q, k_pool, v_pool, tables, lens),
                     reps=3)
@@ -227,7 +221,125 @@ def phase_paged(torch, timer):
 
 # --- phase 4: serving -----------------------------------------------------------
 
-def phase_serving(torch):
+PROFILE_WARMUP, PROFILE_STEPS = 8, 12
+PROFILE_GROUPS = (  # (group, substrings of the kernel name), first match wins
+    ("ecdp kernel", ("ecdp_",)),
+    ("paged attention kernel", ("paged_attn_",)),
+    ("GEMM (f32 DRAM projections)", ("gemm", "cutlass", "sm90_", "ampere_",
+                                     "cublas")),
+    ("elementwise / reduction / copy", ("elementwise", "reduce", "copy",
+                                        "index", "cat", "gather", "scatter",
+                                        "fill", "softmax", "norm")),
+)
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    for group, keys in PROFILE_GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "other"
+
+
+def profile_steps(torch, eng, prompts):
+    """The same requests again: PROFILE_WARMUP steps, PROFILE_STEPS steps
+    timed on the host clock, then PROFILE_STEPS steps traced with
+    torch.profiler. Prints the device time per kernel group and the idle
+    share, 1 - device time / wall time, against the untraced steps' wall
+    time (adjacent steps; the profiler's own host cost inflates the traced
+    wall time, whose share is printed beside it)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in prompts:
+        eng.submit(p, max_new=32)
+    for _ in range(PROFILE_WARMUP):
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PROFILE_STEPS):
+        eng.step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / PROFILE_STEPS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_traced = (time.perf_counter() - t0) / PROFILE_STEPS
+    groups: dict[str, float] = {}
+    kernels: dict[str, float] = {}
+    for evt in prof.key_averages():
+        dev_us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0.0))
+        if dev_us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        groups[_group(evt.key)] = groups.get(_group(evt.key), 0.0) + dev_us
+        kernels[evt.key] = kernels.get(evt.key, 0.0) + dev_us
+    busy = sum(groups.values()) / 1e6 / PROFILE_STEPS
+    if busy <= 0:
+        raise AssertionError("the profiler saw no device time")
+    log(f"  profile: {PROFILE_STEPS} untraced steps {wall * 1e3:.2f} ms/step;"
+        f" {PROFILE_STEPS} traced steps {wall_traced * 1e3:.2f} ms/step, "
+        f"device {busy * 1e3:.2f} ms/step; idle share {1 - busy / wall:.3f} "
+        f"(untraced wall), {1 - busy / wall_traced:.3f} (traced wall)")
+    for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"    {group:32s} {us / 1e3 / PROFILE_STEPS:9.3f} ms/step "
+            f"{us / 1e6 / PROFILE_STEPS / busy:6.1%}")
+    log("  top kernels (device ms/step):")
+    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"    {us / 1e3 / PROFILE_STEPS:9.3f}  {name[:90]}")
+
+
+def ecdp_step_calls(eng):
+    """One serving step's flash matmuls as (M, FlashWeight), in the step's
+    order: per layer wq, wo, w_up, w_down at M = slots x chunk; lm_head at
+    M = slots."""
+    m = eng.pool.n_slots * eng.admission_cfg.chunk_tokens
+    calls = []
+    for li, lp in enumerate(eng._layers):
+        fl = eng.attn_flash[li]
+        calls += [(m, fl["wq"]), (m, fl["wo"]), (m, lp["ffn"]["w_up"]),
+                  (m, lp["ffn"]["w_down"])]
+    return calls + [(eng.pool.n_slots, eng.params["lm_head"])]
+
+
+def time_ecdp_step(torch, timer, calls):
+    """The step's flash matmuls back to back on the engine's own weights
+    (distinct per layer, so nothing stays in L2): the kernel, its plain
+    version, and torch.matmul on the dequantised bf16 weights."""
+    from repro_torch.core.quant import dequantize_int8
+    from repro_torch.kernels.ecdp import ecdp_matmul, ecdp_matmul_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    acts = {}
+    for m, fw in calls:
+        if (m, fw.q.shape[0]) not in acts:
+            acts[(m, fw.q.shape[0])] = torch.randn(
+                (m, fw.q.shape[0]), generator=gen, device="cuda"
+            ).to(torch.bfloat16)
+    args = [(acts[(m, fw.q.shape[0])], fw) for m, fw in calls]
+    t_kernel = timer(lambda: [ecdp_matmul(a, fw.q, fw.parity, fw.scale, True)
+                              for a, fw in args], reps=5)
+    t_plain = timer(lambda: [ecdp_matmul_plain(a, fw.q, fw.parity, fw.scale,
+                                               True) for a, fw in args],
+                    reps=1, warmup=1)
+    w_deq = [dequantize_int8(fw.q, fw.scale) for _, fw in args]
+    t_lib = timer(lambda: [torch.matmul(a, w) for (a, _), w in
+                           zip(args, w_deq)], reps=5)
+    del w_deq
+    nbytes = sum(fw.q.numel() * 9 / 8 + fw.scale.numel() * 4 + a.numel() * 2
+                 + 4 * a.shape[0] * fw.q.shape[1] for a, fw in args)
+    flops = sum(2.0 * a.shape[0] * fw.q.numel() for a, fw in args)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    log(f"  ecdp, one step's {len(calls)} flash matmuls back to back: kernel "
+        f"{t_kernel:.3f} ms, plain {t_plain:.3f} ms, torch.matmul bf16 "
+        f"{t_lib:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    return dict(ms=t_kernel, plain_ms=t_plain, library_ms=t_lib,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_serving(torch, timer):
     import numpy as np
 
     from repro_torch.configs import OPT_6_7B
@@ -272,7 +384,9 @@ def phase_serving(torch):
         assert len(toks) == 32, (rid, len(toks))
         assert all(0 <= t < cfg.vocab_size for t in toks)
     assert bool(torch.isfinite(eng.last_logits).all())
-    assert launches["ecdp"] == steps * (cfg.n_layers * 4 + 1), launches
+    calls = ecdp_step_calls(eng)
+    assert len(calls) == cfg.n_layers * 4 + 1
+    assert launches["ecdp"] == steps * len(calls), launches
     assert launches["paged_attn"] == steps * cfg.n_layers, launches
     generated = 32 * len(rids)
     processed = sum(s["prefill_tokens"] + s["decode_tokens"]
@@ -284,10 +398,13 @@ def phase_serving(torch):
     log(f"  peak device memory {peak / 2**30:.2f} GiB; launches {launches}; "
         f"final npu_fraction {eng.stats[-1]['npu_fraction']}")
     log(f"  first request's tokens: {out[rids[0]][:12]}")
-    del eng
+    profile_steps(torch, eng, prompts)
+    ecdp_step = time_ecdp_step(torch, timer, calls)
+    del eng, calls
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(steps=steps, wall_s=wall, launches=launches, peak_bytes=peak)
+    return dict(steps=steps, wall_s=wall, launches=launches, peak_bytes=peak,
+                ecdp_step=ecdp_step)
 
 
 # --- phase 5: engine parity, card vs CPU -------------------------------------------
@@ -397,26 +514,27 @@ def main() -> int:
     ecdp_res = phase_ecdp(torch, timer)
     log("phase 3: paged attention kernel vs plain")
     pa_res = phase_paged(torch, timer)
-    del timer
     torch.cuda.empty_cache()
     log("phase 4: serving OPT-6.7B")
-    serve = phase_serving(torch)
+    serve = phase_serving(torch, timer)
+    del timer
     log("phase 5: engine parity, card vs CPU")
     phase_parity(torch)
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
+    step = serve["ecdp_step"]
     kernels = [
         {"name": "ecdp_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ecdp.cu",
          "replaces": "src/repro/kernels/ecdp.py:72",
          "launches": serve["launches"]["ecdp"],
-         "max_abs_err": ecdp_res["max_abs_err"], "ms": ecdp_res["ms"],
-         "kernel_ms": ecdp_res["ms"],
-         "plain_ms": ecdp_res["plain_ms"], "bound_ms": ecdp_res["bound_ms"],
-         "bound_by": "bytes", "library_ms": ecdp_res["library_ms"],
-         "at": "one OPT-6.7B serving step: 32 x (wq, wo, w_up, w_down) "
-               "at M=64 + lm_head at M=4",
-         "shapes": ecdp_res["shapes"]},
+         "max_abs_err": ecdp_res["max_abs_err"], "ms": step["ms"],
+         "kernel_ms": step["ms"], "plain_ms": step["plain_ms"],
+         "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
+         "library_ms": step["library_ms"],
+         "at": "one OPT-6.7B serving step's 129 calls back to back: 32 x "
+               "(wq, wo, w_up, w_down) at M=64, lm_head at M=4",
+         "per_launch": ecdp_res["per_launch"]},
         {"name": "paged_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
          "replaces": "src/repro/kernels/paged_attn.py:94",
@@ -427,8 +545,6 @@ def main() -> int:
          "bound_by": pa_res["bound_by"], "library_ms": pa_res["library_ms"],
          "at": "B=4 KV=32 TR=16 Dh=128 block 16, ctx [0, 2047, 513, 1200]"},
     ]
-    if any(s["bound_by"] != "bytes" for s in ecdp_res["shapes"].values()):
-        kernels[0]["bound_by"] = "operations"
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

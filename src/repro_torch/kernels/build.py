@@ -59,6 +59,11 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{_digest()}.so"
 
 
+def nvcc_command(src: Path, out: Path) -> list[str]:
+    """The nvcc command that builds ``src`` into the library ``out``."""
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+
+
 def build_all() -> dict[str, Path]:
     """Compile every source whose library is missing, all at once; return
     {name: library path}. Raises with nvcc's output if a build fails."""
@@ -71,8 +76,8 @@ def build_all() -> dict[str, Path]:
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         log = path.with_suffix(".log").open("w")
         procs[name] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=log, stderr=subprocess.STDOUT), tmp, log)
+            nvcc_command(CSRC / f"{name}.cu", tmp), stdout=log,
+            stderr=subprocess.STDOUT), tmp, log)
     failed = []
     for name, (proc, tmp, log) in procs.items():
         rc = proc.wait()

@@ -1,6 +1,7 @@
 """Block-paged attention over the serving KV pool: the wrapper of the Hopper
-kernel (``csrc/paged_attn.cu``), its plain PyTorch version and the
-window-masked plain path.
+kernel (``csrc/paged_attn.cu``), its plain PyTorch version, the
+window-masked plain path, and the plain version in the kernel's own order
+with the checks a kernel's output is held to (``kernel_errors``).
 
 Port of ``repro/kernels/paged_attn.py`` (``paged_attn_pallas``,
 ``paged_attn_xla``) and ``ops._group_chunk_queries`` /
@@ -41,6 +42,26 @@ def group_chunk_queries(q: torch.Tensor, n_kv: int, cdt) -> torch.Tensor:
             .to(cdt).contiguous())
 
 
+def _masked_scores(q, k_pool, block_tables, ctx_lens, window=None,
+                   q_positions=None):
+    """f32 scores (B, KV, TR, S_pad) over the blocks the table names, -inf
+    where masked, and the mask (B, 1, 1|TR, S_pad)."""
+    b, n_kv, tr, dh = q.shape
+    block_size = k_pool.shape[1]
+    s_pad = block_tables.shape[1] * block_size
+    kg = k_pool[block_tables.long()].reshape(b, s_pad, n_kv, dh).float()
+    scores = torch.einsum("bktd,bskd->bkts", q.to(k_pool.dtype).float(), kg)
+    pos = torch.arange(s_pad, device=q.device)
+    valid = (pos[None, :] < ctx_lens.long()[:, None])[:, None, :]  # (B,1,S)
+    if window is not None:
+        if q_positions is None:
+            raise ValueError("windowed context needs q_positions")
+        valid = valid & (pos[None, None, :]
+                         > q_positions.long()[:, :, None] - window)
+    valid = valid[:, None]                                     # (B,1,1|TR,S)
+    return torch.where(valid, scores, float("-inf")), valid
+
+
 def paged_attn_plain(q, k_pool, v_pool, block_tables, ctx_lens, *,
                      window: int | None = None,
                      q_positions: torch.Tensor | None = None):
@@ -50,29 +71,109 @@ def paged_attn_plain(q, k_pool, v_pool, block_tables, ctx_lens, *,
     the windowed path, which needs a per-query mask (``q_positions`` (B,
     TR) absolute positions)."""
     b, n_kv, tr, dh = q.shape
-    _, block_size, _, _ = k_pool.shape
-    max_blocks = block_tables.shape[1]
-    s_pad = max_blocks * block_size
-    cdt = k_pool.dtype
-    tbl = block_tables.long()
-    kg = k_pool[tbl].reshape(b, s_pad, n_kv, dh).float()
-    vg = v_pool[tbl].reshape(b, s_pad, n_kv, dh).float()
-    scores = torch.einsum("bktd,bskd->bkts", q.to(cdt).float(), kg)
-    pos = torch.arange(s_pad, device=q.device)
-    valid = (pos[None, :] < ctx_lens.long()[:, None])[:, None, :]  # (B,1,S)
-    if window is not None:
-        if q_positions is None:
-            raise ValueError("windowed context needs q_positions")
-        valid = valid & (pos[None, None, :]
-                         > q_positions.long()[:, :, None] - window)
-    valid = valid[:, None]                                     # (B,1,1|TR,S)
-    scores = torch.where(valid, scores, float("-inf"))
+    s_pad = block_tables.shape[1] * k_pool.shape[1]
+    scores, valid = _masked_scores(q, k_pool, block_tables, ctx_lens, window,
+                                   q_positions)
+    vg = v_pool[block_tables.long()].reshape(b, s_pad, n_kv, dh).float()
     m = scores.amax(dim=-1)                       # -inf for empty contexts
     m_safe = torch.where(torch.isfinite(m), m, 0.0)
     p = torch.exp(scores - m_safe[..., None])
     p = torch.where(valid, p, 0.0)
-    acc = torch.einsum("bkts,bskd->bktd", p.to(cdt).float(), vg)
+    acc = torch.einsum("bkts,bskd->bktd", p.to(k_pool.dtype).float(), vg)
     return acc, m, p.sum(dim=-1)
+
+
+def paged_attn_plain_ordered(q, k_pool, v_pool, block_tables, ctx_lens, *,
+                             blocks_per_split: int = _BLOCKS_PER_SPLIT):
+    """The plain version in the kernel's own order, to hold the kernel to
+    f32 rounding: online softmax over pool blocks in table order, p rounded
+    to the pool dtype against the running max, the table cut
+    into ranges of ``blocks_per_split`` blocks whose states are merged at
+    the end. ``blocks_per_split >= max_blocks`` is the TPU kernel's single
+    sequential walk. Masked keys never set the max."""
+    b, n_kv, tr, dh = q.shape
+    block_size = k_pool.shape[1]
+    max_blocks = block_tables.shape[1]
+    bps = min(blocks_per_split, max_blocks)
+    n_split = -(-max_blocks // bps)
+    tbl = torch.nn.functional.pad(block_tables, (0, n_split * bps - max_blocks))
+    scores, valid = _masked_scores(q, k_pool, tbl, ctx_lens.clamp(
+        max=max_blocks * block_size))
+    shape = (b, n_kv, tr, n_split, bps, block_size)
+    s = scores.reshape(shape)
+    valid = valid.reshape(b, 1, 1, n_split, bps, block_size)
+    m_run = s.amax(-1).cummax(-1).values          # (B,KV,TR,S,bps)
+    p = torch.exp(s - torch.where(torch.isfinite(m_run), m_run, 0.0)[..., None])
+    p = torch.where(valid, p, 0.0)
+    # each block's terms rescaled from its running max to the split's max
+    m_split = m_run[..., -1]                      # (B,KV,TR,S)
+    fin = torch.isfinite(m_split)
+    to_split = torch.where(torch.isfinite(m_run), torch.exp(
+        m_run - torch.where(fin, m_split, 0.0)[..., None]), 0.0)
+    l_split = (p.sum(-1) * to_split).sum(-1)
+    vg = v_pool[tbl.long()].float().reshape(b, n_split, bps, block_size, n_kv,
+                                            dh)
+    pv = torch.einsum("bktsjr,bsjrkd->bktsjd", p.to(k_pool.dtype).float(),
+                      vg)
+    acc_split = (pv * to_split[..., None]).sum(-2)  # (B,KV,TR,S,Dh)
+    # merge the splits
+    m = m_split.amax(-1)
+    to_all = torch.where(fin, torch.exp(
+        m_split - torch.where(torch.isfinite(m), m, 0.0)[..., None]), 0.0)
+    return ((acc_split * to_all[..., None]).sum(-2), m,
+            (l_split * to_all).sum(-1))
+
+
+# What kernel_errors holds a kernel's state to:
+#   m   f32 scores summed in another order: |dm| <= 1e-5 (1 + |m|);
+#   l   sums of unrounded p, rescaled online: |dl| <= 1e-5 + 1e-4 l;
+#   acc against the plain version: the kernel rounds p to bf16 against the
+#       running max, the plain version against the global max. Each rounding
+#       moves a p by at most 2^-9 of itself, independently, so an element's
+#       difference is a sum of independent terms whose spread is below
+#       2^-8 * sqrt(sum p^2) * max|v|; the bound is 4 times that;
+#   acc against the plain version in the kernel's order (same roundings):
+#       ||d acc||_F <= 2e-4 ||acc||_F. Only a bf16 rounding that an f32
+#       difference in a score tips the other way is left (about 2e-5);
+#       leaving the bf16 rounding of p out moves acc by about 8e-4.
+ORDERED_REL_TOL = 2e-4
+
+
+def kernel_errors(q, k_pool, v_pool, block_tables, ctx_lens, acc, m, l, *,
+                  blocks_per_split: int = _BLOCKS_PER_SPLIT) -> dict:
+    """How far a kernel's state (acc, m, l) is from the plain versions on
+    the same inputs. Returns each check's error over its bound (at most 1
+    for a kernel that agrees; see above) and ``max_abs_err``, the largest
+    difference from the plain version over acc, m and l."""
+    acc_w, m_w, l_w = paged_attn_plain(q, k_pool, v_pool, block_tables,
+                                       ctx_lens)
+    acc_o, _, _ = paged_attn_plain_ordered(q, k_pool, v_pool, block_tables,
+                                           ctx_lens,
+                                           blocks_per_split=blocks_per_split)
+    scores, _ = _masked_scores(q, k_pool, block_tables, ctx_lens)
+    live = torch.isfinite(m_w)
+    m_safe = torch.where(live, m_w, 0.0)
+    p_norm = torch.exp(2 * (scores - m_safe[..., None])).sum(-1).sqrt()
+    acc_tol = 2.0 ** -6 * p_norm * v_pool.float().abs().max() + 1e-5
+    d_acc = (acc - acc_w).abs()
+    d_m = torch.where(live, m - m_w, 0.0).abs()
+    d_l = (l - l_w).abs()
+    empty_ok = bool(torch.isneginf(m[~live]).all()) \
+        and bool((l[~live] == 0).all()) and bool((acc[~live] == 0).all())
+    ordered = torch.linalg.vector_norm(acc - acc_o) / (
+        ORDERED_REL_TOL * torch.linalg.vector_norm(acc_o) + 1e-6)
+
+    def worst(ratio):                   # a NaN anywhere fails the check
+        return float(torch.nan_to_num(ratio, nan=float("inf")).max())
+    return {
+        "m": worst(d_m / (1e-5 * (1 + m_safe.abs()))),
+        "l": worst(d_l / (1e-5 + 1e-4 * l_w)),
+        "acc_vs_plain": worst(d_acc / acc_tol[..., None]),
+        "acc_vs_ordered": worst(ordered),
+        "empty_rows": 0.0 if empty_ok else float("inf"),
+        "max_abs_err": max(float(d_acc.max()), float(d_m.max()),
+                           float(d_l.max())),
+    }
 
 
 def _check(q, k_pool, v_pool, block_tables, ctx_lens):
@@ -106,10 +207,7 @@ def _check(q, k_pool, v_pool, block_tables, ctx_lens):
                          "ctx_lens (B,)")
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    from repro_torch.kernels import build
-    lib = build.load("paged_attn")
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.paged_attn.argtypes = [p] * 11 + [i] * 8 + [p]
     lib.paged_attn.restype = ctypes.c_int
@@ -118,14 +216,15 @@ def _lib():
     return lib
 
 
-def paged_attn(q, k_pool, v_pool, block_tables, ctx_lens):
-    """Paged context attention state. q (B, KV, TR, Dh) pre-scaled in the
-    pool dtype; pools (n_blocks, block_size, KV, Dh); block_tables
-    (B, max_blocks) int32 (0 = unmapped); ctx_lens (B,) int32. CUDA
-    tensors run the kernel (bf16 pool); CPU tensors the plain version."""
-    _check(q, k_pool, v_pool, block_tables, ctx_lens)
-    if not q.is_cuda:
-        return paged_attn_plain(q, k_pool, v_pool, block_tables, ctx_lens)
+@functools.lru_cache(maxsize=None)
+def _lib():
+    from repro_torch.kernels import build
+    return _bind(build.load("paged_attn"))
+
+
+def _launch(lib, q, k_pool, v_pool, block_tables, ctx_lens):
+    """Allocate the outputs and launch ``lib``'s kernel on the current
+    stream (checked inputs on the card; no count)."""
     b, n_kv, tr, dh = q.shape
     n_blocks, block_size = k_pool.shape[:2]
     acc = torch.empty((b, n_kv, tr, dh), dtype=torch.float32, device=q.device)
@@ -133,7 +232,6 @@ def paged_attn(q, k_pool, v_pool, block_tables, ctx_lens):
     l = torch.empty_like(m)
     if acc.numel() == 0:
         return acc, m.fill_(float("-inf")), l.zero_()
-    lib = _lib()
     smem = lib.paged_attn_smem_bytes(tr, dh, block_size)
     if smem > _MAX_SMEM:
         raise ValueError(f"paged_attn: TR={tr}, Dh={dh}, block_size="
@@ -155,8 +253,20 @@ def paged_attn(q, k_pool, v_pool, block_tables, ctx_lens):
             max_blocks, _BLOCKS_PER_SPLIT, stream)
     if err:
         raise RuntimeError(f"paged_attn: CUDA error {err} at launch")
-    paged_attn.launches += 1
     return acc, m, l
+
+
+def paged_attn(q, k_pool, v_pool, block_tables, ctx_lens):
+    """Paged context attention state. q (B, KV, TR, Dh) pre-scaled in the
+    pool dtype; pools (n_blocks, block_size, KV, Dh); block_tables
+    (B, max_blocks) int32 (0 = unmapped); ctx_lens (B,) int32. CUDA
+    tensors run the kernel (bf16 pool); CPU tensors the plain version."""
+    _check(q, k_pool, v_pool, block_tables, ctx_lens)
+    if not q.is_cuda:
+        return paged_attn_plain(q, k_pool, v_pool, block_tables, ctx_lens)
+    out = _launch(_lib(), q, k_pool, v_pool, block_tables, ctx_lens)
+    paged_attn.launches += 1
+    return out
 
 
 paged_attn.launches = 0

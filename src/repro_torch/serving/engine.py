@@ -71,7 +71,9 @@ class Request:
 def _proj(x, w_dram, w_flash, bitmap):
     """Bitmap-dispatched projection: NPU bf16 weights (an f32 GEMM) vs the
     flash ERDPE (Alg. 2). Both products are computed; the bitmap selects
-    per column group."""
+    per column group. The GEMM is full f32, as in the reference, while
+    ``torch.backends.cuda.matmul.allow_tf32`` is False (PyTorch's default;
+    the entry points set it)."""
     if w_flash is None or bitmap is None:
         return (x.float() @ w_dram.float()).to(torch.bfloat16)
     flash_out = flash_matmul(x, w_flash, out_dtype=torch.float32)
@@ -245,9 +247,6 @@ class Engine:
         if cfg.family != "dense":
             raise ValueError(f"engine serves dense-family archs (got "
                              f"{cfg.family!r})")
-        # the DRAM-side projections are f32 GEMMs, as in the reference:
-        # keep them full f32 on the card (no TF32)
-        torch.backends.cuda.matmul.allow_tf32 = False
         self.cfg = cfg
         self.device = torch.device(device)
         self.sample_cfg = sample_cfg

@@ -157,3 +157,68 @@ def test_wrapper_checks_what_the_kernel_takes_on_the_cpu_too():
         tpa.paged_attn(qg.transpose(2, 3).contiguous().transpose(2, 3), *args)
     with pytest.raises(TypeError):
         tpa.paged_attn(qg, *args[:2], tx["tables"].long(), tx["ctx"])
+
+
+def _grouped(seed, b, n_kv, tr, dh, bs, ctx, max_blocks, dtype):
+    """Grouped, pre-scaled queries and a scrambled pool, numpy."""
+    x = _inputs(seed, b, max_blocks * bs, tr, n_kv, n_kv, dh, bs, ctx, dtype)
+    qg = np.asarray(ops._group_chunk_queries(jnp.asarray(x["q"]), n_kv,
+                                             jnp.asarray(x["k_pool"]).dtype))
+    return qg, x["k_pool"], x["v_pool"], x["tables"], x["ctx"]
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ordered_plain_matches_pallas_walk(case, dtype):
+    """The plain version in the kernel's order, walking the whole table in
+    one range, is the Pallas kernel's sequential walk: m and l to f32
+    rounding, acc to ORDERED_REL_TOL (the same bf16 roundings of p)."""
+    b, s, t, h, n_kv, dh, bs, ctx = case
+    args = _grouped(b * t + h, b, n_kv, t * (h // n_kv), dh, bs, ctx, s // bs,
+                    dtype)
+    acc, m, l = tpa.paged_attn_plain_ordered(
+        *(interop.tensor_from_numpy(a) for a in args), blocks_per_split=s)
+    acc_w, m_w, l_w = (torch.from_numpy(np.array(a)) for a in
+                       paged_attn_pallas(*args, interpret=True))
+    torch.testing.assert_close(m, m_w, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, l_w, rtol=1e-5, atol=1e-5)
+    rel = float((acc - acc_w).norm()) / max(float(acc_w.norm()), 1e-6)
+    assert rel <= tpa.ORDERED_REL_TOL, rel
+
+
+@pytest.mark.parametrize("bps", [1, 2, 3, 64])
+def test_ordered_plain_splits_merge_to_the_plain_state(bps):
+    """f32 pool (no rounding of p): any cut of the table into ranges merges
+    to the plain version's state."""
+    args = [interop.tensor_from_numpy(a) for a in
+            _grouped(5, 3, 2, 6, 16, 4, [0, 13, 30], 8, "float32")]
+    got = tpa.paged_attn_plain_ordered(*args, blocks_per_split=bps)
+    for g, w in zip(got, tpa.paged_attn_plain(*args)):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+
+
+def test_kernel_errors_pass_the_pallas_kernel_and_flag_faults():
+    """kernel_errors, the checks the CUDA kernel is held to on the card,
+    pass the Pallas kernel's output (interpret mode) on the same inputs and
+    fail a state that left out the bf16 rounding of p, and one that read a
+    wrong pool block."""
+    max_blocks = 16
+    args = _grouped(7, 2, 2, 8, 64, 16, [200, 57], max_blocks, "bfloat16")
+    targs = [interop.tensor_from_numpy(a) for a in args]
+
+    def errors(state):
+        return tpa.kernel_errors(*targs, *state, blocks_per_split=max_blocks)
+
+    good = errors([torch.from_numpy(np.array(a)) for a in
+                   paged_attn_pallas(*args, interpret=True)])
+    assert max(v for k, v in good.items() if k != "max_abs_err") <= 1, good
+    # f32 pools holding the same values: p is not rounded
+    unrounded = errors(tpa.paged_attn_plain_ordered(
+        targs[0], targs[1].float(), targs[2].float(), *targs[3:],
+        blocks_per_split=max_blocks))
+    assert unrounded["acc_vs_ordered"] > 1, unrounded
+    tables = args[3].copy()
+    tables[0, 3] = tables[1, 0]                 # one block read from elsewhere
+    wrong = errors([torch.from_numpy(np.array(a)) for a in paged_attn_pallas(
+        args[0], args[1], args[2], tables, args[4], interpret=True)])
+    assert wrong["acc_vs_plain"] > 1 and wrong["acc_vs_ordered"] > 1, wrong
