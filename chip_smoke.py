@@ -2,8 +2,10 @@
 """Smoke run of the PyTorch port on one NVIDIA card (H100): builds the
 hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each
 against its plain PyTorch version on the card, serves OPT-6.7B at full
-width and depth through them, and checks the card's engine against the
-CPU engine.
+width and depth through them — resident, and streamed from a host page
+store under a device budget of half the flash tier — and checks the
+card's engine against the CPU engine and the streamed engine against the
+resident one.
 
     python3 chip_smoke.py
 
@@ -34,6 +36,25 @@ Phases (any failure exits non-zero; nothing is caught):
                 byte-identical deploy, per-step logits within 2^-6 of the
                 row's largest logit, greedy tokens wherever the top-2
                 margin exceeds twice that.
+  6. paged    — the paged-ECDP kernel against its plain version (the ECDP
+                bound) and against the ECDP kernel on the same dense bytes
+                (bit-equal: same kernel body, same K split) at the OPT-6.7B
+                paged shapes (wq/wo 4096x4096, w_up 4096x16384, w_down
+                16384x4096) and two ragged ones (200x72, 136x384), M in
+                {4, 64}, RBER 0 and 2e-3, ECC on and off, over page tables
+                scrambled by a shuffled free list; times per launch at the
+                serving shapes and one layer's four paged calls back to
+                back.
+  7. streamed — Engine(OPT_6_7B) at full width and depth, seeded init,
+                RBER 1e-4, its flash tier programmed into PageStore(
+                n_planes=32) and streamed under StreamConfig(group_size=1,
+                prefetch_depth=2, device_budget_bytes = half the tier); 4
+                requests (prompts 7..200 tokens, 16 new each). The launch
+                counters are zeroed just before and read just after:
+                paged ECDP = steps x 32 x 4, ECDP = steps (lm_head), paged
+                attention = steps x 32. Then a resident engine on the same
+                params serves the same requests: every step's logits must
+                equal the streamed engine's bit for bit.
 
 The second-to-last line is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Times are CUDA-event medians with the
@@ -217,6 +238,279 @@ def phase_paged(torch, timer):
         f"bound {b_ms:.4f} ms ({b_by}); max abs err {max_abs:.3e}")
     return dict(max_abs_err=max_abs, ms=t_kernel, plain_ms=t_plain,
                 library_ms=t_lib, bound_ms=b_ms, bound_by=b_by)
+
+
+# --- phase 6: paged ECDP -------------------------------------------------------------
+
+PAGED_SHAPES = {"wq/wo": (4096, 4096), "w_up": (4096, 16384),
+                "w_down": (16384, 4096), "ragged 200x72": (200, 72),
+                "ragged 136x384": (136, 384)}
+PAGED_SERVING = ("wq/wo", "w_up", "w_down")   # M = slots x chunk = 64
+
+
+def phase_paged_ecdp(torch, timer):
+    import numpy as np
+
+    from repro_torch.core.quant import dequantize_int8
+    from repro_torch.core.tiering import encode_flash
+    from repro_torch.kernels.ecdp import ecdp_matmul
+    from repro_torch.kernels.paged_ecdp import (gather_q, gather_scale,
+                                                paged_ecdp_matmul,
+                                                paged_ecdp_matmul_plain)
+    from repro_torch.store import PageStore, WeightPagePool
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    store, dense = PageStore(), {}
+    for name, (k, n) in PAGED_SHAPES.items():
+        w = torch.randn((k, n), generator=gen, device="cuda")
+        for rber in (0.0, 2e-3):
+            dense[(name, rber)] = encode_flash(w, rber=rber, seed=k + n)
+            store.put(f"{name}@{rber}", dense[(name, rber)])
+        del w
+    names = list(store.table)
+    n_pages = sum(store.entry_pages(x) for x in names) + 97
+    pool = WeightPagePool(store, n_pages, device="cuda")
+    # scrambled page tables: slots from a shuffled free list
+    pool._free = [int(s) for s in
+                  np.random.default_rng(6).permutation(n_pages)]
+    tbls = pool.upload(names)
+    torch.cuda.synchronize()
+
+    def paged(name, rber):
+        t = tbls[f"{name}@{rber}"]
+        return (pool.buffer, *t["dev"], t["kn"])
+
+    worst_abs = worst_rel = 0.0
+    cases = 0
+    per_launch, acts = {}, {}
+    for name, (k, n) in PAGED_SHAPES.items():
+        for m in (4, 64):
+            a = torch.randn((m, k), generator=gen, device="cuda"
+                            ).to(torch.bfloat16)
+            acts[(name, m)] = a
+            for rber in (0.0, 2e-3):
+                fw = dense[(name, rber)]
+                for ecc_on in (True, False):
+                    got = paged_ecdp_matmul(a, *paged(name, rber), ecc_on)
+                    want = paged_ecdp_matmul_plain(a, *paged(name, rber),
+                                                   ecc_on)
+                    same = ecdp_matmul(a, fw.q, fw.parity, fw.scale, ecc_on)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, same):
+                        raise AssertionError(
+                            f"paged ecdp {name} M={m} rber={rber} "
+                            f"ecc={ecc_on}: differs from the ECDP on the "
+                            f"same bytes by {float((got - same).abs().max())}")
+                    mag = (a.float().abs() @ fw.q.float().abs()) * fw.scale
+                    tol = 1e-4 + 4 * math.sqrt(k) * EPS32 * mag
+                    err = (got - want).abs()
+                    if not bool((err <= tol).all()):
+                        raise AssertionError(
+                            f"paged ecdp {name} M={m} rber={rber} "
+                            f"ecc={ecc_on}: max err {float(err.max())}")
+                    worst_abs = max(worst_abs, float(err.max()))
+                    worst_rel = max(worst_rel, float(
+                        (err / want.abs().clamp_min(1e-3)).max()))
+                    cases += 1
+        if name not in PAGED_SERVING:
+            continue
+        m, a, args = 64, acts[(name, 64)], paged(name, 2e-3)
+        t_kernel = timer(lambda: paged_ecdp_matmul(a, *args))
+        t_plain = timer(lambda: paged_ecdp_matmul_plain(a, *args), reps=3)
+        # yardstick: torch.matmul on the gathered, dequantised bf16 weight
+        w_deq = dequantize_int8(gather_q(args[0], args[1], k, n),
+                                gather_scale(args[0], args[3], n))
+        t_lib = timer(lambda: torch.matmul(a, w_deq))
+        del w_deq
+        nbytes = k * n * 9 / 8 + 4 * n + 2 * m * k + 4 * m * n
+        b_ms, b_by = bound_ms(nbytes, 2.0 * m * k * n)
+        per_launch[name] = dict(m=m, k=k, n=n, ms=t_kernel,
+                                plain_ms=t_plain, library_ms=t_lib,
+                                bound_ms=b_ms, bound_by=b_by)
+        log(f"  paged ecdp {name:7s} M={m} K={k:5d} N={n:5d}: kernel "
+            f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, torch.matmul bf16 "
+            f"{t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    log(f"  paged ecdp vs plain: max abs err {worst_abs:.3e}, max rel err "
+        f"{worst_rel:.3e}; bit-equal to the ECDP on the same bytes "
+        f"({cases} cases)")
+    layer = time_paged_layer(torch, timer, pool, tbls, acts)
+    del pool, tbls, dense, acts
+    return dict(max_abs_err=worst_abs, per_launch=per_launch, layer=layer)
+
+
+def time_paged_layer(torch, timer, pool, tbls, acts):
+    """One layer's four paged calls as the streamed step makes them (wq,
+    wo, w_up, w_down at M=64, four distinct weights) back to back: the
+    kernel, its plain version and torch.matmul on the dequantised
+    weights."""
+    from repro_torch.core.quant import dequantize_int8
+    from repro_torch.kernels.paged_ecdp import (gather_q, gather_scale,
+                                                paged_ecdp_matmul,
+                                                paged_ecdp_matmul_plain)
+
+    calls = []
+    for name, rber in (("wq/wo", 0.0), ("wq/wo", 2e-3), ("w_up", 2e-3),
+                       ("w_down", 2e-3)):
+        t = tbls[f"{name}@{rber}"]
+        calls.append((acts[(name, 64)], (pool.buffer, *t["dev"], t["kn"])))
+    t_kernel = timer(lambda: [paged_ecdp_matmul(a, *x) for a, x in calls])
+    t_plain = timer(lambda: [paged_ecdp_matmul_plain(a, *x)
+                             for a, x in calls], reps=3)
+    w_deq = [dequantize_int8(gather_q(x[0], x[1], *x[4]),
+                             gather_scale(x[0], x[3], x[4][1]))
+             for _, x in calls]
+    t_lib = timer(lambda: [torch.matmul(a, w) for (a, _), w in
+                           zip(calls, w_deq)])
+    del w_deq
+    nbytes = sum(k * n * 9 / 8 + 4 * n + 2 * a.shape[0] * k
+                 + 4 * a.shape[0] * n for a, (*_, (k, n)) in calls)
+    flops = sum(2.0 * a.shape[0] * k * n for a, (*_, (k, n)) in calls)
+    b_ms, b_by = bound_ms(nbytes, flops)
+    log(f"  paged ecdp, one layer's 4 calls back to back: kernel "
+        f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, torch.matmul bf16 "
+        f"{t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(ms=t_kernel, plain_ms=t_plain, library_ms=t_lib,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+# --- phase 7: streamed serving ------------------------------------------------------
+
+STREAM_PROMPTS, STREAM_NEW = (7, 40, 120, 200), 16
+
+
+def _payload(k: int, n: int) -> int:
+    """Store payload bytes of one (K, N) flash weight: q, parity, scales."""
+    return k * n + (k // 8) * n + 4 * n
+
+
+def phase_streamed(torch):
+    import resource
+
+    import numpy as np
+
+    from repro_torch.configs import OPT_6_7B
+    from repro_torch.core.scheduler import AdmissionConfig
+    from repro_torch.kernels import ecdp, paged_attn, paged_ecdp
+    from repro_torch.models import dense
+    from repro_torch.serving.engine import Engine
+    from repro_torch.store import PageStore, StreamConfig
+
+    cfg = OPT_6_7B
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    tier = cfg.n_layers * (_payload(d, f) + _payload(f, d)
+                           + 4 * _payload(d, d)) + _payload(d, v)
+    stream_cfg = StreamConfig(group_size=1, prefetch_depth=2,
+                              device_budget_bytes=tier // 2)
+    # token_budget 1024: the budget contracted by Algorithm 2 and the
+    # streamer's stall (at worst 1024 x 0.25 x 0.25 = 64 lanes) never
+    # binds below the 4 x 16 lanes the slots can use, so the streamed and
+    # the resident engine plan the same steps and their logits compare
+    kw = dict(max_slots=4, max_seq=256, rber=1e-4, seed=0,
+              admission_cfg=AdmissionConfig(chunk_tokens=16,
+                                            token_budget=1024),
+              device="cuda")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, v, n).tolist() for n in STREAM_PROMPTS]
+
+    def params():
+        return dense.init(cfg, torch.Generator(device="cuda").manual_seed(5),
+                          device="cuda")
+
+    t0 = time.perf_counter()
+    store = PageStore(n_planes=32)
+    eng = Engine(cfg, params(), weight_store=store, stream_cfg=stream_cfg,
+                 **kw)
+    gc.collect()
+    torch.cuda.synchronize()
+    assert store.total_bytes == tier > stream_cfg.device_budget_bytes
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    log(f"  init + program the store ({cfg.n_layers} layers, full width): "
+        f"{time.perf_counter() - t0:.1f} s; store {store.n_pages} pages, "
+        f"{store.image_bytes / 2**30:.2f} GiB image ({tier / 2**30:.2f} GiB "
+        f"payload; numpy array {store._data.nbytes / 2**30:.2f} GiB), "
+        f"budget {stream_cfg.device_budget_bytes / 2**30:.2f} GiB, pool "
+        f"{eng.wpool.n_pages} pages; peak host RSS so far {rss / 2**30:.2f}"
+        f" GiB; device {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    rids = [eng.submit(p, max_new=STREAM_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logits = []
+    ecdp.ecdp_matmul.launches = 0
+    paged_ecdp.paged_ecdp_matmul.launches = 0
+    paged_attn.paged_attn.launches = 0
+    t0 = time.perf_counter()
+    while eng.step():
+        logits.append(eng.last_logits.cpu())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_ecdp": paged_ecdp.paged_ecdp_matmul.launches,
+                "ecdp": ecdp.ecdp_matmul.launches,
+                "paged_attn": paged_attn.paged_attn.launches}
+    peak = torch.cuda.max_memory_allocated()
+    steps = len(logits)
+    st = eng.stream_stats()
+    out = {rid: list(eng.requests[rid].out) for rid in rids}
+    assert all(len(o) == STREAM_NEW and all(0 <= x < v for x in o)
+               for o in out.values())
+    assert all(bool(torch.isfinite(lg).all()) for lg in logits)
+    assert launches == {"paged_ecdp": steps * cfg.n_layers * 4,
+                        "ecdp": steps, "paged_attn": steps * cfg.n_layers}, \
+        (launches, steps)
+    assert st["bytes_streamed"] > 0 and st["pool_grows"] == 0
+    assert st["pool_uploads"] == st["groups_streamed"], st
+    resident = sum(store.entry_pages(n) for g in range(eng.n_groups)
+                   if g in eng.cache for n in eng._group_entries(g))
+    assert eng.wpool.used_pages == resident, (eng.wpool.used_pages, resident)
+    stalls = [s["stall_frac"] for s in eng.stats]
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    log(f"  streamed: {len(rids)} requests (prompts {list(STREAM_PROMPTS)}, "
+        f"{STREAM_NEW} new each) in {steps} steps, {wall:.2f} s: "
+        f"{wall / steps * 1e3:.1f} ms/step; launches {launches}")
+    log(f"  streamed {st['groups_streamed']} windows, "
+        f"{st['bytes_streamed'] / steps / 2**30:.3f} GiB/step; host-to-device"
+        f" copies {st['pool_bytes_staged'] / 2**30:.2f} GiB in "
+        f"{st['pool_h2d_s']:.3f} s = "
+        f"{st['pool_bytes_staged'] / max(st['pool_h2d_s'], 1e-9) / 1e9:.2f}"
+        f" GB/s; worker read+upload {st['stream_s']:.2f} s = "
+        f"{st['bytes_streamed'] / max(st['stream_s'], 1e-9) / 1e9:.2f} GB/s"
+        f"; consumer stall {st['stall_s']:.2f} s; stall_frac last "
+        f"{stalls[-1]:.3f}, mean {sum(stalls) / len(stalls):.3f}; cache "
+        f"hits {st['cache_hits']} misses {st['cache_misses']} evictions "
+        f"{st['cache_evictions']}; NAND model {st['nand_seconds']:.3f} s")
+    log(f"  peak device memory while serving {peak / 2**30:.2f} GiB (pool "
+        f"{eng.wpool.n_pages * store.page_bytes / 2**30:.2f} GiB); peak host"
+        f" RSS {rss / 2**30:.2f} GiB, store array "
+        f"{store._data.nbytes / 2**30:.2f} GiB")
+    stream_ms = wall / steps * 1e3
+    del eng, store
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    res = Engine(cfg, params(), **kw)
+    gc.collect()
+    log(f"  resident reference built in {time.perf_counter() - t0:.1f} s")
+    rids_r = [res.submit(p, max_new=STREAM_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, lg in enumerate(logits):
+        assert res.step() > 0
+        got = res.last_logits.cpu()
+        if not torch.equal(got, lg):
+            raise AssertionError(
+                f"step {i}: streamed logits differ from the resident "
+                f"engine's by {float((got - lg).abs().max())}")
+    assert res.step() == 0
+    torch.cuda.synchronize()
+    wall_r = time.perf_counter() - t0
+    assert [res.requests[r].out for r in rids_r] == [out[r] for r in rids]
+    log(f"  resident: {steps} steps, {wall_r / steps * 1e3:.1f} ms/step; "
+        f"logits bit-equal to the streamed engine's at all {steps} steps")
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(steps=steps, launches=launches, ms_per_step=stream_ms,
+                resident_ms_per_step=wall_r / steps * 1e3)
 
 
 # --- phase 4: serving -----------------------------------------------------------
@@ -520,6 +814,13 @@ def main() -> int:
     del timer
     log("phase 5: engine parity, card vs CPU")
     phase_parity(torch)
+    log("phase 6: paged ECDP kernel vs plain and vs ECDP")
+    timer = Timer(torch)
+    paged_res = phase_paged_ecdp(torch, timer)
+    del timer
+    torch.cuda.empty_cache()
+    log("phase 7: streamed serving OPT-6.7B")
+    streamed = phase_streamed(torch)
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     step = serve["ecdp_step"]
@@ -544,6 +845,19 @@ def main() -> int:
          "plain_ms": pa_res["plain_ms"], "bound_ms": pa_res["bound_ms"],
          "bound_by": pa_res["bound_by"], "library_ms": pa_res["library_ms"],
          "at": "B=4 KV=32 TR=16 Dh=128 block 16, ctx [0, 2047, 513, 1200]"},
+        {"name": "paged_ecdp_matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_ecdp.cu",
+         "replaces": "src/repro/kernels/paged_ffn.py:156",
+         "launches": streamed["launches"]["paged_ecdp"],
+         "max_abs_err": paged_res["max_abs_err"],
+         "ms": paged_res["layer"]["ms"], "kernel_ms": paged_res["layer"]["ms"],
+         "plain_ms": paged_res["layer"]["plain_ms"],
+         "bound_ms": paged_res["layer"]["bound_ms"],
+         "bound_by": paged_res["layer"]["bound_by"],
+         "library_ms": paged_res["layer"]["library_ms"],
+         "at": "one OPT-6.7B layer's 4 paged calls back to back at M=64: "
+               "wq, wo (4096x4096), w_up (4096x16384), w_down (16384x4096)",
+         "per_launch": paged_res["per_launch"]},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,6 +1,5 @@
 """Tiered weight placement (paper contribution C1) — the port of
-``repro/core/tiering.py`` (``PagedWeight`` and the page store come with the
-streamed planes, in a later slice).
+``repro/core/tiering.py``.
 
 NVLLM stores FFN weights and the final output projection in 3D NAND flash
 and keeps attention Q/K/V/O weights, embeddings and norms in DRAM (§3.5).
@@ -9,6 +8,10 @@ planes + per-channel scales. ``deploy`` converts a param tree (nested dicts
 of tensors) into that tiered form — the "flash programming" step — with
 optional RBER injection emulating raw NAND reads. Given the same params,
 rber and seed, q, parity and scale are byte-identical to the JAX deploy.
+With a ``store`` (``store/pagestore.PageStore``) the flash tier is
+serialized into host NAND pages instead and the tree carries ``StoreRef``
+placeholders; the streamed engine consumes those pages in place from the
+device page pool as ``PagedWeight``s.
 """
 from __future__ import annotations
 
@@ -57,6 +60,28 @@ class FlashWeight:
         return self.q.numel() + self.parity.numel() + self.scale.numel() * 4
 
 
+@dataclasses.dataclass
+class PagedWeight:
+    """A flash-tier weight consumed IN PLACE from the device page pool: the
+    shared ``(n_pages, 16 KiB)`` int8 pool tensor plus the page tables
+    naming which pool slots hold this weight's 128x128 q tiles and its flat
+    parity and scale byte runs (``store/page_pool.WeightPagePool.upload``
+    builds them). ``kn`` is the logical (K, N)."""
+    pool: torch.Tensor      # (n_pages, PAGE_BYTES) int8
+    q_tbl: torch.Tensor     # (..., k_tiles, n_tiles) i32 pool page slots
+    p_slots: torch.Tensor   # (..., n_parity_pages) i32
+    s_slots: torch.Tensor   # (..., n_scale_pages) i32
+    kn: tuple = ()
+
+    @property
+    def lead(self) -> tuple:
+        return tuple(self.q_tbl.shape[:-2])
+
+    @property
+    def shape(self) -> tuple:
+        return self.lead + tuple(self.kn)
+
+
 def is_flash_path(path: str, patterns=DEFAULT_FLASH_PATTERNS) -> bool:
     return any(re.fullmatch(p, path) for p in patterns)
 
@@ -88,7 +113,11 @@ def encode_flash(w: torch.Tensor, rber: float = 0.0, seed: int = 0
 
 
 def _walk(tree: dict, prefix: str = ""):
-    for key, v in tree.items():
+    """(path, leaf) in sorted key order — JAX's pytree order, so that
+    ``deploy(store=)`` programs the store's pages in the reference's order
+    and the page tables come out the same."""
+    for key in sorted(tree):
+        v = tree[key]
         p = f"{prefix}/{key}" if prefix else str(key)
         if isinstance(v, dict):
             yield from _walk(v, p)
@@ -97,12 +126,15 @@ def _walk(tree: dict, prefix: str = ""):
 
 
 def deploy(params: dict, patterns=DEFAULT_FLASH_PATTERNS, rber: float = 0.0,
-           seed: int = 0) -> tuple[dict, dict[str, str]]:
+           seed: int = 0, store=None) -> tuple[dict, dict[str, str]]:
     """Convert a param tree to tiered NVLLM deployment form.
 
     Returns (tiered_params, tier_map). Flash-tier leaves become
     ``FlashWeight``s (encoded on the leaf's device); DRAM-tier leaves are
     cast to bf16. Param paths are the JAX package's ("layers/ffn/w_up").
+    With ``store`` each flash leaf is encoded the same way, programmed into
+    the store's pages (``put_param``) and replaced by its ``StoreRef``, so
+    device memory holds the DRAM tier plus one encoded leaf at a time.
     """
     tier_map: dict[str, str] = {}
     tiered: dict[str, Any] = {}
@@ -114,6 +146,8 @@ def deploy(params: dict, patterns=DEFAULT_FLASH_PATTERNS, rber: float = 0.0,
             # process, and the seed must be the same in every run.
             out = encode_flash(leaf, rber=rber,
                                seed=seed + zlib.crc32(p.encode()) % (2**31))
+            if store is not None:
+                out = store.put_param(p, out)
         else:
             out = leaf.to(torch.bfloat16)
         node = tiered
@@ -124,12 +158,51 @@ def deploy(params: dict, patterns=DEFAULT_FLASH_PATTERNS, rber: float = 0.0,
     return tiered, tier_map
 
 
+# Per-layer flash Q/K/V/O copies (Algorithm 2's in-flash projection
+# targets), programmed into a store under ``attn_flash/{key}@{layer}``. The
+# engine dispatches only wq and wo; wk and wv are programmed (and streamed)
+# as the reference does, so store bytes, page tables and die images are the
+# JAX package's.
+ATTN_FLASH_KEYS = ("wq", "wk", "wv", "wo")
+
+
+def program_attn_flash(store, attn_layers: dict, n_layers: int,
+                       rber: float = 0.0, seed: int = 0) -> None:
+    """Program the per-layer attn flash copies into ``store``, encoded as
+    the resident engine's flash copies are (per-layer seed ``seed + li``)."""
+    for li in range(n_layers):
+        for k in ATTN_FLASH_KEYS:
+            store.put(f"attn_flash/{k}@{li}",
+                      encode_flash(attn_layers[k][li], rber=rber,
+                                   seed=seed + li))
+
+
+def dram_tier(params: dict, patterns=DEFAULT_FLASH_PATTERNS) -> dict:
+    """The DRAM-tier remainder of a raw param tree without encoding the
+    flash tier: flash-pattern matrices dropped, everything else cast to
+    bf16 — the same tree as ``drop_store_refs(deploy(params, store=...))``,
+    the params an engine over a programmed die image takes."""
+    def rec(tree, prefix):
+        out = {}
+        for k, v in tree.items():
+            p = f"{prefix}/{k}" if prefix else str(k)
+            if isinstance(v, dict):
+                out[k] = rec(v, p)
+            elif not (is_flash_path(p, patterns) and v.ndim >= 2):
+                out[k] = v.to(torch.bfloat16)
+        return out
+    return rec(params, "")
+
+
 def flash_bytes(tiered: dict) -> tuple[int, int]:
-    """(flash_tier_bytes, dram_tier_bytes) of a deployed tree."""
+    """(flash_tier_bytes, dram_tier_bytes) of a deployed tree, with
+    FlashWeight leaves or store-resident StoreRef placeholders."""
     fb = db = 0
     for _, leaf in _walk(tiered):
         if isinstance(leaf, FlashWeight):
             fb += leaf.nbytes()
+        elif getattr(leaf, "is_store_ref", False):
+            fb += leaf.nbytes
         else:
             db += leaf.numel() * leaf.element_size()
     return fb, db

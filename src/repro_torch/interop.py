@@ -4,6 +4,8 @@ The port never imports JAX; a caller that has both (the tests) converts
 JAX arrays to numpy first (``jax.tree.map(np.asarray, tree)``) and hands
 the numpy tree here. bf16 crosses as a ``uint16`` view, because
 ``torch.from_numpy`` rejects the ``ml_dtypes.bfloat16`` dtype JAX uses.
+Like the port's other entry points, every function here puts its tensors on
+``cuda`` unless the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import torch
 from repro_torch.core.tiering import FlashWeight
 
 
-def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
+def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
     """One numpy array (bf16 included) -> a tensor on ``device``."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
@@ -22,7 +24,7 @@ def tensor_from_numpy(a, device="cpu") -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
 
 
-def params_from_numpy(tree, device="cpu"):
+def params_from_numpy(tree, device="cuda"):
     """A JAX param pytree as numpy (nested dicts) -> the same tree of
     tensors: the port's param layout is the JAX one."""
     if isinstance(tree, dict):
@@ -30,7 +32,7 @@ def params_from_numpy(tree, device="cpu"):
     return tensor_from_numpy(tree, device)
 
 
-def parity_from_numpy(parity, device="cpu") -> torch.Tensor:
+def parity_from_numpy(parity, device="cuda") -> torch.Tensor:
     """A JAX parity plane -> the port's uint8 one. ``ecc.encode`` in the
     JAX package returns uint32 (its ``jnp.sum`` widens), holding bytes."""
     parity = np.asarray(parity)
@@ -41,14 +43,14 @@ def parity_from_numpy(parity, device="cpu") -> torch.Tensor:
     return tensor_from_numpy(parity, device)
 
 
-def flash_from_numpy(fw, device="cpu") -> FlashWeight:
+def flash_from_numpy(fw, device="cuda") -> FlashWeight:
     """A JAX ``FlashWeight`` whose leaves are numpy -> the port's."""
     return FlashWeight(q=tensor_from_numpy(fw.q, device),
                        parity=parity_from_numpy(fw.parity, device),
                        scale=tensor_from_numpy(fw.scale, device))
 
 
-def deployed_from_numpy(tree, device="cpu"):
+def deployed_from_numpy(tree, device="cuda"):
     """A JAX ``deploy`` output as numpy -> the port's tiered tree
     (``FlashWeight`` leaves converted, DRAM leaves as tensors)."""
     if isinstance(tree, dict):

@@ -8,8 +8,8 @@ seconds):
          -Xcompiler -fPIC -Xptxas -v -o <name>-<hash>.so csrc/<name>.cu
 
 The libraries go to ``build/repro_torch_kernels/`` at the repository root,
-named by a hash of all the sources and flags, so an edited source is
-rebuilt and an unchanged one is reused. All missing sources are compiled
+named by a hash of all the sources, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited source is rebuilt and an unchanged one is reused. All missing sources are compiled
 together, one ``nvcc`` process each. ``ptxas``'s register and spill report
 is kept beside each library as ``<name>-<hash>.log``.
 
@@ -28,7 +28,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("ecdp", "paged_attn")
+SOURCES = ("ecdp", "paged_attn", "paged_ecdp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -52,6 +52,8 @@ def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return h.hexdigest()[:16]
 
 

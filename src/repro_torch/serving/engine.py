@@ -26,10 +26,22 @@ request level, with the KV-cache-aware scheduler (Algorithm 2) in the loop.
     claimed at admission), per-step chunk planning under the Alg.2-coupled
     token budget (core/scheduler.plan_chunks), completion, O(1) slot
     release, per-step stats.
+  * streamed plane — with a ``weight_store`` (``store.PageStore``) the
+    flash tier (FFN, lm_head and the per-layer Q/K/V/O flash copies) lives
+    in host NAND pages, not in device memory. ``_streamed_step`` embeds,
+    then runs the layers group by group as the ``LayerStreamer`` hands
+    each group's window over — its pages uploaded by a worker thread into
+    the device ``WeightPagePool`` in one staged transfer — and the group's
+    flash weights are read in place through page tables (``PagedWeight``,
+    the paged ECDP), then finishes as the resident step does. lm_head stays
+    a device ``FlashWeight``. A ``ResidencyCache`` keeps pinned and recent
+    groups resident under ``StreamConfig.device_budget_bytes``; the
+    streamer's stall fraction contracts the step token budget.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import threading
 import time
@@ -39,11 +51,17 @@ import torch
 
 from repro_torch.core import scheduler as sched
 from repro_torch.core.erdpe import flash_matmul
-from repro_torch.core.tiering import deploy, encode_flash
+from repro_torch.core.tiering import (ATTN_FLASH_KEYS, PagedWeight, deploy,
+                                      encode_flash, program_attn_flash)
 from repro_torch.models import common as cm
 from repro_torch.models import dense
 from repro_torch.serving.kvcache import PagedKVPool
 from repro_torch.serving.sampler import SampleConfig, last_valid_hidden, sample
+from repro_torch.store.page_pool import WeightPagePool
+from repro_torch.store.pagestore import (StoreRef, drop_store_refs,
+                                         graft_store_refs)
+from repro_torch.store.streamer import (LayerStreamer, ResidencyCache,
+                                        StreamConfig)
 
 
 @dataclasses.dataclass
@@ -212,10 +230,42 @@ def _step_impl(cfg, sched_cfg, sample_cfg, kv_aware, params, layers,
                         positions, block_tables, generator)
 
 
-def _to_device(tree, device):
+def _paged(pool_buf, tbl, kn):
+    """Bind one page-table dict (its device tables) to the pool tensor as a
+    PagedWeight — the flash weight the ERDPE consumes in place."""
+    q_tbl, p_slots, s_slots = tbl["dev"]
+    return PagedWeight(pool=pool_buf, q_tbl=q_tbl, p_slots=p_slots,
+                       s_slots=s_slots, kn=tuple(kn))
+
+
+def _stream_group_impl(cfg, bitmap, shapes, layers_dram, window, pool_buf,
+                       k_pool, v_pool, x, positions, ctx_lens, block_tables,
+                       lo, group_size):
+    """One STREAMED layer group: the resident step's per-layer math, with
+    the group's flash weights grafted into each layer's DRAM params as
+    PagedWeights over ``pool_buf``. Returns (x, [k per layer], [v per
+    layer])."""
+    ks, vs = [], []
+    for i in range(group_size):
+        li = lo + i
+        lp = dict(layers_dram[li])
+        lp["ffn"] = {**lp.get("ffn", {}),
+                     **{k: _paged(pool_buf, t[i], shapes["ffn"][k])
+                        for k, t in window["ffn"].items()}}
+        fl = {k: _paged(pool_buf, t[i], shapes["attn"][k])
+              for k, t in window["attn"].items()}
+        x, (kl, vl) = _chunk_layer(cfg, bitmap, ctx_lens, positions,
+                                   block_tables, x,
+                                   (lp, fl, k_pool[li], v_pool[li]))
+        ks.append(kl)
+        vs.append(vl)
+    return x, ks, vs
+
+
+def _map_tree(fn, tree):
     if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
-    return tree.to(device)
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _layer_slice(tree, li):
@@ -235,6 +285,13 @@ class Engine:
     Alg.2-coupled per-step token budget; ``max_waiting`` bounds the queue
     (``submit`` then blocks). ``last_logits`` holds the latest step's
     (slots, V) f32 logits.
+
+    ``weight_store`` (a ``store.PageStore``) serves the streamed plane:
+    the flash tier is programmed into the store (or, if the store already
+    holds a page table — a die image — taken from it, and ``params`` is the
+    DRAM tier) and streamed onto the device under ``stream_cfg``
+    (``store.StreamConfig``). On the card every kernel of a step runs on
+    the stream current at construction.
     """
 
     def __init__(self, cfg, params, max_slots: int = 4, max_seq: int = 256,
@@ -243,24 +300,53 @@ class Engine:
                  kv_aware: bool = True, rber: float = 0.0, seed: int = 0,
                  block_size: int = 16, n_blocks: int | None = None,
                  admission_cfg: sched.AdmissionConfig | None = None,
-                 max_waiting: int | None = None, device="cuda"):
+                 max_waiting: int | None = None, weight_store=None,
+                 stream_cfg: StreamConfig | None = None, device="cuda"):
         if cfg.family != "dense":
             raise ValueError(f"engine serves dense-family archs (got "
                              f"{cfg.family!r})")
         self.cfg = cfg
         self.device = torch.device(device)
+        self._stream = (torch.cuda.current_stream(self.device)
+                        if self.device.type == "cuda" else None)
         self.sample_cfg = sample_cfg
         self.kv_aware = kv_aware
         self.admission_cfg = admission_cfg or sched.AdmissionConfig()
+        self.store = weight_store
+        self.streamed = weight_store is not None
+        # a store that already holds a page table was programmed before (a
+        # die image): NAND programming is write-once, so the flash tier
+        # comes from its table and ``params`` is the DRAM tier only
+        self.store_preprogrammed = (self.streamed
+                                    and len(weight_store.table) > 0)
         with torch.no_grad():
-            params = _to_device(params, self.device)
-            # DRAM tier: bf16 attention weights, embeddings, norms; flash
-            # tier: INT8+ECC FFN and lm_head, plus a flash copy of the Q/O
-            # projections the bitmap can move columns to.
-            self.params, self.tier_map = deploy(params, rber=rber, seed=seed)
-            self.attn_flash = self._flash_attn_copy(params, rber, seed)
-        self._layers = [_layer_slice(self.params["layers"], li)
-                        for li in range(cfg.n_layers)]
+            params = _map_tree(lambda t: t.to(self.device), params)
+            if self.store_preprogrammed:
+                if rber > 0.0:
+                    raise ValueError(
+                        "rber applies at flash-programming time; a "
+                        "preprogrammed store carries its own error injection")
+                refs = weight_store.param_refs(
+                    exclude_prefixes=("attn_flash/",))
+                self.params = graft_store_refs(
+                    _map_tree(lambda t: t.to(torch.bfloat16), params), refs)
+                self.tier_map = {p: "flash" for p in refs}
+            else:
+                # DRAM tier: bf16 attention weights, embeddings, norms;
+                # flash tier: INT8+ECC FFN and lm_head (device FlashWeights,
+                # or StoreRefs to the store's pages), plus a flash copy of
+                # the Q/O projections the bitmap can move columns to.
+                self.params, self.tier_map = deploy(
+                    params, rber=rber, seed=seed, store=weight_store)
+            if self.streamed:
+                self.stream_cfg = stream_cfg or StreamConfig()
+                self.attn_flash = None
+                self._init_streamed(params, rber, seed)
+            else:
+                self.stream_cfg = None
+                self.attn_flash = self._flash_attn_copy(params, rber, seed)
+                self._layers = [_layer_slice(self.params["layers"], li)
+                                for li in range(cfg.n_layers)]
         h = sched_cfg.h if sched_cfg else 32
         while cfg.n_heads * cfg.head_dim % h:
             h //= 2
@@ -295,6 +381,9 @@ class Engine:
         self._prev_cycles = torch.zeros((), dtype=torch.int32,
                                         device=self.device)
         self._npu_frac = 1.0             # host view of the Alg. 2 bitmap
+        self._stall_frac = 0.0           # EMA of streamer stall per step
+        self._steps_done = 0
+        self._auto_depth_done = False
         self.stats: list[dict] = []
         self.last_logits: torch.Tensor | None = None
 
@@ -307,7 +396,222 @@ class Engine:
                  for k in ("wq", "wo")}
                 for li in range(self.cfg.n_layers)]
 
-    # --- request management (control plane) -----------------------------------
+    # --- streamed mode (FlashStore weight tier) -----------------------------
+
+    def _init_streamed(self, raw_params, rber, seed):
+        """Flash tier lives in the PageStore: program the per-layer attn
+        flash copies next to deploy()'s FFN/lm_head entries, split the DRAM
+        remainder out of the tiered tree, and stand up the page pool,
+        residency cache and layer streamer under the device weight
+        budget."""
+        cfg, sc = self.cfg, self.stream_cfg
+        if cfg.n_layers % sc.group_size:
+            raise ValueError(f"group_size={sc.group_size} must divide "
+                             f"n_layers={cfg.n_layers}")
+        # per-layer flash Q/K/V/O copies with the resident engine's seeds;
+        # a die image normally carries them, and a read-only one without
+        # them cannot be fixed here
+        if f"attn_flash/{ATTN_FLASH_KEYS[0]}@0" not in self.store.table:
+            if isinstance(self.store._data, np.memmap):
+                raise ValueError(
+                    "die image lacks the per-layer attn flash copies and is "
+                    "read-only; program them into a writable store")
+            program_attn_flash(self.store, raw_params["layers"]["attn"],
+                               cfg.n_layers, rber=rber, seed=seed)
+        self._ffn_refs = {k: v for k, v in self.params["layers"]["ffn"].items()
+                          if isinstance(v, StoreRef)}
+        stray = [p for p, t in self.tier_map.items()
+                 if t == "flash" and p != "lm_head"
+                 and not p.startswith("layers/ffn/")]
+        if stray:
+            raise ValueError("streamed mode expects the dense flash layout "
+                             f"(layers/ffn/* + lm_head); stray flash leaves "
+                             f"would silently never be fetched: {stray}")
+        layers_dram = drop_store_refs(self.params["layers"])
+        self._layers = [_layer_slice(layers_dram, li)
+                        for li in range(cfg.n_layers)]
+        self._dram_params = {k: self.params[k]
+                             for k in ("embed", "pos_embed", "final_norm")
+                             if k in self.params}
+        self.n_groups = cfg.n_layers // sc.group_size
+        group_names = [self._group_entries(g) for g in range(self.n_groups)]
+        group_nbytes = [sum(self.store.entry_nbytes(n) for n in names)
+                        for names in group_names]
+        self._group_bytes = max(group_nbytes)   # depth auto-tuning re-budgets
+        lm_bytes = self.store.entry_nbytes("lm_head")
+        # the rotating window holds up to prefetch_depth groups in flight;
+        # whatever budget remains is residency-cache capacity
+        window_bytes = sc.prefetch_depth * self._group_bytes
+        if sc.device_budget_bytes is None or sc.pin_all:
+            cache_cap = None
+        else:
+            cache_cap = sc.device_budget_bytes - window_bytes
+            if cache_cap < lm_bytes:
+                raise ValueError(
+                    f"device_budget_bytes={sc.device_budget_bytes} cannot "
+                    f"hold {sc.prefetch_depth} prefetch windows "
+                    f"({window_bytes}B) + pinned lm_head ({lm_bytes}B)")
+        # pool size in PHYSICAL pages (padded tiles inflate small params
+        # past their payload bytes): the worst pages-per-payload-byte ratio
+        # over the groups converts the cache's payload budget, plus the
+        # in-flight windows and one retiring transient; capped at the tier.
+        group_pages = [sum(self.store.entry_pages(n) for n in names)
+                       for names in group_names]
+        pb = self.store.page_bytes
+        worst = max(gp * pb / max(nb, 1)
+                    for gp, nb in zip(group_pages, group_nbytes))
+        self._pool_reserve_pages = \
+            (sc.prefetch_depth + 1) * max(group_pages)
+        n_pages = sum(group_pages)
+        if cache_cap is not None:
+            n_pages = min(n_pages, -(-int(worst * cache_cap) // pb)
+                          + self._pool_reserve_pages)
+        self.wpool = WeightPagePool(self.store, n_pages, device=self.device,
+                                    stream=self._stream)
+        self._win_shapes = {
+            "ffn": {k: tuple(self.store.table[ref.entry(0)]["q"].shape)
+                    for k, ref in self._ffn_refs.items()},
+            "attn": {k: tuple(self.store.table[f"attn_flash/{k}@0"]["q"].shape)
+                     for k in ATTN_FLASH_KEYS},
+        }
+        self.cache = ResidencyCache(cache_cap, on_evict=self._evict_window)
+        self.streamer = LayerStreamer(self.n_groups, self._fetch_group,
+                                      self.cache, sc.prefetch_depth,
+                                      discard=self._discard_window)
+        # hot pins: lm_head is read every step (a device FlashWeight, read
+        # whole, so it skips the pool); the first/last groups bound the
+        # stream's cold start and tail when they fit.
+        self._lm_head = self.store.get("lm_head", self.device)
+        self.cache.insert("lm_head", self._lm_head, lm_bytes, pin=True)
+        if sc.pin_all:
+            for g in range(self.n_groups):
+                self.streamer.pin(g)
+        elif sc.pin_edges:
+            for g in dict.fromkeys((0, self.n_groups - 1)):
+                self.streamer.pin(g)
+        # init-time reads are deployment, not serving
+        self.store.reset_counters()
+        self.wpool.reset_counters()
+
+    def _evict_window(self, key, value):
+        """Cache eviction hook: hand an evicted window's pool slots back
+        (the pool orders their reuse after the consumer's reads)."""
+        if isinstance(value, dict) and "slots" in value:
+            self.wpool.free(value["slots"])
+
+    def _discard_window(self, value):
+        """Streamer cleanup of a fetched window the cache did not keep:
+        free its transient pool slots (after the consumer retired it)."""
+        if isinstance(value, dict) and "slots" in value:
+            self.wpool.free(value["slots"])
+
+    def _group_entries(self, g: int) -> list[str]:
+        """Store entry names backing layer group ``g``'s device window."""
+        lo = g * self.stream_cfg.group_size
+        names = []
+        for li in range(lo, lo + self.stream_cfg.group_size):
+            names += [ref.entry(li) for ref in self._ffn_refs.values()]
+            names += [f"attn_flash/{k}@{li}" for k in ATTN_FLASH_KEYS]
+        return names
+
+    def _fetch_group(self, g: int):
+        """Upload one layer group's pages into the device page pool — ONE
+        staged transfer for the whole window — and return the window of
+        per-layer page tables the group binds to the pool. Runs on the
+        streamer's worker thread."""
+        gs = self.stream_cfg.group_size
+        lis = range(g * gs, (g + 1) * gs)
+        names = self._group_entries(g)
+        tbls = self.wpool.upload(names)
+        win = {
+            "ffn": {k: [tbls[ref.entry(li)] for li in lis]
+                    for k, ref in self._ffn_refs.items()},
+            "attn": {k: [tbls[f"attn_flash/{k}@{li}"] for li in lis]
+                     for k in ATTN_FLASH_KEYS},
+            # the hand-back token for the pool, and the upload's event
+            "slots": np.concatenate([t["slots"] for t in tbls.values()]),
+            "ready": tbls[names[0]]["ready"],
+        }
+        return win, sum(self.store.entry_nbytes(n) for n in names)
+
+    def _streamed_step(self, state, tokens, q_lens, admitted, block_tables):
+        """The streamed data plane: embed, the layer groups as their
+        windows arrive (the worker fills group l+1's window while group l's
+        launched compute runs), finish. Returns what ``_step_impl``
+        returns."""
+        cfg, gs = self.cfg, self.stream_cfg.group_size
+        bitmap = state["bitmap"] if self.kv_aware else None
+        x, positions, ctx_lens = _embed_chunk(cfg, self._dram_params,
+                                              state["lengths"], tokens, q_lens)
+        ks, vs = [], []
+        for g, win in self.streamer.stream():
+            if win["ready"] is not None:
+                self._stream.wait_event(win["ready"])   # its pages are in
+            x, k_g, v_g = _stream_group_impl(
+                cfg, bitmap, self._win_shapes, self._layers, win,
+                self.wpool.buffer, state["k"], state["v"], x, positions,
+                ctx_lens, block_tables, g * gs, gs)
+            ks += k_g
+            vs += v_g
+        return _finish_step(cfg, self.sched_cfg, self.sample_cfg,
+                            self.kv_aware, self._dram_params["final_norm"],
+                            self._lm_head, state, x, torch.stack(ks),
+                            torch.stack(vs), q_lens, admitted, positions,
+                            block_tables, self._generator)
+
+    def _stream_stall_s(self) -> float:
+        """Seconds the compute path has spent blocked on the weight
+        stream."""
+        return self.streamer.stall_s if self.streamed else 0.0
+
+    def _maybe_autotune_depth(self):
+        """Overlap-depth auto-tuning (``StreamConfig.auto_depth``): once,
+        after the first measured steps, re-pick ``prefetch_depth`` from the
+        observed stall/stream ratio, and re-split the device budget between
+        the window and the cache (never below the pinned floor)."""
+        sc = self.stream_cfg
+        if (not sc.auto_depth or self._auto_depth_done
+                or self._steps_done < sc.auto_depth_after):
+            return
+        self._auto_depth_done = True
+        st = self.streamer
+        if st.stream_s <= 0:
+            return                       # nothing streamed: no signal
+        ratio = st.stall_s / st.stream_s
+        depth = st.prefetch_depth
+        want = depth
+        if ratio > 0.10:
+            want = depth + max(1, round(depth * min(ratio, 1.0)))
+        elif ratio < 0.02 and depth > 1:
+            want = depth - 1
+        if sc.device_budget_bytes is not None:
+            afford = int(sc.device_budget_bytes - self.cache.pinned_bytes) \
+                // max(self._group_bytes, 1)
+            want = min(want, max(afford, 1))
+        want = max(1, int(want))
+        if want == depth:
+            return
+        st.prefetch_depth = want
+        if sc.device_budget_bytes is not None and not sc.pin_all:
+            # a deeper window reclaims its bytes from the cache now
+            self.cache.resize(max(
+                self.cache.pinned_bytes,
+                sc.device_budget_bytes - want * self._group_bytes))
+
+    def stream_stats(self) -> dict:
+        """Streamer + residency-cache + page-store + pool counters:
+        stall/stream seconds, streamed bytes, cache hits/misses, per-plane
+        page reads and the NAND seconds they imply, pool uploads and the
+        host-to-device copy time. Page counters cover serving only."""
+        if not self.streamed:
+            raise ValueError("stream_stats: engine is not in streamed mode")
+        return {**self.streamer.stats(), **self.store.stats(),
+                **self.wpool.stats(),
+                "pool_reserve_bytes":
+                    self._pool_reserve_pages * self.store.page_bytes,
+                "prefetch_depth": self.streamer.prefetch_depth}
+
+    # --- request management (control plane) ---------------------------------
 
     def submit(self, prompt: list[int], max_new: int = 16,
                timeout: float | None = None) -> int:
@@ -405,7 +709,7 @@ class Engine:
     def _finish_request(self, req: Request, slot: int):
         self.pool.release(slot)          # O(1): no device work
 
-    # --- the serving step ------------------------------------------------------
+    # --- the serving step ---------------------------------------------------
 
     def step(self) -> int:
         """One continuous-batching step over all running slots: decoding
@@ -431,7 +735,8 @@ class Engine:
                 prefill_slots.append((slot, len(req.prompt) - req.pos))
             else:
                 decode_slots.append(slot)
-        budget = sched.step_token_budget(self.admission_cfg, self._npu_frac)
+        budget = sched.step_token_budget(self.admission_cfg, self._npu_frac,
+                                         self._stall_frac)
         # snapshot AFTER list-building: a lock-free cancel() landing since
         # the filter above must not be granted lanes or budget.
         cancelled = {slot for slot, rid in self.pool.active.items()
@@ -463,14 +768,22 @@ class Engine:
         dev = self.device
         state = dict(self.pool.device_state(), bitmap=self.bitmap,
                      prev_cycles=self._prev_cycles)
-        with torch.no_grad():
-            toks, logits, state, stats = _step_impl(
-                self.cfg, self.sched_cfg, self.sample_cfg, self.kv_aware,
-                self.params, self._layers, self.attn_flash, state,
-                torch.tensor(tokens, device=dev),
-                torch.tensor(q_lens, device=dev),
-                torch.tensor(admitted, device=dev),
-                self.pool.block_tables_dev(), self._generator)
+        t_step0 = time.perf_counter()
+        stall0 = self._stream_stall_s()
+        ctx = (torch.cuda.stream(self._stream) if self._stream is not None
+               else contextlib.nullcontext())
+        with torch.no_grad(), ctx:
+            args = (state, torch.tensor(tokens, device=dev),
+                    torch.tensor(q_lens, device=dev),
+                    torch.tensor(admitted, device=dev),
+                    self.pool.block_tables_dev())
+            if self.streamed:
+                toks, logits, state, stats = self._streamed_step(*args)
+            else:
+                toks, logits, state, stats = _step_impl(
+                    self.cfg, self.sched_cfg, self.sample_cfg, self.kv_aware,
+                    self.params, self._layers, self.attn_flash, *args,
+                    self._generator)
         self.pool.set_device_state(state)
         self.bitmap = state["bitmap"]
         self._prev_cycles = state["prev_cycles"]
@@ -503,13 +816,25 @@ class Engine:
                 req.done = True
                 self._finish_request(req, slot)
         self._npu_frac = float(st[2])
-        self.stats.append({
+        entry = {
             "kv_len": int(st[0]),
             "delta_cycles": int(st[1]),
             "npu_fraction": self._npu_frac,
             "prefill_tokens": n_prefill,
             "decode_tokens": n_processed - n_prefill,
-        })
+        }
+        if self.streamed:
+            # stall fraction of step wall time (EMA): the residency signal
+            # the token budget contracts with (scheduler.step_token_budget)
+            dt = time.perf_counter() - t_step0
+            stall_s = max(self._stream_stall_s() - stall0, 0.0)
+            frac = min(max(stall_s / max(dt, 1e-9), 0.0), 1.0)
+            self._stall_frac = 0.5 * self._stall_frac + 0.5 * frac
+            entry["stall_frac"] = self._stall_frac
+        self.stats.append(entry)
+        self._steps_done += 1
+        if self.streamed:
+            self._maybe_autotune_depth()
         self._admit()                    # freed slots host waiting requests
         return n_processed
 

@@ -1,0 +1,291 @@
+"""Device-resident weight page pool: NAND pages to compute, no host slabs —
+the port of ``repro/store/page_pool.py::WeightPagePool`` (unsharded).
+
+  * ONE device tensor ``(n_pages, 16 KiB) int8`` holds raw store pages —
+    the bytes the PageStore serialized, untouched (q tiles, parity runs,
+    scale runs).
+  * ``upload(names)`` moves a whole window in ONE staged transfer: one
+    contiguous ``read_pages`` into a reusable pinned host staging buffer,
+    one asynchronous host-to-device copy on the pool's own copy stream,
+    one ``index_copy_`` into free pool slots — and returns the per-name
+    PAGE TABLES that ``core.tiering.PagedWeight`` / ``kernels/paged_ecdp``
+    consume in place.
+  * the allocator is host-side: a free-slot list with O(1) release and
+    double-free guards. Entry lifecycle (ref counts, pins, eviction) stays
+    in the ``ResidencyCache``, which frees an entry's slots through its
+    eviction hook.
+
+Ordering on the card. JAX orders a donated in-place scatter after every
+in-flight reader; CUDA streams order nothing across streams, so the pool
+does it with events. Every kernel that reads the pool runs on one
+consumer stream (``stream``, the engine's); uploads run on the pool's copy
+stream, from any thread.
+  * read after write: ``upload`` records an event after its copies; each
+    returned table carries it as ``"ready"``, and the consumer's stream
+    waits on it before reading the window.
+  * write after read: ``free`` records an event on the consumer stream;
+    the copy stream waits on the events of the slots an upload pops before
+    it writes them, so a launch that read a slot before it was freed still
+    reads the old page.
+  * the pinned staging rows are refilled only after the previous copy out
+    of them has finished (a host wait on its event).
+  * what the copy stream writes is allocated on the copy stream (the
+    caching allocator may hand out a block the consumer freed while its
+    queued kernels still read it) and marked used by the consumer.
+  * ``_grow`` (a rare path; a pool sized at init never takes it) runs
+    between two device synchronizations.
+On the CPU every operation is synchronous and none of this is needed.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Any, Iterable
+
+import numpy as np
+import torch
+
+
+class WeightPagePool:
+    """Device page pool + host slot allocator over a ``PageStore``."""
+
+    def __init__(self, store: Any, n_pages: int, device="cuda",
+                 stream: "torch.cuda.Stream | None" = None):
+        self.store = store
+        self.device = torch.device(device)
+        self.page_bytes = int(store.page_bytes)
+        self.n_pages = max(int(n_pages), 1)
+        self._cuda = self.device.type == "cuda"
+        self.stream = None
+        self._copy_stream = None
+        if self._cuda:
+            self.stream = stream or torch.cuda.current_stream(self.device)
+            self._copy_stream = torch.cuda.Stream(self.device)
+        with self._on_consumer():
+            self.data = torch.zeros((self.n_pages, self.page_bytes),
+                                    dtype=torch.int8, device=self.device)
+        self._free: list[int] = list(range(self.n_pages))[::-1]
+        self._allocated: set[int] = set()
+        self._freed_at: dict[int, torch.cuda.Event] = {}
+        self._lock = threading.Lock()
+        self.grows = 0
+        self._staging: torch.Tensor | None = None
+        self._staging_done: torch.cuda.Event | None = None
+        self.staging_allocs = 0
+        self._h2d: list[tuple] = []          # (start, end) not yet summed
+        self.reset_counters()
+
+    def _on_consumer(self):
+        """Allocate on the consumer's stream, so that a freed tensor's
+        memory is reused only after the consumer's reads of it."""
+        if not self._cuda:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+    def reset_counters(self):
+        """Zero the transfer counters (init-time pin uploads are deployment,
+        not serving)."""
+        with self._lock:
+            self._fold_h2d(wait=True)
+            self.uploads = 0
+            self.pages_staged = 0
+            self.bytes_staged = 0
+            self.pinned_uploads = 0
+            self.h2d_s = 0.0
+
+    def _fold_h2d(self, wait: bool):
+        """Add the finished host-to-device copies' times to ``h2d_s``."""
+        keep = []
+        for start, end in self._h2d:
+            if wait:
+                end.synchronize()
+            if end.query():
+                self.h2d_s += start.elapsed_time(end) / 1e3
+            else:
+                keep.append((start, end))
+        self._h2d = keep
+
+    def _stage_host(self, n_rows: int) -> torch.Tensor:
+        """First ``n_rows`` page rows of the reusable staging buffer (pinned
+        on the card), once the last copy out of it has finished."""
+        if self._staging_done is not None:
+            self._staging_done.synchronize()
+        if self._staging is None or self._staging.shape[0] < n_rows:
+            cap = max(n_rows, 2 * (0 if self._staging is None
+                                   else self._staging.shape[0]))
+            self._staging = torch.empty((cap, self.page_bytes),
+                                        dtype=torch.uint8,
+                                        pin_memory=self._cuda)
+            self.staging_allocs += 1
+        return self._staging[:n_rows]
+
+    # --- allocator ----------------------------------------------------------
+
+    @property
+    def free_pages(self) -> int:
+        with self._lock:
+            return len(self._free)
+
+    @property
+    def used_pages(self) -> int:
+        with self._lock:
+            return len(self._allocated)
+
+    def _grow(self, need: int):
+        """Reallocate the pool (under the lock) between two device
+        synchronizations: no copy or read of the old tensor is in flight
+        when it is copied, and the old tensor is never written again, so
+        a launch still bound to it reads what it held."""
+        cap = max(2 * self.n_pages, self.n_pages + need)
+        if self._cuda:
+            torch.cuda.synchronize(self.device)
+        with self._on_consumer():
+            grown = torch.zeros((cap, self.page_bytes), dtype=torch.int8,
+                                device=self.device)
+            grown[:self.n_pages] = self.data
+        if self._cuda:
+            torch.cuda.synchronize(self.device)
+        self.data = grown
+        self._free.extend(range(self.n_pages, cap))
+        self.n_pages = cap
+        self.grows += 1
+
+    def free(self, slots: Iterable[int]):
+        """O(1)-per-slot release. On the card an event on the consumer
+        stream marks the slots' last readers; the next upload into them
+        waits for it."""
+        with self._lock:
+            freed = None
+            if self._cuda:
+                freed = torch.cuda.Event()
+                freed.record(self.stream)
+            for s in slots:
+                s = int(s)
+                if s not in self._allocated:
+                    raise ValueError(f"free of unallocated pool slot {s}")
+                self._allocated.remove(s)
+                self._free.append(s)
+                if freed is not None:
+                    self._freed_at[s] = freed
+
+    # --- the one staged transfer --------------------------------------------
+
+    def upload(self, names: Iterable[str]) -> dict[str, dict]:
+        """Upload every page of ``names`` (store entry names) in ONE staged
+        transfer and return per-name page tables:
+
+          {name: {"q_tbl" (kt, nt) i32, "p_slots" (np,) i32,
+                  "s_slots" (ns,) i32, "kn" (K, N), "slots" (all,) i32,
+                  "dev": (q_tbl, p_slots, s_slots) int32 tensors on the
+                  pool's device, "ready": the event the consumer waits on
+                  (None on the CPU)}}
+
+        ``slots`` is the hand-back token for ``free``. Runs on the streamer
+        worker or the engine's thread; the lock serializes uploads, frees
+        and grows."""
+        names = list(names)
+        plan: list[tuple[str, str, list[int]]] = []   # (name, comp, page_ids)
+        for name in names:
+            entry = self.store.table[name]
+            for comp in ("q", "parity", "scale"):
+                plan.append((name, comp, entry[comp].pages))
+        ids = np.concatenate([np.asarray(p, np.int64) for _, _, p in plan])
+        with self._lock:
+            if len(ids) > len(self._free):
+                self._grow(len(ids) - len(self._free))
+            slots = np.array([self._free.pop() for _ in range(len(ids))],
+                             np.int32)
+            self._allocated.update(int(s) for s in slots)
+            # a faulted read must hand the window's slots back before
+            # propagating: a retried upload re-allocates
+            try:
+                slots_dev, ready = self._transfer(ids, slots)
+            except Exception:
+                self._allocated.difference_update(int(s) for s in slots)
+                self._free.extend(int(s) for s in slots)
+                raise
+            self.uploads += 1
+            self.pages_staged += int(ids.size)
+            self.bytes_staged += int(ids.size) * self.page_bytes
+        out: dict[str, dict] = {}
+        off = 0
+        for name, comp, pages in plan:
+            n = len(pages)
+            span, span_dev = slots[off:off + n], slots_dev[off:off + n]
+            off += n
+            tbl = out.setdefault(name, {"dev": [], "ready": ready})
+            if comp == "q":
+                grid = self.store.table[name]["q"].grid
+                tbl["q_tbl"] = span.reshape(grid).copy()
+                tbl["kn"] = tuple(self.store.table[name]["q"].shape)
+                tbl["dev"].append(span_dev.view(grid))
+            elif comp == "parity":
+                tbl["p_slots"] = span.copy()
+                tbl["dev"].append(span_dev)
+            else:
+                tbl["s_slots"] = span.copy()
+                tbl["dev"].append(span_dev)
+        for tbl in out.values():
+            tbl["dev"] = tuple(tbl["dev"])
+            tbl["slots"] = np.concatenate(
+                [tbl["q_tbl"].reshape(-1), tbl["p_slots"], tbl["s_slots"]])
+        return out
+
+    def _transfer(self, ids: np.ndarray, slots: np.ndarray):
+        """Store pages ``ids`` -> pool rows ``slots``: one read into the
+        staging rows, one host-to-device copy, one ``index_copy_``.
+        Returns (slots as an int32 tensor on the device — the page tables
+        are views of it —, the ready event or None)."""
+        rows = self._stage_host(len(ids))
+        self.store.read_pages(ids, out=rows.numpy())
+        if not self._cuda:
+            self.data.index_copy_(0, torch.from_numpy(slots).long(),
+                                  rows.view(torch.int8))
+            return torch.from_numpy(slots.copy()), None
+        cs = self._copy_stream
+        with torch.cuda.device(self.device), torch.cuda.stream(cs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(cs)
+            pages = rows.to(self.device, non_blocking=True).view(torch.int8)
+            end.record(cs)
+            self._staging_done = end
+            self._h2d.append((start, end))
+            self.pinned_uploads += 1
+            # allocated on this stream (a block the consumer freed may still
+            # be read by its queued kernels), reused only after the
+            # consumer's reads of it
+            slots_dev = torch.from_numpy(slots).pin_memory().to(
+                self.device, non_blocking=True)
+            slots_dev.record_stream(self.stream)
+            for ev in {id(e): e for e in (self._freed_at.pop(int(s), None)
+                                           for s in slots)
+                       if e is not None}.values():
+                cs.wait_event(ev)         # the slots' last readers are done
+            self.data.index_copy_(0, slots_dev.long(), pages)
+            ready = torch.cuda.Event()
+            ready.record(cs)
+            self._fold_h2d(wait=False)
+        return slots_dev, ready
+
+    # --- device-facing view -------------------------------------------------
+
+    @property
+    def buffer(self) -> torch.Tensor:
+        """The current pool tensor. Bind it when launching: after a
+        ``_grow`` it is a new tensor holding every live slot."""
+        return self.data
+
+    def stats(self) -> dict:
+        with self._lock:
+            self._fold_h2d(wait=True)
+            return {"pool_pages": self.n_pages,
+                    "pool_free_pages": len(self._free),
+                    "pool_used_pages": len(self._allocated),
+                    "pool_uploads": self.uploads,
+                    "pool_pages_staged": self.pages_staged,
+                    "pool_bytes_staged": self.bytes_staged,
+                    "pool_pinned_uploads": self.pinned_uploads,
+                    "pool_staging_allocs": self.staging_allocs,
+                    "pool_h2d_s": self.h2d_s,
+                    "pool_grows": self.grows}

@@ -37,7 +37,8 @@ def _make(seed, m, k, n, rber, adtype=np.float32):
 
 
 def _port(a, wq, parity, scale, **kw):
-    t = interop.tensor_from_numpy
+    def t(x):
+        return interop.tensor_from_numpy(x, device="cpu")
     return tecdp.ecdp_matmul(t(a), t(wq), t(parity), t(scale), **kw).numpy()
 
 
@@ -94,8 +95,8 @@ def test_flash_matmul_shapes_and_dtype():
     fw = jtier.encode_flash(w, rber=1e-4, seed=3)
     x = jnp.asarray(rng.standard_normal((2, 5, 64), dtype=np.float32)
                     ).astype(jnp.bfloat16)
-    tfw = interop.flash_from_numpy(fw)
-    tx = interop.tensor_from_numpy(np.asarray(x))
+    tfw = interop.flash_from_numpy(fw, device="cpu")
+    tx = interop.tensor_from_numpy(np.asarray(x), device="cpu")
     out = terdpe.flash_matmul(tx, tfw)
     assert tuple(out.shape) == (2, 5, 48) and out.dtype == torch.bfloat16
     got = terdpe.flash_matmul(tx, tfw, out_dtype=torch.float32).numpy()
@@ -109,5 +110,6 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch():
     out = _port(a, wq, parity, scale)
     assert tecdp.ecdp_matmul.launches == before
     np.testing.assert_allclose(
-        out, tecdp.ecdp_matmul_plain(*map(interop.tensor_from_numpy,
-                                          (a, wq, parity, scale))).numpy())
+        out, tecdp.ecdp_matmul_plain(*(
+            interop.tensor_from_numpy(x, device="cpu")
+            for x in (a, wq, parity, scale))).numpy())

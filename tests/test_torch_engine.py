@@ -145,7 +145,8 @@ def _port_maker(params, **fixed):
 
 @pytest.fixture(scope="module")
 def port_params(jax_params):
-    return interop.params_from_numpy(jax.tree.map(np.asarray, jax_params))
+    return interop.params_from_numpy(jax.tree.map(np.asarray, jax_params),
+                                     device="cpu")
 
 
 def _launches():
@@ -198,7 +199,7 @@ def test_engine_on_a_rope_swiglu_gqa_config_matches_reference():
     jcfg = dataclasses.replace(J_OPT_TINY, **kw)
     tcfg = dataclasses.replace(OPT_TINY, **kw)
     jp = jdense.init(jcfg, jax.random.PRNGKey(3))
-    tp = interop.params_from_numpy(jax.tree.map(np.asarray, jp))
+    tp = interop.params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     outs = []
     for eng in (JEngine(jcfg, jp, max_slots=2, max_seq=96, rber=1e-4),
                 TEngine(tcfg, tp, max_slots=2, max_seq=96, rber=1e-4,
@@ -217,7 +218,7 @@ def test_padding_lanes_never_poison_the_pool():
     cfg = dataclasses.replace(OPT_TINY, max_seq=64)
     jp = jdense.init(dataclasses.replace(J_OPT_TINY, max_seq=64),
                      jax.random.PRNGKey(1))
-    p = interop.params_from_numpy(jax.tree.map(np.asarray, jp))
+    p = interop.params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     eng = TEngine(cfg, p, max_slots=2, max_seq=64, device="cpu")
     rid = eng.submit(list(range(1, 41)), max_new=25)   # needs all 64 rows
     assert len(eng.run()[rid]) == 25
@@ -241,7 +242,8 @@ def test_submit_rejects_what_the_pool_cannot_hold(port_params):
     jp = jdense.init(dataclasses.replace(J_OPT_TINY, max_seq=32),
                      jax.random.PRNGKey(2))
     eng = TEngine(table, interop.params_from_numpy(
-        jax.tree.map(np.asarray, jp)), max_slots=2, max_seq=64, device="cpu")
+        jax.tree.map(np.asarray, jp), device="cpu"), max_slots=2, max_seq=64,
+        device="cpu")
     with pytest.raises(ValueError, match="max_seq"):
         eng.submit(list(range(1, 30)), max_new=5)       # 33 rows > 32
     rid = eng.submit(list(range(1, 30)), max_new=4)

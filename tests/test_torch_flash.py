@@ -24,7 +24,7 @@ torch.set_num_threads(2)
 
 
 def _t(a):
-    return interop.tensor_from_numpy(np.asarray(a))
+    return interop.tensor_from_numpy(np.asarray(a), device="cpu")
 
 
 def _np(t):
@@ -121,10 +121,12 @@ def jax_params():
 def test_deploy_is_byte_identical(jax_params, rber):
     j_tiered, j_map = jtier.deploy(jax_params, rber=rber, seed=3)
     t_tiered, t_map = ttier.deploy(
-        interop.params_from_numpy(jax.tree.map(np.asarray, jax_params)),
+        interop.params_from_numpy(jax.tree.map(np.asarray, jax_params),
+                                  device="cpu"),
         rber=rber, seed=3)
     assert t_map == j_map
-    want = interop.deployed_from_numpy(jax.tree.map(np.asarray, j_tiered))
+    want = interop.deployed_from_numpy(jax.tree.map(np.asarray, j_tiered),
+                                       device="cpu")
     flat_w, flat_g = dict(ttier._walk(want)), dict(ttier._walk(t_tiered))
     assert flat_w.keys() == flat_g.keys()
     n_flash = 0

@@ -1,4 +1,6 @@
-"""Card-only checks: the port's CUDA kernels against their plain versions.
+"""Card-only checks: the port's CUDA kernels against their plain versions,
+the weight page pool's stream ordering, and the streamed engine against
+the resident one.
 
 Needs an NVIDIA card and imports no JAX (the card's machine has none), so
 run it without the JAX conftest:
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import math
 import subprocess
+import threading
 
 import numpy as np
 import pytest
@@ -19,8 +22,11 @@ import torch
 
 from repro_torch.core import ecc
 from repro_torch.core.quant import quantize_int8
+from repro_torch.core.tiering import FlashWeight, PagedWeight
 from repro_torch.kernels import build, ecdp
 from repro_torch.kernels import paged_attn as pa
+from repro_torch.kernels import paged_ecdp as pe
+from repro_torch.store import PageStore, WeightPagePool
 
 pytestmark = pytest.mark.gpu
 
@@ -169,3 +175,178 @@ def test_paged_attn_checks_catch_planted_faults(cuda, tmp_path, fault):
     print(f"\n{fault}: {errs}")
     worst = max(v for k, v in errs.items() if k != "max_abs_err")
     assert (worst <= 1) == (fault == "none"), errs
+
+
+# --- paged ECDP ------------------------------------------------------------
+
+def _paged_pool(cuda, weights, spare=0, seed=0):
+    """Program ``{name: (wq, parity, scale)}`` into a store and upload all
+    of it into a pool on the card whose free list is shuffled (scrambled
+    page tables). Returns (pool, {name: table})."""
+    store = PageStore(n_planes=8)
+    for name, (wq, parity, scale) in weights.items():
+        store.put(name, FlashWeight(wq, parity, scale))
+    n_pages = sum(store.entry_pages(n) for n in weights) + spare
+    pool = WeightPagePool(store, n_pages, device=cuda)
+    pool._free = [int(s) for s in
+                  np.random.default_rng(seed).permutation(n_pages)]
+    tbls = pool.upload(list(weights))
+    torch.cuda.synchronize()
+    return pool, tbls
+
+
+PAGED_SHAPES = [(1, 128, 128), (4, 256, 128), (3, 200, 72), (8, 64, 384),
+                (5, 640, 256), (64, 136, 384), (64, 4096, 1000),
+                (100, 2048, 200)]
+
+
+@pytest.mark.parametrize("m,k,n", PAGED_SHAPES)
+@pytest.mark.parametrize("rber", [0.0, 2e-3])
+@pytest.mark.parametrize("adtype", [torch.bfloat16, torch.float32])
+def test_paged_ecdp_kernel_matches_plain_and_ecdp(cuda, m, k, n, rber,
+                                                  adtype):
+    rng = np.random.default_rng(m * k + n + 1)
+    wq, parity, scale = _flash(rng, k, n, rber, seed=k + n)
+    pool, tbls = _paged_pool(cuda, {"w": (wq, parity, scale)}, spare=7,
+                             seed=m + k)
+    pw = PagedWeight(pool.buffer, *tbls["w"]["dev"], kn=(k, n))
+    a = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)
+                         ).to(adtype).to(cuda)
+    dense = [t.to(cuda) for t in (wq, parity, scale)]
+    for ecc_on in (True, False):
+        before = pe.paged_ecdp_matmul.launches
+        got = pe.paged_ecdp_matmul(a, pw.pool, pw.q_tbl, pw.p_slots,
+                                   pw.s_slots, pw.kn, ecc_enabled=ecc_on)
+        torch.cuda.synchronize()
+        assert pe.paged_ecdp_matmul.launches == before + 1
+        # the same kernel body and K split as the ECDP on the dense weight
+        assert torch.equal(got, ecdp.ecdp_matmul(a, *dense,
+                                                 ecc_enabled=ecc_on))
+        want = pe.paged_ecdp_matmul_plain(a, pw.pool, pw.q_tbl, pw.p_slots,
+                                          pw.s_slots, pw.kn, ecc_on)
+        mag = (a.float().abs() @ dense[0].float().abs()) * dense[2]
+        bound = 1e-4 + 4 * math.sqrt(k) * EPS32 * mag
+        err = (got - want).abs()
+        assert bool((err <= bound).all()), float((err - bound).max())
+
+
+def test_paged_ecdp_wrapper_rejects_cpu_tables(cuda):
+    rng = np.random.default_rng(0)
+    pool, tbls = _paged_pool(cuda, {"w": _flash(rng, 128, 128, 0.0, 0)})
+    q_tbl, p_slots, s_slots = tbls["w"]["dev"]
+    a = torch.ones((4, 128), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        pe.paged_ecdp_matmul(a, pool.buffer, q_tbl.cpu(), p_slots, s_slots,
+                             (128, 128))
+
+
+class _Forgetful(dict):
+    """A slot -> free-event map that keeps nothing: an upload then waits
+    for no earlier reader (the fault the pool's events exist to stop)."""
+
+    def __setitem__(self, key, value):
+        pass
+
+
+@pytest.mark.parametrize("waits", [True, False], ids=["events", "no_events"])
+def test_slot_reuse_waits_for_earlier_readers(cuda, monkeypatch, waits):
+    """Write after read across streams: hold the consumer stream, launch a
+    paged matmul on a window, free the window's slots and upload other
+    pages into them from another thread. With the pool's free events the
+    earlier launch still returns the old weight's product; with them
+    dropped the upload overtakes it and the product is wrong — so this
+    test can see the hazard."""
+    rng = np.random.default_rng(5)
+    k, n = 1024, 512
+    old, new = _flash(rng, k, n, 0.0, 1), _flash(rng, k, n, 0.0, 2)
+    store = PageStore(n_planes=8)
+    store.put("old", FlashWeight(*old))
+    store.put("new", FlashWeight(*new))
+    pool = WeightPagePool(store, store.entry_pages("old"), device=cuda)
+    if not waits:
+        monkeypatch.setattr(pool, "_freed_at", _Forgetful())
+    t_old = pool.upload(["old"])["old"]
+    a = torch.from_numpy(rng.standard_normal((16, k), dtype=np.float32)
+                         ).to(torch.bfloat16).to(cuda)
+    want = ecdp.ecdp_matmul(a, *(x.to(cuda) for x in old))
+    torch.cuda.synchronize()
+    pool.stream.wait_event(t_old["ready"])
+    torch.cuda._sleep(2_000_000_000)          # about a second at 1.98 GHz
+    got = pe.paged_ecdp_matmul(a, pool.buffer, *t_old["dev"], (k, n))
+    pool.free(t_old["slots"])
+    res = {}
+    th = threading.Thread(target=lambda: res.update(pool.upload(["new"])))
+    th.start()
+    th.join()
+    assert sorted(res["new"]["slots"]) == sorted(t_old["slots"])
+    assert not pool.stream.query(), "the hold ended before the upload"
+    if not waits:             # the write landed while the read still waited
+        res["new"]["ready"].synchronize()
+        assert not pool.stream.query(), "the hold ended before the write"
+    torch.cuda.synchronize()
+    print(f"\n{'events' if waits else 'no events'}: max |got - old "
+          f"product| {float((got - want).abs().max()):.3e}")
+    assert torch.equal(got, want) == waits
+
+
+def test_page_tables_never_take_a_block_the_consumer_still_reads(cuda):
+    """An upload from another thread while the consumer stream still has a
+    queued kernel reading a block it has freed: the page-table tensor,
+    written on the copy stream at once, must not be handed that block."""
+    rng = np.random.default_rng(9)
+    store = PageStore(n_planes=8)
+    store.put("w", FlashWeight(*_flash(rng, 1024, 512, 0.0, 3)))
+    n = store.entry_pages("w")
+    pool = WeightPagePool(store, n, device=cuda)
+    pool.free(pool.upload(["w"])["w"]["slots"])   # staging buffer made
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()        # few free blocks left for x to join
+    x = torch.full((n,), 7, dtype=torch.int32, device=cuda)
+    torch.cuda._sleep(2_000_000_000)
+    total = x.sum()                 # queued behind the hold
+    del x                           # its block is free for the stream's reuse
+    th = threading.Thread(target=pool.upload, args=(["w"],))
+    th.start()
+    th.join()
+    assert not pool.stream.query(), "the hold ended before the upload"
+    assert int(total) == 7 * n
+
+
+def test_streamed_engine_logits_equal_resident_on_the_card(cuda):
+    """OPT_TINY streamed under a budget (worker thread, copy stream, pool
+    slot reuse) against the resident engine on the card: logits equal bit
+    for bit at every step."""
+    from repro_torch.configs import OPT_TINY
+    from repro_torch.models import dense
+    from repro_torch.serving.engine import Engine
+    from repro_torch.store import StreamConfig
+
+    from repro_torch.core.scheduler import AdmissionConfig
+
+    params = dense.init(OPT_TINY, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    # a budget whose stall contraction never binds (at worst 512/16 = 32 =
+    # 2 slots x 16 lanes): both engines plan the same steps
+    kw = dict(max_slots=2, max_seq=96, rber=1e-4, seed=1, device=cuda,
+              admission_cfg=AdmissionConfig(token_budget=512))
+    res = Engine(OPT_TINY, params, **kw)
+    probe = PageStore()
+    Engine(OPT_TINY, params, weight_store=probe, **kw)
+    stm = Engine(OPT_TINY, params, weight_store=PageStore(),
+                 stream_cfg=StreamConfig(
+                     device_budget_bytes=int(probe.total_bytes * 0.6)), **kw)
+    launches = pe.paged_ecdp_matmul.launches
+    for e in (res, stm):
+        e.submit(list(range(3, 60)), max_new=10)
+        e.submit([7, 1, 5], max_new=10)
+    steps = 0
+    while res.step():
+        stm.step()
+        assert torch.equal(res.last_logits, stm.last_logits), steps
+        steps += 1
+    assert stm.step() == 0
+    st = stm.stream_stats()
+    assert st["bytes_streamed"] > 0 and st["pool_grows"] == 0
+    assert st["pool_uploads"] == st["groups_streamed"]
+    assert pe.paged_ecdp_matmul.launches - launches == \
+        steps * OPT_TINY.n_layers * 4

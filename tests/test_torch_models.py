@@ -34,7 +34,7 @@ BF16_ULP = 2.0 ** -7      # one bf16 ulp, relative (8 significant bits)
 
 
 def _t(a):
-    return interop.tensor_from_numpy(np.asarray(a))
+    return interop.tensor_from_numpy(np.asarray(a), device="cpu")
 
 
 def _f(x):
@@ -108,7 +108,7 @@ def tiny():
     plus the per-layer Q/O flash copies."""
     p = jdense.init(J_OPT_TINY, jax.random.PRNGKey(0))
     jt, _ = jtier.deploy(p, rber=1e-4, seed=0)
-    tp = interop.params_from_numpy(jax.tree.map(np.asarray, p))
+    tp = interop.params_from_numpy(jax.tree.map(np.asarray, p), device="cpu")
     tt, _ = ttier.deploy(tp, rber=1e-4, seed=0)
     j_fl = [{k: jtier.encode_flash(p["layers"]["attn"][k][li], rber=1e-4,
                                    seed=li) for k in ("wq", "wk", "wv", "wo")}

@@ -53,7 +53,8 @@ def _inputs(seed, b, s, t, h, n_kv, dh, bs, ctx, dtype):
 
 
 def _t(d):
-    return {k: interop.tensor_from_numpy(v) for k, v in d.items()}
+    return {k: interop.tensor_from_numpy(v, device="cpu")
+            for k, v in d.items()}
 
 
 def _close(got, want, dtype, msg=""):
@@ -94,8 +95,9 @@ def test_raw_paged_attn_matches_raw_kernels(dtype):
     x = _inputs(4, 3, 32, 5, 4, 2, 32, 8, [11, 22, 0], dtype)
     qg = np.asarray(ops._group_chunk_queries(jnp.asarray(x["q"]), 2,
                                              jnp.asarray(x["k_pool"]).dtype))
-    tq = tpa.group_chunk_queries(interop.tensor_from_numpy(x["q"]), 2,
-                                 interop.tensor_from_numpy(x["k_pool"]).dtype)
+    tq = tpa.group_chunk_queries(
+        interop.tensor_from_numpy(x["q"], device="cpu"), 2,
+        interop.tensor_from_numpy(x["k_pool"], device="cpu").dtype)
     np.testing.assert_array_equal(tq.float().numpy(), qg.astype(np.float32))
     tx = _t(x)
     got = tpa.paged_attn(tq, tx["k_pool"], tx["v_pool"], tx["tables"],
@@ -138,7 +140,7 @@ def test_chunk_attention_paged_matches_reference(mode, dtype, window):
     want = jcm.chunk_attention_paged(
         x["q"], x["k_pool"], x["v_pool"], x["tables"], x["ctx"], x["kn"],
         x["vn"], window=window, mode=mode)
-    assert got.dtype == interop.tensor_from_numpy(x["q"]).dtype
+    assert got.dtype == interop.tensor_from_numpy(x["q"], device="cpu").dtype
     _close(got, want, dtype)
     assert not torch.isnan(got.float()).any()
 
@@ -177,7 +179,8 @@ def test_ordered_plain_matches_pallas_walk(case, dtype):
     args = _grouped(b * t + h, b, n_kv, t * (h // n_kv), dh, bs, ctx, s // bs,
                     dtype)
     acc, m, l = tpa.paged_attn_plain_ordered(
-        *(interop.tensor_from_numpy(a) for a in args), blocks_per_split=s)
+        *(interop.tensor_from_numpy(a, device="cpu") for a in args),
+        blocks_per_split=s)
     acc_w, m_w, l_w = (torch.from_numpy(np.array(a)) for a in
                        paged_attn_pallas(*args, interpret=True))
     torch.testing.assert_close(m, m_w, rtol=1e-5, atol=1e-5)
@@ -190,7 +193,7 @@ def test_ordered_plain_matches_pallas_walk(case, dtype):
 def test_ordered_plain_splits_merge_to_the_plain_state(bps):
     """f32 pool (no rounding of p): any cut of the table into ranges merges
     to the plain version's state."""
-    args = [interop.tensor_from_numpy(a) for a in
+    args = [interop.tensor_from_numpy(a, device="cpu") for a in
             _grouped(5, 3, 2, 6, 16, 4, [0, 13, 30], 8, "float32")]
     got = tpa.paged_attn_plain_ordered(*args, blocks_per_split=bps)
     for g, w in zip(got, tpa.paged_attn_plain(*args)):
@@ -204,7 +207,7 @@ def test_kernel_errors_pass_the_pallas_kernel_and_flag_faults():
     wrong pool block."""
     max_blocks = 16
     args = _grouped(7, 2, 2, 8, 64, 16, [200, 57], max_blocks, "bfloat16")
-    targs = [interop.tensor_from_numpy(a) for a in args]
+    targs = [interop.tensor_from_numpy(a, device="cpu") for a in args]
 
     def errors(state):
         return tpa.kernel_errors(*targs, *state, blocks_per_split=max_blocks)

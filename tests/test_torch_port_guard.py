@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` (nor chip_smoke.py)
-imports JAX or the JAX package, its configs equal the reference's field
-for field, and the CUDA ECDP kernel's codec constants equal the codec's
+imports JAX or the JAX package, its configs and NAND constants equal the
+reference's, and the CUDA ECDP kernels' codec constants equal the codec's
 tables."""
 from __future__ import annotations
 
@@ -34,7 +34,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "bad = sorted(k for k in sys.modules if k == 'jax' "
         "or k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 15, names\n"
+        "assert len(names) >= 26, names\n"
+        "assert {'repro_torch.store.' + m for m in ('faults', 'nand', "
+        "'page_pool', 'pagestore', 'streamer')} <= set(names), names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
@@ -82,7 +84,11 @@ def _c_array(src: str, name: str) -> list[int]:
 
 
 def test_ecdp_kernel_constants_equal_the_codec_tables():
-    src = (PORT / "kernels" / "csrc" / "ecdp.cu").read_text()
+    # ecdp.cu and paged_ecdp.cu share the kernel body and its tables
+    csrc = PORT / "kernels" / "csrc"
+    for name in ("ecdp.cu", "paged_ecdp.cu"):
+        assert '#include "ecdp_core.cuh"' in (csrc / name).read_text()
+    src = (csrc / "ecdp_core.cuh").read_text()
     phys_mask, data_pos = tecc.tables()
     assert _c_array(src, "DATA_POS") == data_pos.tolist()
     masks = []
@@ -97,3 +103,19 @@ def test_ecdp_kernel_constants_equal_the_codec_tables():
     jm, jd = jecc.tables()
     np.testing.assert_array_equal(phys_mask, jm)
     np.testing.assert_array_equal(data_pos, jd)
+
+
+def test_nand_constants_equal_the_reference():
+    from repro.core.scheduler import shard_planes
+    from repro.simulator import hw
+    from repro_torch.store import nand
+    assert nand.PAGE_BYTES == hw.PAGE_BYTES
+    assert nand.PLANE_READ_S == hw.PLANE_READ_S
+    assert nand.N_PLANES == hw.NVLLM_8C.n_planes
+    for reads in ([], [0, 3, 1], [7] * 32):
+        assert nand.nand_read_seconds(reads) == hw.nand_read_seconds(reads)
+    for planes, shards in ((32, 1), (32, 4), (8, 8)):
+        np.testing.assert_array_equal(nand.shard_planes(planes, shards),
+                                      shard_planes(planes, shards))
+    with pytest.raises(ValueError):
+        nand.shard_planes(32, 3)
