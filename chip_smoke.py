@@ -3,9 +3,10 @@
 hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each
 against its plain PyTorch version on the card, serves OPT-6.7B at full
 width and depth through them — resident, and streamed from a host page
-store under a device budget of half the flash tier — and checks the
-card's engine against the CPU engine and the streamed engine against the
-resident one.
+store under a device budget of half the flash tier — and runs its offline
+prefill / decode path; checks the card's engine against the CPU engine, the
+streamed engine against the resident one, and the card's prefill / decode
+against the CPU's.
 
     python3 chip_smoke.py
 
@@ -14,8 +15,9 @@ Phases (any failure exits non-zero; nothing is caught):
                 limit (nvidia-smi) and builds the kernels.
   2. ecdp     — the ECDP kernel against its plain version at the OPT-6.7B
                 flash matmul shapes (wq/wo 4096x4096, w_up 4096x16384,
-                w_down 16384x4096, lm_head 4096x50272), M in {4, 64}, RBER
-                0 and 2e-3, ECC on and off; times at the serving shapes.
+                w_down 16384x4096, lm_head 4096x50272), M in {4, 64, 512},
+                RBER 0 and 2e-3, ECC on and off; times at the serving shapes
+                and at prefill's M=512 (w_up, w_down, lm_head).
   3. paged    — the paged-attention kernel against its plain version and
                 its plain version in the kernel's order (the bounds are
                 stated at kernel_errors in kernels/paged_attn.py) at B=4,
@@ -55,11 +57,30 @@ Phases (any failure exits non-zero; nothing is caught):
                 attention = steps x 32. Then a resident engine on the same
                 params serves the same requests: every step's logits must
                 equal the streamed engine's bit for bit.
+  8. offline  — the dense model's own prefill / decode_step on OPT-6.7B.
+                (a) the decode-attention kernel against its plain version
+                and its plain version in the kernel's order (bounds at
+                kernel_errors in kernels/decode_attn.py) at the OPT-6.7B
+                decode shape (B=4, S_max=2048, KV=32, rep=1, Dh=128,
+                lengths 0, 1, 513, 2048), GQA (KV=8, rep=4) and MQA
+                (S_max=1000), bf16 and f32 caches; timed against SDPA.
+                (b) seeded init at full width and depth, deploy at RBER
+                1e-4, 4 prompts of 128 tokens prefilled into a cache padded
+                to 2048, 32 greedy decode steps; launch counters zeroed just
+                before and read just after: decode attention = 32 x steps,
+                ECDP = 65 x (1 + steps); then 8 decode steps timed and 8
+                traced with torch.profiler. (c) OPT-6.7B width cut to 2
+                layers on the card and the CPU: byte-identical deploy,
+                prefill and 8 decode steps' logits within 2^-6 of the row's
+                largest logit, greedy tokens wherever the top-2 margin
+                exceeds twice that; teacher-forced decode against forward on
+                the card within the same bound.
 
 The second-to-last line is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Times are CUDA-event medians with the
 L2 cache flushed before each timed call (the serving step streams more
-weight bytes than L2 holds). bound_ms is the larger of the bytes a call
+weight bytes than L2 holds) and the card held while the call is enqueued
+(``Timer``). bound_ms is the larger of the bytes a call
 must move at 3.35 TB/s and its operations at the bf16 tensor-core peak of
 989 TFLOP/s (H100 SXM data sheet, 700 W). In the kernels line ``ms`` and
 ``kernel_ms`` are the same number under the two names it is read by.
@@ -94,7 +115,13 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
 
 
 class Timer:
-    """CUDA-event time of one call, median over reps, L2 flushed first."""
+    """CUDA-event time of one call, median over reps, L2 flushed first. A
+    spin kernel of about 1 ms holds the card while the host enqueues the
+    start event and the call, so a call that is short on the card is not
+    timed with its host-side dispatch (the start event would otherwise run
+    as soon as the flush ends, before the call is enqueued)."""
+
+    HOLD_CYCLES = 2_000_000
 
     def __init__(self, torch):
         self.torch = torch
@@ -107,6 +134,7 @@ class Timer:
         times = []
         for _ in range(reps):
             self.flush.zero_()
+            torch.cuda._sleep(self.HOLD_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -125,6 +153,9 @@ ECDP_SHAPES = {"wq/wo": (4096, 4096), "w_up": (4096, 16384),
 # M of each shape's flash matmul in a serving step: slots x chunk = 64 for
 # the layers' weights, slots = 4 for lm_head
 ECDP_M = {"wq/wo": 64, "w_up": 64, "w_down": 64, "lm_head": 4}
+# prefill of 4 prompts of 128 tokens (phase 8) sends M = 512 rows through
+# the FFN and lm_head; timed there too
+PREFILL_M = 512
 
 
 def phase_ecdp(torch, timer):
@@ -140,7 +171,7 @@ def phase_ecdp(torch, timer):
         flash = {r: encode_flash(w, rber=r, seed=k + n) for r in (0.0, 2e-3)}
         w_deq = dequantize_int8(flash[0.0].q, flash[0.0].scale)
         del w
-        for m in (4, 64):
+        for m in (4, 64, PREFILL_M):
             a = torch.randn((m, k), generator=gen, device="cuda"
                             ).to(torch.bfloat16)
             for rber, fw in flash.items():
@@ -160,7 +191,8 @@ def phase_ecdp(torch, timer):
                     worst_abs = max(worst_abs, float(err.max()))
                     worst_rel = max(worst_rel, float(
                         (err / want.abs().clamp_min(1e-3)).max()))
-            if m != ECDP_M[name]:
+            if m != ECDP_M[name] and not (m == PREFILL_M
+                                          and name != "wq/wo"):
                 continue
             fw = flash[2e-3]
             t_kernel = timer(lambda: ecdp_matmul(a, fw.q, fw.parity,
@@ -170,15 +202,16 @@ def phase_ecdp(torch, timer):
             t_lib = timer(lambda: torch.matmul(a, w_deq))
             nbytes = k * n * 9 / 8 + 4 * n + 2 * m * k + 4 * m * n
             b_ms, b_by = bound_ms(nbytes, 2.0 * m * k * n)
-            per_shape[name] = dict(m=m, k=k, n=n, ms=t_kernel, plain_ms=t_plain,
-                                   library_ms=t_lib, bound_ms=b_ms,
-                                   bound_by=b_by)
+            key = name if m == ECDP_M[name] else f"{name}@M{m}"
+            per_shape[key] = dict(m=m, k=k, n=n, ms=t_kernel, plain_ms=t_plain,
+                                  library_ms=t_lib, bound_ms=b_ms,
+                                  bound_by=b_by)
             log(f"  ecdp {name:8s} M={m:3d} K={k:5d} N={n:5d}: kernel "
                 f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, torch.matmul "
                 f"bf16 {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         del flash, w_deq
     log(f"  ecdp vs plain: max abs err {worst_abs:.3e}, max rel err "
-        f"{worst_rel:.3e} (32 cases)")
+        f"{worst_rel:.3e} (48 cases)")
     return dict(max_abs_err=worst_abs, per_launch=per_shape)
 
 
@@ -519,8 +552,9 @@ PROFILE_WARMUP, PROFILE_STEPS = 8, 12
 PROFILE_GROUPS = (  # (group, substrings of the kernel name), first match wins
     ("ecdp kernel", ("ecdp_",)),
     ("paged attention kernel", ("paged_attn_",)),
-    ("GEMM (f32 DRAM projections)", ("gemm", "cutlass", "sm90_", "ampere_",
-                                     "cublas")),
+    ("decode attention kernel", ("decode_attn_",)),
+    ("GEMM (DRAM projections)", ("gemm", "cutlass", "sm90_", "ampere_",
+                                 "cublas", "nvjet")),
     ("elementwise / reduction / copy", ("elementwise", "reduce", "copy",
                                         "index", "cat", "gather", "scatter",
                                         "fill", "softmax", "norm")),
@@ -536,31 +570,37 @@ def _group(name: str) -> str:
 
 
 def profile_steps(torch, eng, prompts):
-    """The same requests again: PROFILE_WARMUP steps, PROFILE_STEPS steps
-    timed on the host clock, then PROFILE_STEPS steps traced with
-    torch.profiler. Prints the device time per kernel group and the idle
-    share, 1 - device time / wall time, against the untraced steps' wall
-    time (adjacent steps; the profiler's own host cost inflates the traced
-    wall time, whose share is printed beside it)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """The same requests again: PROFILE_WARMUP steps, then trace_steps over
+    PROFILE_STEPS engine steps."""
     for p in prompts:
         eng.submit(p, max_new=32)
     for _ in range(PROFILE_WARMUP):
         eng.step()
+    trace_steps(torch, eng.step, PROFILE_STEPS)
+
+
+def trace_steps(torch, step, n_steps: int) -> dict:
+    """``n_steps`` calls of ``step`` timed on the host clock, then
+    ``n_steps`` more traced with torch.profiler. Prints the device time per
+    kernel group and the idle share, 1 - device time / wall time, against
+    the untraced steps' wall time (adjacent steps; the profiler's own host
+    cost inflates the traced wall time, whose share is printed beside
+    it). Returns the untraced ms/step, device ms/step and the groups'."""
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(PROFILE_STEPS):
-        eng.step()
+    for _ in range(n_steps):
+        step()
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / PROFILE_STEPS
+    wall = (time.perf_counter() - t0) / n_steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
-            eng.step()
+        for _ in range(n_steps):
+            step()
         torch.cuda.synchronize()
-        wall_traced = (time.perf_counter() - t0) / PROFILE_STEPS
+        wall_traced = (time.perf_counter() - t0) / n_steps
     groups: dict[str, float] = {}
     kernels: dict[str, float] = {}
     for evt in prof.key_averages():
@@ -570,19 +610,21 @@ def profile_steps(torch, eng, prompts):
             continue
         groups[_group(evt.key)] = groups.get(_group(evt.key), 0.0) + dev_us
         kernels[evt.key] = kernels.get(evt.key, 0.0) + dev_us
-    busy = sum(groups.values()) / 1e6 / PROFILE_STEPS
+    busy = sum(groups.values()) / 1e6 / n_steps
     if busy <= 0:
         raise AssertionError("the profiler saw no device time")
-    log(f"  profile: {PROFILE_STEPS} untraced steps {wall * 1e3:.2f} ms/step;"
-        f" {PROFILE_STEPS} traced steps {wall_traced * 1e3:.2f} ms/step, "
+    log(f"  profile: {n_steps} untraced steps {wall * 1e3:.2f} ms/step;"
+        f" {n_steps} traced steps {wall_traced * 1e3:.2f} ms/step, "
         f"device {busy * 1e3:.2f} ms/step; idle share {1 - busy / wall:.3f} "
         f"(untraced wall), {1 - busy / wall_traced:.3f} (traced wall)")
     for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        log(f"    {group:32s} {us / 1e3 / PROFILE_STEPS:9.3f} ms/step "
-            f"{us / 1e6 / PROFILE_STEPS / busy:6.1%}")
+        log(f"    {group:32s} {us / 1e3 / n_steps:9.3f} ms/step "
+            f"{us / 1e6 / n_steps / busy:6.1%}")
     log("  top kernels (device ms/step):")
     for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"    {us / 1e3 / PROFILE_STEPS:9.3f}  {name[:90]}")
+        log(f"    {us / 1e3 / n_steps:9.3f}  {name[:90]}")
+    return dict(ms_per_step=wall * 1e3, device_ms_per_step=busy * 1e3,
+                groups_ms={g: us / 1e3 / n_steps for g, us in groups.items()})
 
 
 def ecdp_step_calls(eng):
@@ -780,6 +822,257 @@ def phase_parity(torch):
                 tokens_compared=compared)
 
 
+# --- phase 8: offline prefill / decode ----------------------------------------------
+
+# (B, S_max, KV, rep, Dh, lengths): the OPT-6.7B decode shape with an empty,
+# a one-row, a ragged and a full slot; GQA; MQA with S_max a multiple of
+# neither the kernel's 32-row tile nor its 256-row split
+DECODE_ATTN_SHAPES = {
+    "opt-6.7b": (4, 2048, 32, 1, 128, [0, 1, 513, 2048]),
+    "gqa": (3, 2048, 8, 4, 128, [0, 700, 2048]),
+    "mqa": (2, 1000, 1, 8, 128, [1000, 37]),
+}
+OFFLINE_B, OFFLINE_PROMPT, OFFLINE_PAD, OFFLINE_STEPS = 4, 128, 2048, 32
+OFFLINE_TRACE = 8
+# the main path's decode attention: the OPT-6.7B cache at the middle of the
+# run's decode (kv_len 128..159), timed for the kernels line
+DECODE_MAIN_LEN = OFFLINE_PROMPT + OFFLINE_STEPS // 2
+
+
+def _decode_inputs(torch, gen, b, s_max, n_kv, rep, dh, dtype):
+    """Unscaled queries (B, H, Dh) and caches (B, S_max, KV, Dh)."""
+    def mk(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return mk(b, n_kv * rep, dh), mk(b, s_max, n_kv, dh), mk(b, s_max, n_kv,
+                                                              dh)
+
+
+def time_decode_attn(torch, timer, lengths):
+    """Kernel, plain version and SDPA (on the same cache, a length mask)
+    at the OPT-6.7B decode shape, bf16, with ``lengths``; and the bound:
+    the live K/V rows, q and the state at 3.35 TB/s."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attn import (decode_attention_state,
+                                                 decode_attention_state_plain,
+                                                 group_decode_queries)
+
+    b, s_max, n_kv, rep, dh, _ = DECODE_ATTN_SHAPES["opt-6.7b"]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, kc, vc = _decode_inputs(torch, gen, b, s_max, n_kv, rep, dh,
+                               torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    t_kernel = timer(lambda: decode_attention_state(q, kc, vc, lens))
+    t_plain = timer(lambda: decode_attention_state_plain(q, kc, vc, lens),
+                    reps=3)
+    qs = group_decode_queries(q, n_kv, kc.dtype)          # (B, KV, 1, Dh)
+    kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    mask = (torch.arange(s_max, device="cuda")[None, :] < lens[:, None]
+            )[:, None, None, :]
+    t_lib = timer(lambda: F.scaled_dot_product_attention(
+        qs, kt, vt, attn_mask=mask, scale=1.0))
+    live = sum(min(x, s_max) for x in lengths)
+    nbytes = (live * n_kv * dh * 2 * 2 + qs.numel() * 2
+              + b * n_kv * rep * (dh + 2) * 4 + b * 4)
+    b_ms, b_by = bound_ms(nbytes, 4.0 * rep * dh * n_kv * live)
+    log(f"  decode_attn B={b} S_max={s_max} KV={n_kv} rep={rep} Dh={dh} "
+        f"lengths={lengths}: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} "
+        f"ms, SDPA {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(ms=t_kernel, plain_ms=t_plain, library_ms=t_lib,
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_decode_attn(torch, timer):
+    """8(a): the decode kernel against both plain versions (the bounds at
+    kernel_errors in kernels/decode_attn.py), bf16 and f32 caches."""
+    from repro_torch.kernels.decode_attn import (decode_attention_state,
+                                                 group_decode_queries,
+                                                 kernel_errors)
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    worst = 0.0
+    for name, (b, s_max, n_kv, rep, dh, lengths) in \
+            DECODE_ATTN_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kc, vc = _decode_inputs(torch, gen, b, s_max, n_kv, rep, dh,
+                                       dtype)
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            acc, m, l = decode_attention_state(q, kc, vc, lens)
+            torch.cuda.synchronize()
+            errs = kernel_errors(group_decode_queries(q, n_kv, dtype), kc, vc,
+                                 lens, acc, m, l)
+            max_abs = errs.pop("max_abs_err")
+            if not all(v <= 1 for v in errs.values()):
+                raise AssertionError(f"decode attention {name} {dtype}: "
+                                     f"error / bound {errs}")
+            worst = max(worst, max_abs)
+            log(f"  decode_attn {name:8s} {str(dtype)[6:]:8s} error / bound: "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + f"; max abs err {max_abs:.3e}")
+    time_decode_attn(torch, timer, DECODE_ATTN_SHAPES["opt-6.7b"][5])
+    main = time_decode_attn(torch, timer, [DECODE_MAIN_LEN] * OFFLINE_B)
+    return dict(max_abs_err=worst, **main)
+
+
+def phase_offline(torch):
+    """8(b): seeded OPT-6.7B at full width and depth, deployed at RBER 1e-4;
+    prefill 4 prompts of 128 tokens into a cache padded to 2048, then 32
+    greedy decode steps, the launch counters zeroed just before and read
+    just after; then 8 decode steps timed and 8 traced."""
+    import numpy as np
+
+    from repro_torch.configs import OPT_6_7B
+    from repro_torch.core.tiering import deploy
+    from repro_torch.kernels import decode_attn, ecdp, paged_attn, paged_ecdp
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import dense
+
+    cfg = OPT_6_7B
+    t0 = time.perf_counter()
+    params = dense.init(cfg, torch.Generator(device="cuda").manual_seed(10),
+                        device="cuda")
+    params, _ = deploy(params, rber=1e-4, seed=0)
+    gc.collect()
+    torch.cuda.synchronize()
+    log(f"  init + deploy {cfg.name}: {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
+    prefill = make_prefill_step(cfg, pad_to=OFFLINE_PAD)
+    decode = make_decode_step(cfg)
+    toks = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (OFFLINE_B, OFFLINE_PROMPT))).int().cuda()
+    counters = (decode_attn.decode_attention_state, ecdp.ecdp_matmul,
+                paged_attn.paged_attn, paged_ecdp.paged_ecdp_matmul)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    last, cache = prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    out = [last.argmax(-1)]
+    t0 = time.perf_counter()
+    for i in range(OFFLINE_STEPS):
+        last, cache = decode(params, cache, {"token": out[-1],
+                                             "kv_len": OFFLINE_PROMPT + i})
+        out.append(last.argmax(-1))
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    launches = {"decode_attn": counters[0].launches,
+                "ecdp": counters[1].launches,
+                "paged_attn": counters[2].launches,
+                "paged_ecdp": counters[3].launches}
+    peak = torch.cuda.max_memory_allocated()
+    per_pass = cfg.n_layers * 2 + 1                # FFN w_up, w_down; lm_head
+    assert launches == {"decode_attn": cfg.n_layers * OFFLINE_STEPS,
+                        "ecdp": per_pass * (1 + OFFLINE_STEPS),
+                        "paged_attn": 0, "paged_ecdp": 0}, launches
+    assert tuple(cache["k"].shape) == (cfg.n_layers, OFFLINE_B, OFFLINE_PAD,
+                                       cfg.n_kv_heads, cfg.head_dim)
+    assert bool(torch.isfinite(last).all())
+    gen_toks = torch.stack(out, 1).cpu()
+    assert bool(((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all())
+    ms_step = t_decode / OFFLINE_STEPS * 1e3
+    log(f"  prefill {OFFLINE_B} x {OFFLINE_PROMPT} tokens (cache padded to "
+        f"{OFFLINE_PAD}): {t_prefill * 1e3:.1f} ms; {OFFLINE_STEPS} greedy "
+        f"decode steps: {ms_step:.2f} ms/step, "
+        f"{OFFLINE_B * OFFLINE_STEPS / t_decode:.1f} generated tokens/s; "
+        f"peak device memory {peak / 2**30:.2f} GiB; launches {launches}")
+    log(f"  first prompt's tokens: {gen_toks[0, :12].tolist()}")
+    kv = [OFFLINE_PROMPT + OFFLINE_STEPS]
+
+    def step():
+        nonlocal last, cache
+        last, cache = decode(params, cache, {"token": last.argmax(-1),
+                                             "kv_len": kv[0]})
+        kv[0] += 1
+    prof = trace_steps(torch, step, OFFLINE_TRACE)
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches=launches, prefill_ms=t_prefill * 1e3,
+                ms_per_step=ms_step, peak_bytes=peak, profile=prof)
+
+
+def phase_offline_parity(torch):
+    """8(c): OPT-6.7B width cut to 2 layers on the card and on the CPU:
+    byte-identical deploy; prefill logits and 8 decode steps' logits (both
+    fed the CPU's greedy tokens) within 2^-6 of each row's largest logit,
+    greedy tokens equal wherever the top-2 margin exceeds twice that; on
+    the card, teacher-forced decode_step logits against forward over the
+    whole sequence within the same bound."""
+    import numpy as np
+
+    from repro_torch.configs import OPT_6_7B
+    from repro_torch.core.tiering import FlashWeight, _walk, deploy
+    from repro_torch.models import dense
+    from repro_torch.serving.engine import _map_tree
+
+    cfg = dataclasses.replace(OPT_6_7B, n_layers=2, name="opt-6.7b-2l")
+    b, s, pad, n_dec = 2, 16, 64, 8
+    t0 = time.perf_counter()
+    raw = dense.init(cfg, torch.Generator().manual_seed(11), device="cpu")
+    p_cpu, _ = deploy(raw, rber=1e-4, seed=2)
+    p_gpu, _ = deploy(_map_tree(lambda t: t.cuda(), raw), rber=1e-4, seed=2)
+    del raw
+    n_flash = 0
+    for (_, g), (_, c) in zip(_walk(p_gpu), _walk(p_cpu)):
+        if isinstance(g, FlashWeight):
+            n_flash += 1
+            for f in ("q", "parity", "scale"):
+                assert torch.equal(getattr(g, f).cpu(), getattr(c, f)), f
+    toks = torch.from_numpy(np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (b, s))).int()
+    max_rel, compared = 0.0, 0
+
+    def compare(lg_cpu, lg_gpu, what):
+        nonlocal max_rel, compared
+        lg_gpu = lg_gpu.cpu()
+        row_max = lg_cpu.abs().amax(-1)
+        rel = float(((lg_cpu - lg_gpu).abs().amax(-1) / row_max).max())
+        if rel > PARITY_REL_TOL:
+            raise AssertionError(f"{what}: logits differ by {rel:.3e} of the"
+                                 " row's largest")
+        max_rel = max(max_rel, rel)
+        top2 = torch.topk(lg_cpu, 2).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * PARITY_REL_TOL * row_max
+        assert torch.equal(lg_cpu.argmax(-1)[sure], lg_gpu.argmax(-1)[sure]), \
+            what
+        compared += int(sure.sum())
+
+    lg_c, c_cpu = dense.prefill(cfg, p_cpu, {"tokens": toks}, pad_to=pad)
+    lg_g, c_gpu = dense.prefill(cfg, p_gpu, {"tokens": toks.cuda()},
+                                pad_to=pad)
+    compare(lg_c, lg_g, "prefill")
+    seq, dec_gpu = [toks], [lg_g]
+    for i in range(n_dec):
+        tok = lg_c.argmax(-1).int()
+        seq.append(tok[:, None])
+        lg_c, c_cpu = dense.decode_step(cfg, p_cpu, c_cpu,
+                                        {"token": tok, "kv_len": s + i})
+        lg_g, c_gpu = dense.decode_step(cfg, p_gpu, c_gpu,
+                                        {"token": tok.cuda(), "kv_len": s + i})
+        compare(lg_c, lg_g, f"decode step {i}")
+        dec_gpu.append(lg_g)
+    # teacher-forced decode against forward over the whole sequence, card
+    full = dense.forward(cfg, p_gpu, torch.cat(seq, 1).cuda())
+    fwd_rel = 0.0
+    for i, lg in enumerate(dec_gpu):
+        want = full[:, s - 1 + i]
+        rel = float(((lg - want).abs().amax(-1) / want.abs().amax(-1)).max())
+        if rel > PARITY_REL_TOL:
+            raise AssertionError(f"decode step {i} vs forward: {rel:.3e} of "
+                                 "the row's largest logit")
+        fwd_rel = max(fwd_rel, rel)
+    log(f"  {cfg.name} (cut: 2 of 32 layers; widths as OPT-6.7B), {b} x {s}"
+        f" prompt, {n_dec} decode steps, {time.perf_counter() - t0:.1f} s: "
+        f"{n_flash} flash weights byte-identical; card vs CPU max |logit "
+        f"diff| {max_rel:.3e} of the row's max (tol {PARITY_REL_TOL:.3e}), "
+        f"{compared} greedy tokens compared; decode vs forward on the card "
+        f"{fwd_rel:.3e}")
+    return dict(max_rel=max_rel, fwd_rel=fwd_rel, tokens_compared=compared)
+
+
 def main() -> int:
     import torch
 
@@ -821,6 +1114,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("phase 7: streamed serving OPT-6.7B")
     streamed = phase_streamed(torch)
+    log("phase 8: offline prefill / decode OPT-6.7B")
+    timer = Timer(torch)
+    da_res = phase_decode_attn(torch, timer)
+    del timer
+    torch.cuda.empty_cache()
+    offline = phase_offline(torch)
+    phase_offline_parity(torch)
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
 
     step = serve["ecdp_step"]
@@ -858,6 +1158,17 @@ def main() -> int:
          "at": "one OPT-6.7B layer's 4 paged calls back to back at M=64: "
                "wq, wo (4096x4096), w_up (4096x16384), w_down (16384x4096)",
          "per_launch": paged_res["per_launch"]},
+        {"name": "decode_attn", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
+         "replaces": "src/repro/kernels/decode_attn.py:79",
+         "launches": offline["launches"]["decode_attn"],
+         "max_abs_err": da_res["max_abs_err"], "ms": da_res["ms"],
+         "kernel_ms": da_res["ms"], "plain_ms": da_res["plain_ms"],
+         "bound_ms": da_res["bound_ms"], "bound_by": da_res["bound_by"],
+         "library_ms": da_res["library_ms"],
+         "at": f"B={OFFLINE_B} S_max={OFFLINE_PAD} KV=32 rep=1 Dh=128 bf16, "
+               f"lengths {DECODE_MAIN_LEN} (one layer of an OPT-6.7B decode "
+               "step)"},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

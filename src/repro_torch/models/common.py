@@ -1,5 +1,5 @@
-"""Shared functional layers — the port of the slice's part of
-``repro/models/common.py``.
+"""Shared functional layers — the port of the parts of
+``repro/models/common.py`` the serving and offline paths use.
 
 Plain functions over tensors and dicts of tensors. bf16 contractions are
 written as f32 ops on upcast operands: a bf16 value is exact in f32, so
@@ -16,8 +16,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.erdpe import maybe_flash_matmul
+from repro_torch.kernels.decode_attn import (decode_attention_state,
+                                             decode_attention_state_plain,
+                                             group_decode_queries)
 from repro_torch.kernels.paged_attn import (paged_attention_state,
                                             paged_attention_state_plain)
+
+DEFAULT_KV_BLOCK = 1024
 
 # --- initializers -----------------------------------------------------------
 # Same shapes, distributions and scales as the JAX initializers; the numbers
@@ -76,6 +81,65 @@ def apply_rope(x, positions, base: float = 10000.0):
     return out.to(x.dtype)
 
 
+# --- chunked attention (online softmax over KV blocks) -----------------------
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """(B, S, KV, Dh) -> (B, S, KV*n_rep, Dh) for GQA."""
+    if n_rep == 1:
+        return k
+    b, s, kv, dh = k.shape
+    return k[:, :, :, None, :].expand(b, s, kv, n_rep, dh).reshape(
+        b, s, kv * n_rep, dh)
+
+
+def chunked_attention(q, k, v, causal: bool = True, q_offset: int = 0,
+                      window: int | None = None,
+                      kv_block: int = DEFAULT_KV_BLOCK):
+    """Online-softmax attention over KV blocks of ``kv_block`` rows (the
+    reference's scan, as a loop): q (B, Sq, H, Dh), k/v (B, Skv, KV, Dh)
+    -> (B, Sq, H, Dh) in q's dtype.
+
+    ``q_offset``: absolute position of q[0] (prefill: 0). ``window``: local
+    attention window (keys at positions > q_pos - window); None = global.
+    Scores are f32 sums of products of q (scaled in f32, rounded to the K/V
+    dtype) and K; p stays f32 against an f32 V block. A fully masked row
+    carries m = 0, as the reference's scan does.
+    """
+    b, sq, h, dh = q.shape
+    skv, n_kv = k.shape[1], k.shape[2]
+    n_rep = h // n_kv
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    cdt = k.dtype
+    qf = (q.float() * dh ** -0.5).to(cdt).float().transpose(1, 2)
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    m = torch.full((b, h, sq), float("-inf"), device=q.device)
+    l = torch.zeros((b, h, sq), device=q.device)
+    acc = torch.zeros((b, h, sq, dh), device=q.device)
+    for lo in range(0, skv, kv_block):
+        hi = min(lo + kv_block, skv)
+        kv_pos = torch.arange(lo, hi, device=q.device)
+        s = qf @ k[:, lo:hi].float().permute(0, 2, 3, 1)   # (B, H, Sq, kb)
+        if causal:
+            mask = kv_pos[None, :] <= q_pos[:, None]
+        else:
+            mask = torch.ones((sq, hi - lo), dtype=torch.bool,
+                              device=q.device)
+        if window is not None:
+            mask = mask & (kv_pos[None, :] > q_pos[:, None] - window)
+        s = torch.where(mask, s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(mask, p, 0.0)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + p @ v[:, lo:hi].float().transpose(1, 2)
+        m = m_safe
+    out = acc / torch.clamp_min(l[..., None], 1e-20)
+    return out.transpose(1, 2).to(q.dtype)                # (B, Sq, H, Dh)
+
+
 # --- attention ---------------------------------------------------------------
 
 def merge_attn_states(acc1, m1, l1, acc2, m2, l2):
@@ -89,6 +153,86 @@ def merge_attn_states(acc1, m1, l1, acc2, m2, l2):
     acc = acc1 * a1[..., None] + acc2 * a2[..., None]
     l = l1 * a1 + l2 * a2
     return acc / torch.clamp_min(l[..., None], 1e-20)
+
+
+def _merge_self_term(acc, m, l, s_self, v_self):
+    """Merge the current token's self-term into unnormalized online-softmax
+    state and normalize: acc (B, KV, R, Dh) f32, m/l (B, KV, R) (m may be
+    -inf for empty caches), s_self (B, KV, R) scores, v_self (B, KV, Dh)
+    f32. The self token is a one-key state (m2 = s_self, l2 = 1,
+    acc2 = v_self)."""
+    acc_self = v_self[:, :, None, :].expand(acc.shape)
+    return merge_attn_states(acc, m, l, acc_self, s_self,
+                             torch.ones_like(s_self))
+
+
+def _lengths(kv_len, b: int, device) -> torch.Tensor:
+    """kv_len (a host int, or a tensor: scalar or (B,)) -> (B,) int32 on
+    ``device``; a host int is filled in on the device (no host sync)."""
+    if isinstance(kv_len, torch.Tensor):
+        return kv_len.to(device=device, dtype=torch.int32).reshape(-1) \
+            .expand(b).contiguous()
+    return torch.full((b,), int(kv_len), dtype=torch.int32, device=device)
+
+
+def decode_attention_incremental(q, k_cache, v_cache, kv_len, k_new, v_new,
+                                 window: int | None = None):
+    """Decode attention over cache[0:kv_len] + the new token, WITHOUT
+    reading the new token from the cache: the self-token term is merged
+    analytically into the cache half's online-softmax state.
+
+    q (B, 1, H, Dh); caches (B, S, KV, Dh) (row kv_len and later are not
+    read); kv_len a host int or a tensor (scalar or (B,)); k_new/v_new
+    (B, 1, KV, Dh) this token's K/V. Global attention goes through
+    ``kernels.decode_attn.decode_attention_state`` (the kernel on CUDA
+    tensors, its plain version, the reference's XLA branch, on the CPU);
+    windowed attention (keys at positions >= kv_len - window + 1) takes
+    the plain path on any device, as in the reference.
+    """
+    b, s, n_kv, dh = k_cache.shape
+    h = q.shape[2]
+    cdt = k_cache.dtype
+    qf = group_decode_queries(q[:, 0], n_kv, cdt)
+    s_self = torch.einsum("bkrd,bkd->bkr", qf.float(),
+                          k_new[:, 0].to(cdt).float())      # (B,KV,R)
+    lens = _lengths(kv_len, b, q.device)
+    if window is None:
+        acc, m, l = decode_attention_state(q[:, 0], k_cache, v_cache, lens)
+    else:
+        acc, m, l = decode_attention_state_plain(q[:, 0], k_cache, v_cache,
+                                                 lens, window=window)
+    out = _merge_self_term(acc, m, l, s_self, v_new.float()[:, 0])
+    return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
+def decode_attention(q, k_cache, v_cache, kv_len, window: int | None = None):
+    """Single-token decode attention over a (padded) KV cache: q
+    (B, 1, H, Dh), caches (B, S, KV, Dh), kv_len (B,) or scalar.
+
+    On CUDA tensors global attention runs the decode kernel and normalizes
+    its state (``acc / l``, the reference's PALLAS branch). CPU tensors and
+    windowed attention (keys at positions >= kv_len - window) take the
+    reference's XLA branch: a masked softmax, p rounded to the cache dtype
+    before the PV product.
+    """
+    b, s, n_kv, dh = k_cache.shape
+    h = q.shape[2]
+    cdt = k_cache.dtype
+    lens = _lengths(kv_len, b, q.device)
+    if window is None and q.is_cuda:
+        acc, _, l = decode_attention_state(q[:, 0], k_cache, v_cache, lens)
+        out = acc / torch.clamp_min(l[..., None], 1e-20)
+        return out.reshape(b, 1, h, dh).to(q.dtype)
+    qf = group_decode_queries(q[:, 0], n_kv, cdt)
+    scores = torch.einsum("bkrd,bskd->bkrs", qf.float(), k_cache.float())
+    pos = torch.arange(s, device=q.device)
+    valid = pos[None, :] < lens.long()[:, None]
+    if window is not None:
+        valid = valid & (pos[None, :] >= lens.long()[:, None] - window)
+    scores = torch.where(valid[:, None, None, :], scores, float("-inf"))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkrs,bskd->bkrd", p.to(cdt).float(), v_cache.float())
+    return out.reshape(b, 1, h, dh).to(q.dtype)
 
 
 def chunk_attention_paged(q, k_pool, v_pool, block_tables, ctx_lens, k_new,
@@ -152,6 +296,25 @@ class AttnConfig:
     rope_base: float = 10000.0
     use_rope: bool = True
     window: int | None = None
+
+
+def qkv_project(p, x, cfg: AttnConfig, positions):
+    """x: (B, S, D) -> q (B,S,H,Dh), k/v (B,S,KV,Dh) with rope + qk-norm;
+    the projections through ``maybe_flash_matmul`` (DRAM or flash tier)."""
+    b, s, _ = x.shape
+    q = maybe_flash_matmul(x, p["wq"]).reshape(b, s, cfg.n_heads,
+                                               cfg.head_dim)
+    k = maybe_flash_matmul(x, p["wk"]).reshape(b, s, cfg.n_kv_heads,
+                                               cfg.head_dim)
+    v = maybe_flash_matmul(x, p["wv"]).reshape(b, s, cfg.n_kv_heads,
+                                               cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+        k = rms_norm(k, p["k_norm"])
+    if cfg.use_rope:
+        q = apply_rope(q, positions, cfg.rope_base)
+        k = apply_rope(k, positions, cfg.rope_base)
+    return q, k, v
 
 
 # --- FFN variants ------------------------------------------------------------

@@ -268,11 +268,7 @@ def _map_tree(fn, tree):
     return fn(tree)
 
 
-def _layer_slice(tree, li):
-    """Layer ``li`` of a stacked param tree (views, no copies)."""
-    if isinstance(tree, dict):
-        return {k: _layer_slice(v, li) for k, v in tree.items()}
-    return tree[li]
+_layer_slice = dense.layer_slice
 
 
 class Engine:

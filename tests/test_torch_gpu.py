@@ -1,6 +1,6 @@
 """Card-only checks: the port's CUDA kernels against their plain versions,
-the weight page pool's stream ordering, and the streamed engine against
-the resident one.
+the weight page pool's stream ordering, the streamed engine against the
+resident one, and the offline decode path through the decode kernel.
 
 Needs an NVIDIA card and imports no JAX (the card's machine has none), so
 run it without the JAX conftest:
@@ -24,6 +24,7 @@ from repro_torch.core import ecc
 from repro_torch.core.quant import quantize_int8
 from repro_torch.core.tiering import FlashWeight, PagedWeight
 from repro_torch.kernels import build, ecdp
+from repro_torch.kernels import decode_attn as da
 from repro_torch.kernels import paged_attn as pa
 from repro_torch.kernels import paged_ecdp as pe
 from repro_torch.store import PageStore, WeightPagePool
@@ -51,9 +52,11 @@ def _flash(rng, k, n, rber, seed):
 
 
 # the tests/test_kernels.py sweep, plus the serving shapes' traits: ragged
-# N (not a multiple of 128), M past one 64-row launch, long K (split-K)
+# N (not a multiple of 128), M past one 64-row launch, long K (split-K), and
+# prefill's M = 512 (eight 64-row launches sharing the split-K partials)
 SHAPES = [(1, 64, 16), (4, 128, 64), (8, 512, 256), (3, 136, 48),
-          (16, 256, 512), (64, 4096, 333), (100, 1024, 200), (4, 16384, 130)]
+          (16, 256, 512), (64, 4096, 333), (100, 1024, 200), (4, 16384, 130),
+          (512, 2048, 300)]
 
 
 @pytest.mark.parametrize("m,k,n", SHAPES)
@@ -350,3 +353,150 @@ def test_streamed_engine_logits_equal_resident_on_the_card(cuda):
     assert st["pool_uploads"] == st["groups_streamed"]
     assert pe.paged_ecdp_matmul.launches - launches == \
         steps * OPT_TINY.n_layers * 4
+
+
+# --- decode attention --------------------------------------------------------
+
+# (B, S_max, KV, rep, Dh, lengths): chip_smoke.py phase 8(a)'s shapes (the
+# OPT-6.7B decode shape, GQA, MQA with S_max a multiple of neither the tile
+# nor the split), lengths 0 and S_max among them; and small odd ones
+DECODE_SHAPES = [
+    (4, 2048, 32, 1, 128, [0, 1, 513, 2048]),
+    (3, 2048, 8, 4, 128, [0, 700, 2048]),
+    (2, 1000, 1, 8, 128, [1000, 37]),
+    (3, 40, 2, 3, 32, [40, 0, 33]),
+    (1, 300, 4, 2, 256, [300]),
+]
+
+
+def _decode_inputs(rng, b, s_max, n_kv, rep, dh, dtype):
+    """Unscaled queries (B, H, Dh) and caches (B, S_max, KV, Dh)."""
+    def mk(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)
+                                ).to(dtype)
+    return (mk(b, n_kv * rep, dh), mk(b, s_max, n_kv, dh),
+            mk(b, s_max, n_kv, dh))
+
+
+@pytest.mark.parametrize("b,s_max,n_kv,rep,dh,lens", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attn_kernel_matches_plain(cuda, b, s_max, n_kv, rep, dh,
+                                          lens, dtype):
+    rng = np.random.default_rng(b * s_max + dh)
+    q, kc, vc = (t.to(cuda) for t in _decode_inputs(rng, b, s_max, n_kv, rep,
+                                                     dh, dtype))
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = da.decode_attention_state.launches
+    acc, m, l = da.decode_attention_state(q, kc, vc, lens)
+    torch.cuda.synchronize()
+    assert da.decode_attention_state.launches == before + 1
+    # the bounds are stated beside kernel_errors (kernels/decode_attn.py):
+    # m and l to f32 rounding, acc within 4x the spread of the roundings of
+    # p against the plain version and to 2e-4 (Frobenius) against the plain
+    # version in the kernel's order; empty slots exact
+    errs = da.kernel_errors(da.group_decode_queries(q, n_kv, dtype), kc, vc,
+                            lens, acc, m, l)
+    assert all(v <= 1 for k, v in errs.items() if k != "max_abs_err"), errs
+
+
+def test_decode_attn_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    rng = np.random.default_rng(0)
+    q, kc, vc = (t.to(cuda) for t in _decode_inputs(rng, 2, 64, 2, 2, 64,
+                                                     torch.bfloat16))
+    lens = torch.tensor([5, 64], dtype=torch.int32, device=cuda)
+    da.decode_attention_state(q, kc, vc, lens)
+    with pytest.raises(TypeError):                       # fp16 cache
+        da.decode_attention_state(q, kc.half(), vc.half(), lens)
+    with pytest.raises(TypeError):                       # mixed dtypes
+        da.decode_attention_state(q, kc, vc.float(), lens)
+    with pytest.raises(TypeError):                       # int64 lengths
+        da.decode_attention_state(q, kc, vc, lens.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        da.decode_attention_state(q, kc.transpose(0, 1).contiguous()
+                                  .transpose(0, 1), vc, lens)
+    with pytest.raises(ValueError):                      # lengths on the CPU
+        da.decode_attention_state(q, kc, vc, lens.cpu())
+    with pytest.raises(ValueError):                      # Dh not a multiple
+        q2, k2, v2 = (t.to(cuda) for t in _decode_inputs(
+            rng, 2, 64, 2, 2, 48, torch.bfloat16))
+        da.decode_attention_state(q2, k2, v2, lens)
+
+
+# Faults planted in a copy of the kernel's source, built outside the tree:
+# the checks above must catch each. (text in csrc/decode_attn.cu, its fault)
+DECODE_FAULTS = {
+    "none": None,
+    "drop_tile": ("  for (int t0 = r0; t0 < r1; t0 += TILE) {\n",
+                  "  for (int t0 = r0; t0 < r1; t0 += TILE) {\n"
+                  "    if (t0 == r0 + TILE) continue;\n"),
+    "skip_alpha_once": (
+        "acc_s[i] = acc_s[i] * alpha_s[t] + (s0 + s1);",
+        "acc_s[i] = (t0 == r0 + 2 * TILE ? acc_s[i] : acc_s[i] * alpha_s[t])"
+        " + (s0 + s1);"),
+    "p_unrounded": ("p_s[t * TILE + lane] = round_as(p, k);",
+                    "p_s[t * TILE + lane] = p;"),
+}
+
+
+@pytest.mark.parametrize("fault", list(DECODE_FAULTS))
+def test_decode_attn_checks_catch_planted_faults(cuda, tmp_path, fault):
+    src = (build.CSRC / "decode_attn.cu").read_text()
+    if DECODE_FAULTS[fault] is not None:
+        old, new = DECODE_FAULTS[fault]
+        assert src.count(old) == 1, f"{fault}: the text to alter has moved"
+        src = src.replace(old, new)
+    (tmp_path / "decode_attn.cu").write_text(src)
+    lib_path = tmp_path / "decode_attn.so"
+    subprocess.run(build.nvcc_command(tmp_path / "decode_attn.cu", lib_path),
+                   check=True, capture_output=True)
+    lib = da._bind(ctypes.CDLL(str(lib_path)))
+    # chip_smoke.py phase 8(a)'s OPT-6.7B decode shape, bf16
+    rng = np.random.default_rng(12)
+    q, kc, vc = (t.to(cuda) for t in _decode_inputs(rng, 4, 2048, 32, 1, 128,
+                                                     torch.bfloat16))
+    lens = torch.tensor([0, 1, 513, 2048], dtype=torch.int32, device=cuda)
+    qg = da.group_decode_queries(q, 32, torch.bfloat16)
+    acc, m, l = da._launch(lib, qg, kc, vc, lens)
+    errs = da.kernel_errors(qg, kc, vc, lens, acc, m, l)
+    print(f"\n{fault}: {errs}")
+    worst = max(v for k, v in errs.items() if k != "max_abs_err")
+    assert (worst <= 1) == (fault == "none"), errs
+
+
+def test_offline_decode_runs_the_kernels_and_matches_the_cpu(cuda):
+    """OPT_TINY deployed at RBER 1e-4: prefill + greedy decode on the card
+    through the decode and ECDP kernels (launches counted), logits within
+    chip_smoke's 2^-6 of the row's largest logit of the same steps on the
+    CPU fed the same tokens."""
+    from repro_torch.configs import OPT_TINY
+    from repro_torch.core.tiering import deploy
+    from repro_torch.models import dense
+
+    raw = dense.init(OPT_TINY, torch.Generator().manual_seed(3), device="cpu")
+    p_cpu, _ = deploy(raw, rber=1e-4, seed=1)
+    p_gpu, _ = deploy(_to(raw, cuda), rber=1e-4, seed=1)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, OPT_TINY.vocab_size, (3, 9))).int()
+    lg_c, c_cpu = dense.prefill(OPT_TINY, p_cpu, {"tokens": toks}, pad_to=32)
+    lg_g, c_gpu = dense.prefill(OPT_TINY, p_gpu, {"tokens": toks.to(cuda)},
+                                pad_to=32)
+    n_attn = da.decode_attention_state.launches
+    n_ecdp = ecdp.ecdp_matmul.launches
+    for i in range(6):
+        tok = lg_c.argmax(-1).int()
+        lg_c, c_cpu = dense.decode_step(OPT_TINY, p_cpu, c_cpu,
+                                        {"token": tok, "kv_len": 9 + i})
+        lg_g, c_gpu = dense.decode_step(OPT_TINY, p_gpu, c_gpu,
+                                        {"token": tok.to(cuda),
+                                         "kv_len": 9 + i})
+        row_max = lg_c.abs().amax(-1, keepdim=True)
+        assert bool(((lg_g.cpu() - lg_c).abs() <= 2.0 ** -6 * row_max).all())
+    assert da.decode_attention_state.launches - n_attn == 6 * OPT_TINY.n_layers
+    assert ecdp.ecdp_matmul.launches - n_ecdp == 6 * (2 * OPT_TINY.n_layers
+                                                      + 1)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)

@@ -34,9 +34,12 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "bad = sorted(k for k in sys.modules if k == 'jax' "
         "or k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 26, names\n"
+        "assert len(names) >= 29, names\n"
         "assert {'repro_torch.store.' + m for m in ('faults', 'nand', "
         "'page_pool', 'pagestore', 'streamer')} <= set(names), names\n"
+        "assert {'repro_torch.kernels.decode_attn', 'repro_torch.launch', "
+        "'repro_torch.launch.steps', 'repro_torch.models.dense'} "
+        "<= set(names), names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
