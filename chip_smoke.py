@@ -17,7 +17,10 @@ Phases (any failure exits non-zero; nothing is caught):
                 flash matmul shapes (wq/wo 4096x4096, w_up 4096x16384,
                 w_down 16384x4096, lm_head 4096x50272), M in {4, 64, 512},
                 RBER 0 and 2e-3, ECC on and off; times at the serving shapes
-                and at prefill's M=512 (w_up, w_down, lm_head).
+                and at prefill's M=512 (w_up, w_down, lm_head). The kernels
+                line carries the registers, spills (ptxas's build log) and
+                shared memory per block (static + dynamic) of each bf16
+                (tensor-core) instantiation.
   3. paged    — the paged-attention kernel against its plain version and
                 its plain version in the kernel's order (the bounds are
                 stated at kernel_errors in kernels/paged_attn.py) at B=4,
@@ -108,6 +111,28 @@ def log(*args):
     print(*args, flush=True)
 
 
+def mma_resources(build, name: str) -> list[dict]:
+    """Registers, spills and shared memory per block of each tensor-core
+    instantiation (ecdp_mma_kernel<M tile, wide, W>) of kernel library
+    ``name``: ptxas's report, plus the dynamic shared memory it is
+    launched with (the body's, the same in both libraries)."""
+    import re
+    smem_fn = build.load("ecdp").ecdp_mma_smem_bytes
+    out = []
+    for fn, res in build.resources(name).items():
+        m = re.search(r"ecdp_mma_kernelILi(\d+)ELb([01])E", fn)
+        if m:
+            m_tile = int(m.group(1))
+            dyn = smem_fn(m_tile)
+            out.append(dict(m_tile=m_tile, wide=m.group(2) == "1",
+                            registers=res["registers"],
+                            spill_stores=res["spill_stores"],
+                            spill_loads=res["spill_loads"],
+                            smem_static=res["smem"], smem_dynamic=dyn,
+                            smem=res["smem"] + dyn))
+    return sorted(out, key=lambda r: (r["m_tile"], r["wide"]))
+
+
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
@@ -127,14 +152,15 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
-    def __call__(self, fn, reps: int = 10, warmup: int = 2) -> float:
+    def __call__(self, fn, reps: int = 10, warmup: int = 2,
+                 hold: int = HOLD_CYCLES) -> float:
         torch = self.torch
         for _ in range(warmup):
             fn()
         times = []
         for _ in range(reps):
             self.flush.zero_()
-            torch.cuda._sleep(self.HOLD_CYCLES)
+            torch.cuda._sleep(hold)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -655,14 +681,17 @@ def time_ecdp_step(torch, timer, calls):
                 (m, fw.q.shape[0]), generator=gen, device="cuda"
             ).to(torch.bfloat16)
     args = [(acts[(m, fw.q.shape[0])], fw) for m, fw in calls]
+    # the card held for about 15 ms while the host enqueues the 129 calls,
+    # so the time is the card's, not the host's dispatch
+    hold = 30_000_000
     t_kernel = timer(lambda: [ecdp_matmul(a, fw.q, fw.parity, fw.scale, True)
-                              for a, fw in args], reps=5)
+                              for a, fw in args], reps=5, hold=hold)
     t_plain = timer(lambda: [ecdp_matmul_plain(a, fw.q, fw.parity, fw.scale,
                                                True) for a, fw in args],
                     reps=1, warmup=1)
     w_deq = [dequantize_int8(fw.q, fw.scale) for _, fw in args]
     t_lib = timer(lambda: [torch.matmul(a, w) for (a, _), w in
-                           zip(args, w_deq)], reps=5)
+                           zip(args, w_deq)], reps=5, hold=hold)
     del w_deq
     nbytes = sum(fw.q.numel() * 9 / 8 + fw.scale.numel() * 4 + a.numel() * 2
                  + 4 * a.shape[0] * fw.q.shape[1] for a, fw in args)
@@ -1094,6 +1123,15 @@ def main() -> int:
     libs = build.build_all()
     log(f"  kernels built in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(p.name for p in libs.values()))
+    mma_res = {n: mma_resources(build, n) for n in ("ecdp", "paged_ecdp")}
+    for n, rows in mma_res.items():
+        if len(rows) != 6:
+            raise AssertionError(f"{n}: {len(rows)} tensor-core instances "
+                                 "in the build log, want 6")
+        for r in rows:
+            log(f"  {n} ecdp_mma_kernel m_tile={r['m_tile']} wide="
+                f"{int(r['wide'])}: {r['registers']} registers, {r['smem']} B "
+                f"smem, spills {r['spill_stores']}/{r['spill_loads']} B")
     torch.backends.cuda.matmul.allow_tf32 = False
     timer = Timer(torch)
 
@@ -1135,7 +1173,8 @@ def main() -> int:
          "library_ms": step["library_ms"],
          "at": "one OPT-6.7B serving step's 129 calls back to back: 32 x "
                "(wq, wo, w_up, w_down) at M=64, lm_head at M=4",
-         "per_launch": ecdp_res["per_launch"]},
+         "per_launch": ecdp_res["per_launch"],
+         "bf16_instances": mma_res["ecdp"]},
         {"name": "paged_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
          "replaces": "src/repro/kernels/paged_attn.py:94",
@@ -1157,7 +1196,8 @@ def main() -> int:
          "library_ms": paged_res["layer"]["library_ms"],
          "at": "one OPT-6.7B layer's 4 paged calls back to back at M=64: "
                "wq, wo (4096x4096), w_up (4096x16384), w_down (16384x4096)",
-         "per_launch": paged_res["per_launch"]},
+         "per_launch": paged_res["per_launch"],
+         "bf16_instances": mma_res["paged_ecdp"]},
         {"name": "decode_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn.py:79",

@@ -21,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -59,6 +60,32 @@ def _digest() -> str:
 
 def lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{_digest()}.so"
+
+
+def resources(name: str) -> dict[str, dict[str, int]]:
+    """What ptxas reported for each kernel of library ``name`` (built):
+    {mangled name: {registers, smem (static bytes per block), spill_stores,
+    spill_loads}}, read from its build log."""
+    out: dict[str, dict[str, int]] = {}
+    cur = None
+    for line in lib_path(name).with_suffix(".log").read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(m.group(1)) if m else 0
+    return out
 
 
 def nvcc_command(src: Path, out: Path) -> list[str]:

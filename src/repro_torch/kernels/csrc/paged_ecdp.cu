@@ -26,12 +26,13 @@
 // BlockSpec maps a logical tile to a pool page, gathers parity dense in the
 // wrapper and pads the activations to the tile grid. Here the kernel body
 // is ecdp.cu's (ecdp_core.cuh) with only the addressing changed: a block's
-// 128 columns are one tile column, so every thread of a block reads the
-// same q_tbl entry (a broadcast) and a codeword's 8 rows are 128 bytes
-// apart in one page; parity and scales are read through their page runs
-// directly, and the logical (K, N) bounds every loop, so no padded copy of
-// anything is made. With the same K split the result is bit-identical to
-// ecdp_matmul on the dense weight with the same bytes.
+// 128 columns are one tile column, so a 64-row step of the weight is 64
+// page rows of 128 bytes in one page (a 16-byte run never leaves a page
+// row); parity and scales are read through their page runs directly (16
+// bytes at a time where N % 16 == 0: 16384 % 16 == 0, so a run never
+// straddles two pages), and the logical (K, N) bounds every loop, so no
+// padded copy of anything is made. With the same launch plan the result is
+// bit-identical to ecdp_matmul on the dense weight with the same bytes.
 #include "ecdp_core.cuh"
 
 namespace {
@@ -57,10 +58,24 @@ struct PagedWeight {
       w |= (unsigned long long)(uint8_t)__ldg(wp + r * TILE) << (8 * r);
     return w;
   }
-  __device__ __forceinline__ unsigned parity_byte(int k, int n) const {
-    const size_t i = (size_t)(k / 8) * N + n;
+  // a 64-row step of a 128-column block lies in one page (64 | 128)
+  __device__ __forceinline__ const int8_t* q_rows(int k0, int n0) const {
+    const int page = __ldg(q_tbl + (k0 / TILE) * nt + n0 / TILE);
+    return pool + (size_t)page * PAGE + (k0 % TILE) * TILE + n0 % TILE;
+  }
+  __device__ __forceinline__ int q_stride() const { return TILE; }
+  __device__ __forceinline__ int8_t q_byte(int k, int n) const {
+    const int page = __ldg(q_tbl + (k / TILE) * nt + n / TILE);
+    return __ldg(pool + (size_t)page * PAGE + (k % TILE) * TILE + n % TILE);
+  }
+  __device__ __forceinline__ const uint8_t* p16(int c, int n0) const {
+    const size_t i = (size_t)c * N + n0;
     const int page = __ldg(p_slots + i / PAGE);
-    return (uint8_t)__ldg(pool + (size_t)page * PAGE + i % PAGE);
+    return reinterpret_cast<const uint8_t*>(pool + (size_t)page * PAGE
+                                            + i % PAGE);
+  }
+  __device__ __forceinline__ unsigned parity_byte(int k, int n) const {
+    return __ldg(p16(k / 8, n));
   }
   __device__ __forceinline__ float col_scale(int n) const {
     const size_t i = (size_t)n * 4;
@@ -74,18 +89,19 @@ struct PagedWeight {
 
 // a (M,K) bf16 (a_bf16=1) or f32; pool (n_pages, 16384) int8; q_tbl
 // (ceil(K/128), nt = ceil(N/128)) i32; p_slots, s_slots i32 page runs;
-// out (M,N) f32. partial holds splits*min(M,64)*N floats when splits > 1
-// (else unused). K % 8 == 0, M, N > 0. Returns cudaGetLastError() after
-// the launches.
+// out (M,N) f32. k_split, m_tile, wide and partial's size as ecdp_launch
+// (ecdp_core.cuh) takes them. K % 8 == 0, M, N > 0. Returns
+// cudaGetLastError() after the launches.
 extern "C" int paged_ecdp_matmul(const void* a, int a_bf16, const void* pool,
                                  const void* q_tbl, const void* p_slots,
                                  const void* s_slots, void* out,
                                  void* partial, int M, int K, int N, int nt,
-                                 int splits, int ecc, void* stream) {
+                                 int k_split, int m_tile, int wide, int ecc,
+                                 void* stream) {
   const PagedWeight w{static_cast<const int8_t*>(pool),
                       static_cast<const int*>(q_tbl),
                       static_cast<const int*>(p_slots),
                       static_cast<const int*>(s_slots), N, nt};
-  return ecdp_launch(a, a_bf16, w, out, partial, M, K, N, splits, ecc,
-                     stream);
+  return ecdp_launch(a, a_bf16, w, out, partial, M, K, N, k_split, m_tile,
+                     wide, ecc, stream);
 }

@@ -8,12 +8,16 @@ with per-column scales applied.
 
 ``ecdp_matmul`` launches the kernel for CUDA tensors and raises on
 anything the kernel does not take; it takes the plain version only for
-CPU tensors. ``ecdp_matmul.launches`` counts kernel launches.
+CPU tensors. ``ecdp_matmul.launches`` counts kernel launches (wrapper
+calls; one call may be two CUDA launches, the product and its split-K
+reduce). ``launch_plan`` cuts a product into blocks and K splits; the paged
+ECDP takes the same plan, so the two agree bit for bit on the same bytes.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -75,14 +79,17 @@ def _check(a, wq, parity, scale):
             raise ValueError(f"ecdp_matmul: {name} must be contiguous")
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ecdp_matmul.argtypes = [p, i, p, p, p, p, p] + [i] * 7 + [p]
+    lib.ecdp_matmul.restype = ctypes.c_int
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     from repro_torch.kernels import build
-    lib = build.load("ecdp")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ecdp_matmul.argtypes = [p, i, p, p, p, p, p, i, i, i, i, i, p]
-    lib.ecdp_matmul.restype = ctypes.c_int
-    return lib
+    return _bind(build.load("ecdp"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,11 +97,94 @@ def _n_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _splits(dev: torch.device, k: int, n: int) -> int:
-    """K splits so that about two blocks of 128 columns run per SM."""
-    col_blocks = -(-n // 128)
-    want = -(-2 * _n_sms(dev.index) // col_blocks)
-    return max(1, min(want, k // 64))
+COLS = 128        # output columns per thread block
+STEP_K = 64       # K rows per step of the tensor-core body
+F32_ROWS = 64     # rows per launch of the f32 (CUDA-core) body
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class Plan(NamedTuple):
+    """How one (M,K) x (K,N) product is launched: the tensor-core body's M
+    tile (16, 64 or 128 rows; the f32 body runs M in launches of 64 rows), K
+    split into ``splits`` runs of ``k_split`` rows (a multiple of 8, so of
+    whole codewords; the last run may be shorter), and the shape of the f32
+    partial sums the splits write (None for one split)."""
+    m_tile: int
+    k_split: int
+    splits: int
+    partial: tuple | None
+
+
+@functools.lru_cache(maxsize=4096)
+def launch_plan(m: int, k: int, n: int, n_sms: int, bf16: bool = True
+                ) -> Plan:
+    """The launch plan of a product on a card with ``n_sms`` SMs.
+
+    bf16 (tensor cores): M tile 16 up to 16 rows, 64 up to 64, else 128
+    (the correction of a weight step is shared by the tile's rows); about four
+    blocks per SM, but no more splits than keep the partials' bytes
+    (splits * M * N * 4) within half the weight's (K * N), and each split
+    whole 64-row steps. f32 (CUDA cores, as first written): about two
+    blocks of 128 columns per SM, splits of whole codewords, M in 64-row
+    launches that share the partials."""
+    col_blocks = _cdiv(n, COLS)
+    if bf16:
+        m_tile = 16 if m <= 16 else 64 if m <= 64 else 128
+        want = _cdiv(4 * n_sms, col_blocks * _cdiv(m, m_tile))
+        splits = max(1, min(want, k // (8 * max(m, 1)), k // STEP_K))
+        k_split = _cdiv(_cdiv(k, splits), STEP_K) * STEP_K
+        rows = m
+    else:
+        m_tile = F32_ROWS
+        splits = max(1, min(_cdiv(2 * n_sms, col_blocks), k // 64))
+        k_split = _cdiv(k // 8, splits) * 8
+        rows = min(m, F32_ROWS)
+    splits = _cdiv(k, k_split)
+    return Plan(m_tile, k_split, splits,
+                (splits, rows, n) if splits > 1 else None)
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def alloc(a: torch.Tensor, k: int, n: int, n_sms: int):
+    """The launch plan of ``a`` (M,K) x (K,N) and the buffers it writes:
+    (plan, out (M,N) f32, partial f32 or None), on ``a``'s device. Shared
+    by the ECDP and the paged ECDP."""
+    m = a.shape[0]
+    plan = launch_plan(m, k, n, n_sms, a.dtype == torch.bfloat16)
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    partial = (None if plan.partial is None or out.numel() == 0 else
+               torch.empty(plan.partial, dtype=torch.float32,
+                           device=a.device))
+    return plan, out, partial
+
+
+def _launch(lib, a, wq, parity, scale, ecc_enabled):
+    """Allocate the output and the partials and launch ``lib``'s kernel on
+    the current stream (checked inputs on the card; no count)."""
+    m, k = a.shape
+    n = wq.shape[1]
+    plan, out, partial = alloc(a, k, n, _n_sms(a.device.index))
+    if out.numel() == 0:
+        return out
+    bf16 = a.dtype == torch.bfloat16
+    wide = n % 16 == 0 and _aligned(a, wq, parity)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.ecdp_matmul(
+            a.data_ptr(), int(bf16), wq.data_ptr(), parity.data_ptr(),
+            scale.data_ptr(), out.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            m, k, n, plan.k_split, plan.m_tile, int(wide),
+            int(bool(ecc_enabled)), stream)
+    if err:
+        raise RuntimeError(f"ecdp_matmul: CUDA error {err} at launch")
+    return out
 
 
 def ecdp_matmul(a: torch.Tensor, wq: torch.Tensor, parity: torch.Tensor,
@@ -108,24 +198,7 @@ def ecdp_matmul(a: torch.Tensor, wq: torch.Tensor, parity: torch.Tensor,
     _check(a, wq, parity, scale)
     if not a.is_cuda:
         return ecdp_matmul_plain(a, wq, parity, scale, ecc_enabled)
-    m, k = a.shape
-    n = wq.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    if m == 0 or n == 0:
-        return out
-    splits = _splits(a.device, k, n)
-    partial = (torch.empty((splits, min(m, 64), n), dtype=torch.float32,
-                           device=a.device) if splits > 1 else None)
-    lib = _lib()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.ecdp_matmul(
-            a.data_ptr(), int(a.dtype == torch.bfloat16), wq.data_ptr(),
-            parity.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            None if partial is None else partial.data_ptr(),
-            m, k, n, splits, int(bool(ecc_enabled)), stream)
-    if err:
-        raise RuntimeError(f"ecdp_matmul: CUDA error {err} at launch")
+    out = _launch(_lib(), a, wq, parity, scale, ecc_enabled)
     ecdp_matmul.launches += 1
     return out
 

@@ -11,9 +11,10 @@ byte runs over the pages ``p_slots`` and ``s_slots``.
 
 ``paged_ecdp_matmul`` launches the kernel for CUDA tensors and raises on
 anything the kernel does not take; it takes the plain version only for CPU
-tensors. ``paged_ecdp_matmul.launches`` counts kernel launches. The kernel
-uses ECDP's K split (``ecdp._splits``), so its output is bit-identical to
-``ecdp_matmul`` on the dense weight with the same bytes.
+tensors. ``paged_ecdp_matmul.launches`` counts kernel launches (wrapper
+calls). The kernel takes ECDP's launch plan (``ecdp.launch_plan``), so its
+output is bit-identical to ``ecdp_matmul`` on the dense weight with the
+same bytes.
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ import functools
 
 import torch
 
-from repro_torch.kernels.ecdp import _splits, ecdp_matmul_plain
+from repro_torch.kernels.ecdp import (_aligned, _n_sms, alloc,
+                                     ecdp_matmul_plain)
 
 TILE = 128
 PAGE_BYTES = TILE * TILE          # one 128x128 int8 tile == one 16 KiB page
@@ -115,15 +117,41 @@ def _check(a, pool, q_tbl, p_slots, s_slots, kn):
         raise ValueError("paged_ecdp_matmul: dims must fit in int32")
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.paged_ecdp_matmul.argtypes = [p, i, p, p, p, p, p, p] + [i] * 8 + [p]
+    lib.paged_ecdp_matmul.restype = ctypes.c_int
+    return lib
+
+
 @functools.lru_cache(maxsize=None)
 def _lib():
     from repro_torch.kernels import build
-    lib = build.load("paged_ecdp")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.paged_ecdp_matmul.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, i,
-                                      i, p]
-    lib.paged_ecdp_matmul.restype = ctypes.c_int
-    return lib
+    return _bind(build.load("paged_ecdp"))
+
+
+def _launch(lib, a, pool, q_tbl, p_slots, s_slots, kn, ecc_enabled):
+    """Allocate the output and the partials and launch ``lib``'s kernel on
+    the current stream (checked inputs on the card; no count)."""
+    m = a.shape[0]
+    k, n = (int(d) for d in kn)
+    plan, out, partial = alloc(a, k, n, _n_sms(a.device.index))
+    if out.numel() == 0:
+        return out
+    bf16 = a.dtype == torch.bfloat16
+    # page rows are 128 bytes; the parity run is 16-byte aligned where N is
+    wide = n % 16 == 0 and _aligned(a, pool)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.paged_ecdp_matmul(
+            a.data_ptr(), int(bf16), pool.data_ptr(), q_tbl.data_ptr(),
+            p_slots.data_ptr(), s_slots.data_ptr(), out.data_ptr(),
+            None if partial is None else partial.data_ptr(),
+            m, k, n, q_tbl.shape[1], plan.k_split, plan.m_tile, int(wide),
+            int(bool(ecc_enabled)), stream)
+    if err:
+        raise RuntimeError(f"paged_ecdp_matmul: CUDA error {err} at launch")
+    return out
 
 
 def paged_ecdp_matmul(a: torch.Tensor, pool: torch.Tensor,
@@ -137,24 +165,7 @@ def paged_ecdp_matmul(a: torch.Tensor, pool: torch.Tensor,
     if not a.is_cuda:
         return paged_ecdp_matmul_plain(a, pool, q_tbl, p_slots, s_slots, kn,
                                        ecc_enabled)
-    m = a.shape[0]
-    k, n = (int(d) for d in kn)
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    if m == 0 or n == 0:
-        return out
-    splits = _splits(a.device, k, n)
-    partial = (torch.empty((splits, min(m, 64), n), dtype=torch.float32,
-                           device=a.device) if splits > 1 else None)
-    lib = _lib()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.paged_ecdp_matmul(
-            a.data_ptr(), int(a.dtype == torch.bfloat16), pool.data_ptr(),
-            q_tbl.data_ptr(), p_slots.data_ptr(), s_slots.data_ptr(),
-            out.data_ptr(), None if partial is None else partial.data_ptr(),
-            m, k, n, q_tbl.shape[1], splits, int(bool(ecc_enabled)), stream)
-    if err:
-        raise RuntimeError(f"paged_ecdp_matmul: CUDA error {err} at launch")
+    out = _launch(_lib(), a, pool, q_tbl, p_slots, s_slots, kn, ecc_enabled)
     paged_ecdp_matmul.launches += 1
     return out
 

@@ -52,11 +52,16 @@ def _flash(rng, k, n, rber, seed):
 
 
 # the tests/test_kernels.py sweep, plus the serving shapes' traits: ragged
-# N (not a multiple of 128), M past one 64-row launch, long K (split-K), and
-# prefill's M = 512 (eight 64-row launches sharing the split-K partials)
+# N (not a multiple of 128), M past one 64-row tile, long K (split-K), and
+# prefill's M = 512; then the tensor-core body's edges: M at and around its
+# 16- and 64-row tiles (1, 15, 16, 17, 65), K with an 8-row tail inside a
+# 16-deep MMA step (K % 16 == 8), and N % 16 != 0 (the narrow-load
+# instantiation) beside N % 16 == 0 (16-byte loads)
 SHAPES = [(1, 64, 16), (4, 128, 64), (8, 512, 256), (3, 136, 48),
           (16, 256, 512), (64, 4096, 333), (100, 1024, 200), (4, 16384, 130),
-          (512, 2048, 300)]
+          (512, 2048, 300),
+          (1, 72, 40), (15, 200, 100), (16, 264, 128), (17, 1032, 136),
+          (65, 520, 264), (65, 2056, 384)]
 
 
 @pytest.mark.parametrize("m,k,n", SHAPES)
@@ -95,6 +100,26 @@ def test_ecdp_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         ecdp.ecdp_matmul(a[:, :60].contiguous(), wq[:60], parity, scale)
     with pytest.raises(ValueError):
         ecdp.ecdp_matmul(a.cpu(), wq, parity, scale)
+
+
+@pytest.mark.parametrize("m", [4, 64, 100])
+def test_ecdp_unaligned_activations_match_aligned(cuda, m):
+    """Activations 2 bytes past a 16-byte boundary take the byte-load
+    instantiation: the same launch plan and arithmetic as the 16-byte
+    loads, so the same bits, within the ECDP bound of the plain version."""
+    rng = np.random.default_rng(21 + m)
+    k, n = 1032, 256
+    wq, parity, scale = (t.to(cuda) for t in _flash(rng, k, n, 2e-3, 21))
+    flat = torch.from_numpy(rng.standard_normal(m * k + 1, dtype=np.float32)
+                            ).to(torch.bfloat16).to(cuda)
+    odd = flat[1:].view(m, k)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    got = ecdp.ecdp_matmul(odd, wq, parity, scale)
+    assert torch.equal(got, ecdp.ecdp_matmul(odd.clone(), wq, parity, scale))
+    want = ecdp.ecdp_matmul_plain(odd, wq, parity, scale)
+    mag = (odd.float().abs() @ wq.float().abs()) * scale
+    bound = 1e-4 + 4 * math.sqrt(k) * EPS32 * mag
+    assert bool(((got - want).abs() <= bound).all())
 
 
 def _paged_inputs(rng, b, n_kv, tr, dh, bs, ctx, max_blocks):
@@ -180,6 +205,54 @@ def test_paged_attn_checks_catch_planted_faults(cuda, tmp_path, fault):
     assert (worst <= 1) == (fault == "none"), errs
 
 
+# Faults planted in a copy of the ECDP's source (ecdp_core.cuh + ecdp.cu),
+# built outside the tree: the ECDP bound must catch each. (text in
+# csrc/ecdp_core.cuh, its fault)
+ECDP_FAULTS = {
+    "none": None,
+    "skip_correction": ("    if (ecc) {\n      correct_stage(s, kt, syn2bit);",
+                        "    if (0) {\n      correct_stage(s, kt, syn2bit);"),
+    "drop_last_step": ("      if (kb >= kt) break;",
+                       "      if (kb >= (t == n_steps - 1 ? 0 : kt)) break;"),
+    "swap_b_rows": (
+        "const unsigned q0 = *reinterpret_cast<const unsigned*>(wb) ^ bias;\n"
+        "      const unsigned q1 = *reinterpret_cast<const unsigned*>(wb + WS)"
+        " ^ bias;",
+        "const unsigned q0 = *reinterpret_cast<const unsigned*>(wb + WS) ^ "
+        "bias;\n      const unsigned q1 = *reinterpret_cast<const unsigned*>"
+        "(wb) ^ bias;"),
+}
+
+
+@pytest.mark.parametrize("fault", list(ECDP_FAULTS))
+def test_ecdp_checks_catch_planted_faults(cuda, tmp_path, fault):
+    src = (build.CSRC / "ecdp_core.cuh").read_text()
+    if ECDP_FAULTS[fault] is not None:
+        old, new = ECDP_FAULTS[fault]
+        assert src.count(old) == 1, f"{fault}: the text to alter has moved"
+        src = src.replace(old, new)
+    (tmp_path / "ecdp_core.cuh").write_text(src)
+    (tmp_path / "ecdp.cu").write_text((build.CSRC / "ecdp.cu").read_text())
+    lib_path = tmp_path / "ecdp.so"
+    subprocess.run(build.nvcc_command(tmp_path / "ecdp.cu", lib_path),
+                   check=True, capture_output=True)
+    lib = ecdp._bind(ctypes.CDLL(str(lib_path)))
+    # the serving step's wq / wo shape (M = slots x chunk = 64), bf16
+    # activations, RBER 2e-3 with ECC on
+    rng = np.random.default_rng(13)
+    k, n = 4096, 4096
+    wq, parity, scale = (t.to(cuda) for t in _flash(rng, k, n, 2e-3, 13))
+    a = torch.from_numpy(rng.standard_normal((64, k), dtype=np.float32)
+                         ).to(torch.bfloat16).to(cuda)
+    got = ecdp._launch(lib, a, wq, parity, scale, True)
+    want = ecdp.ecdp_matmul_plain(a, wq, parity, scale, True)
+    mag = (a.float().abs() @ wq.float().abs()) * scale
+    bound = 1e-4 + 4 * math.sqrt(k) * EPS32 * mag
+    worst = float(((got - want).abs() / bound).max())
+    print(f"\n{fault}: error / bound {worst:.3e}")
+    assert (worst <= 1) == (fault == "none"), worst
+
+
 # --- paged ECDP ------------------------------------------------------------
 
 def _paged_pool(cuda, weights, spare=0, seed=0):
@@ -198,13 +271,16 @@ def _paged_pool(cuda, weights, spare=0, seed=0):
     return pool, tbls
 
 
+# then the tensor-core body's edges, as for the ECDP above
 PAGED_SHAPES = [(1, 128, 128), (4, 256, 128), (3, 200, 72), (8, 64, 384),
                 (5, 640, 256), (64, 136, 384), (64, 4096, 1000),
-                (100, 2048, 200)]
+                (100, 2048, 200),
+                (1, 72, 96), (15, 264, 256), (16, 128, 384), (17, 520, 200),
+                (65, 1032, 128)]
 
 
 @pytest.mark.parametrize("m,k,n", PAGED_SHAPES)
-@pytest.mark.parametrize("rber", [0.0, 2e-3])
+@pytest.mark.parametrize("rber", [0.0, 1e-4, 2e-3])
 @pytest.mark.parametrize("adtype", [torch.bfloat16, torch.float32])
 def test_paged_ecdp_kernel_matches_plain_and_ecdp(cuda, m, k, n, rber,
                                                   adtype):

@@ -152,3 +152,52 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         tpe.paged_ecdp_matmul(a, pw.pool, pw.q_tbl.t().contiguous().t(),
                               pw.p_slots, pw.s_slots, (136, 200))
+
+
+# --- the launch plan, shared with the ECDP (no card needed) ------------------
+
+# the OPT-6.7B flash matmuls at the serving (M 64; lm_head 4), decode (4)
+# and prefill (512) row counts, and the card tests' shapes
+PLAN_SHAPES = ([(m, 4096, 4096) for m in (4, 64, 512)]
+               + [(m, 4096, 16384) for m in (4, 64, 512)]
+               + [(m, 16384, 4096) for m in (4, 64, 512)]
+               + [(m, 4096, 50272) for m in (4, 64, 512)]
+               + [(1, 64, 16), (3, 136, 48), (64, 4096, 333), (4, 16384, 130),
+                  (100, 2048, 200), (15, 200, 100), (17, 1032, 136),
+                  (65, 520, 264), (64, 136, 384), (1, 72, 96)])
+
+
+@pytest.mark.parametrize("m,k,n", PLAN_SHAPES)
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "f32"])
+def test_launch_plan_splits_k_in_whole_codewords(m, k, n, bf16):
+    """Both wrappers size their buffers with ``ecdp.alloc`` and so launch
+    the same plan; its splits cover K once, in whole codewords (whole
+    64-row steps for the tensor-core body), as the kernel counts them
+    (ceil(K / k_split)); the bf16 partials stay within half the weight's
+    bytes wherever K allows one split of 8·M rows."""
+    assert tpe.alloc is tecdp.alloc
+    plan = tecdp.launch_plan(m, k, n, 132, bf16)
+    assert plan.k_split % (64 if bf16 else 8) == 0
+    assert plan.splits == -(-k // plan.k_split)
+    assert (plan.splits - 1) * plan.k_split < k <= plan.splits * plan.k_split
+    want_tile = 16 if m <= 16 else 64 if m <= 64 else 128
+    assert plan.m_tile == (want_tile if bf16 else 64)
+    if bf16 and plan.splits > 1 and k >= 8 * m:
+        assert plan.splits * m * n * 4 <= k * n / 2
+
+
+@pytest.mark.parametrize("m", [1, 64, 65, 512])
+@pytest.mark.parametrize("k,n", [(4096, 4096), (16384, 4096), (136, 48)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_alloc_partials_fit_the_plan(m, k, n, dtype):
+    """The partial buffer holds every split's rows as the kernel writes
+    them: all M rows in one launch for bf16, 64-row runs for f32."""
+    a = torch.zeros((m, k), dtype=dtype)
+    plan, out, partial = tecdp.alloc(a, k, n, 132)
+    assert tuple(out.shape) == (m, n) and out.dtype == torch.float32
+    rows = m if dtype == torch.bfloat16 else min(m, 64)
+    if plan.splits == 1:
+        assert partial is None
+    else:
+        assert tuple(partial.shape) == (plan.splits, rows, n)
+        assert partial.dtype == torch.float32
