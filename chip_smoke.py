@@ -24,8 +24,11 @@ Phases (any failure exits non-zero; nothing is caught):
   3. paged    — the paged-attention kernel against its plain version and
                 its plain version in the kernel's order (the bounds are
                 stated at kernel_errors in kernels/paged_attn.py) at B=4,
-                KV=32, TR=16, Dh=128, block 16, ragged contexts (0 .. 2047)
-                over scrambled block tables.
+                KV=32, TR=16, Dh=128, block 16 over scrambled block tables,
+                at ragged contexts (0 .. 2047) and at contexts the resident
+                run has (96 .. 544); each timed beside SDPA. The kernels
+                line carries the registers, spills and shared memory per
+                block of each instantiation (no spills allowed).
   4. serving  — Engine(OPT_6_7B) on the card: seeded init, deploy at RBER
                 1e-4, full width and depth, 4 slots, max_seq 2048, chunk
                 16; 6 requests (prompts 7..512 tokens, 32 new each) run to
@@ -111,6 +114,15 @@ def log(*args):
     print(*args, flush=True)
 
 
+def resources_row(res: dict, smem_dynamic: int, **key) -> dict:
+    """One kernel instantiation's ptxas report (``build.resources``) with
+    the dynamic shared memory it is launched with."""
+    return dict(key, registers=res["registers"],
+                spill_stores=res["spill_stores"],
+                spill_loads=res["spill_loads"], smem_static=res["smem"],
+                smem_dynamic=smem_dynamic, smem=res["smem"] + smem_dynamic)
+
+
 def mma_resources(build, name: str) -> list[dict]:
     """Registers, spills and shared memory per block of each tensor-core
     instantiation (ecdp_mma_kernel<M tile, wide, W>) of kernel library
@@ -123,13 +135,8 @@ def mma_resources(build, name: str) -> list[dict]:
         m = re.search(r"ecdp_mma_kernelILi(\d+)ELb([01])E", fn)
         if m:
             m_tile = int(m.group(1))
-            dyn = smem_fn(m_tile)
-            out.append(dict(m_tile=m_tile, wide=m.group(2) == "1",
-                            registers=res["registers"],
-                            spill_stores=res["spill_stores"],
-                            spill_loads=res["spill_loads"],
-                            smem_static=res["smem"], smem_dynamic=dyn,
-                            smem=res["smem"] + dyn))
+            out.append(resources_row(res, smem_fn(m_tile), m_tile=m_tile,
+                                     wide=m.group(2) == "1"))
     return sorted(out, key=lambda r: (r["m_tile"], r["wide"]))
 
 
@@ -152,6 +159,11 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
 
+    def flush_l2(self):
+        """Evict L2 by writing the 256 MiB buffer. The lines it leaves in L2
+        are dirty: a call that misses in L2 pays their write-back."""
+        self.flush.zero_()
+
     def __call__(self, fn, reps: int = 10, warmup: int = 2,
                  hold: int = HOLD_CYCLES) -> float:
         torch = self.torch
@@ -159,7 +171,7 @@ class Timer:
             fn()
         times = []
         for _ in range(reps):
-            self.flush.zero_()
+            self.flush_l2()
             torch.cuda._sleep(hold)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -243,60 +255,103 @@ def phase_ecdp(torch, timer):
 
 # --- phase 3: paged attention ----------------------------------------------------
 
+# (B, KV, TR, Dh, block size, table width) of one layer of the serving step
+PAGED_SHAPE = (4, 32, 16, 128, 16, 128)
+PAGED_CTX = [0, 2047, 513, 1200]          # ragged, an empty slot, a long one
+# contexts phase 4's resident run has mid-run (prompts 7..512 + 32 new,
+# chunk 16)
+PAGED_SERVING_CTX = [96, 544, 215, 146]
+
+
+def paged_resources(build) -> list[dict]:
+    """Registers, spills and shared memory per block of each instantiation
+    (paged_attn_split_kernel<Dh, k16 tiles per chunk>) and of the merge
+    kernel: ptxas's report, plus the dynamic shared memory the split
+    kernel is launched with at KV >= 4."""
+    import re
+    smem_fn = build.load("paged_attn").paged_attn_smem_bytes
+    out = []
+    for fn, res in build.resources("paged_attn").items():
+        m = re.search(r"paged_attn_split_kernelILi(\d+)ELi(\d+)E", fn)
+        if m:
+            dh, nt = int(m.group(1)), int(m.group(2))
+            out.append(resources_row(res, smem_fn(4, dh, 16 * nt),
+                                     kernel="split", dh=dh, k16_tiles=nt))
+        elif "paged_attn_merge_kernel" in fn:
+            out.append(resources_row(res, 0, kernel="merge"))
+    return sorted(out, key=lambda r: (r["kernel"], r.get("dh", 0),
+                                      r.get("k16_tiles", 0)))
+
+
 def phase_paged(torch, timer):
+    """The kernel against its plain versions at PAGED_SHAPE with PAGED_CTX
+    and PAGED_SERVING_CTX over scrambled tables; each timed beside its
+    plain version and SDPA on the K/V gathered through the tables."""
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attn import (kernel_errors, paged_attn,
                                                 paged_attn_plain)
 
-    b, n_kv, tr, dh, bs, max_blocks = 4, 32, 16, 128, 16, 128
-    ctx = [0, 2047, 513, 1200]
+    b, n_kv, tr, dh, bs, max_blocks = PAGED_SHAPE
     gen = torch.Generator(device="cuda").manual_seed(2)
     n_blocks = 1 + b * max_blocks
-    perm = torch.randperm(n_blocks - 1, generator=gen, device="cuda") + 1
-    tables = torch.zeros((b, max_blocks), dtype=torch.int32, device="cuda")
-    pi = 0
-    for i, c in enumerate(ctx):
-        nb = -(-c // bs)
-        tables[i, :nb] = perm[pi:pi + nb].int()
-        pi += nb
-    lens = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+
+    def table(ctx):
+        perm = torch.randperm(n_blocks - 1, generator=gen, device="cuda") + 1
+        tables = torch.zeros((b, max_blocks), dtype=torch.int32,
+                             device="cuda")
+        pi = 0
+        for i, c in enumerate(ctx):
+            nb = -(-c // bs)
+            tables[i, :nb] = perm[pi:pi + nb].int()
+            pi += nb
+        return tables
 
     def bf(*shape):
         return torch.randn(shape, generator=gen, device="cuda"
                            ).to(torch.bfloat16)
+    ragged = table(PAGED_CTX)
     q = (bf(b, n_kv, tr, dh).float() * dh ** -0.5).to(torch.bfloat16)
     k_pool, v_pool = bf(n_blocks, bs, n_kv, dh), bf(n_blocks, bs, n_kv, dh)
-    acc, m, l = paged_attn(q, k_pool, v_pool, tables, lens)
-    torch.cuda.synchronize()
-    # each check's error over its bound (stated at kernel_errors)
-    errs = kernel_errors(q, k_pool, v_pool, tables, lens, acc, m, l)
-    max_abs = errs.pop("max_abs_err")
-    if not all(v <= 1 for v in errs.values()):
-        raise AssertionError(f"paged attention: error / bound {errs}")
-    log("  paged_attn error / bound: " + ", ".join(
-        f"{k} {v:.3e}" for k, v in errs.items()))
-    t_kernel = timer(lambda: paged_attn(q, k_pool, v_pool, tables, lens))
-    t_plain = timer(lambda: paged_attn_plain(q, k_pool, v_pool, tables, lens),
-                    reps=3)
-    # yardstick: SDPA over the K/V gathered through the tables
-    s_pad = max_blocks * bs
-    kg = k_pool[tables.long()].reshape(b, s_pad, n_kv, dh).transpose(1, 2
-                                                                      ).contiguous()
-    vg = v_pool[tables.long()].reshape(b, s_pad, n_kv, dh).transpose(1, 2
-                                                                      ).contiguous()
-    mask = (torch.arange(s_pad, device="cuda")[None, :] < lens[:, None]
-            )[:, None, None, :]
-    t_lib = timer(lambda: F.scaled_dot_product_attention(
-        q, kg, vg, attn_mask=mask, scale=1.0))
-    live = sum(ctx)
-    nbytes = (live * n_kv * dh * 2 * 2 + q.numel() * 2 + acc.numel() * 4
-              + 2 * m.numel() * 4 + tables.numel() * 4 + b * 4)
-    b_ms, b_by = bound_ms(nbytes, 4.0 * tr * dh * n_kv * live)
-    log(f"  paged_attn B={b} KV={n_kv} TR={tr} Dh={dh} ctx={ctx}: kernel "
-        f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, SDPA {t_lib:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}); max abs err {max_abs:.3e}")
-    return dict(max_abs_err=max_abs, ms=t_kernel, plain_ms=t_plain,
-                library_ms=t_lib, bound_ms=b_ms, bound_by=b_by)
+    rows = {}
+    for name, ctx, tables in (
+            ("ragged", PAGED_CTX, ragged),
+            ("serving", PAGED_SERVING_CTX, table(PAGED_SERVING_CTX))):
+        lens = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+        acc, m, l = paged_attn(q, k_pool, v_pool, tables, lens)
+        torch.cuda.synchronize()
+        # each check's error over its bound (stated at kernel_errors)
+        errs = kernel_errors(q, k_pool, v_pool, tables, lens, acc, m, l)
+        max_abs = errs.pop("max_abs_err")
+        if not all(v <= 1 for v in errs.values()):
+            raise AssertionError(f"paged attention, ctx {ctx}: error / bound "
+                                 f"{errs}")
+        log(f"  paged_attn ctx={ctx} error / bound: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items()))
+        t_kernel = timer(lambda: paged_attn(q, k_pool, v_pool, tables, lens))
+        t_plain = timer(lambda: paged_attn_plain(q, k_pool, v_pool, tables,
+                                                 lens), reps=3)
+        # yardstick: SDPA over the K/V gathered through the tables
+        s_pad = max_blocks * bs
+        kg = k_pool[tables.long()].reshape(b, s_pad, n_kv, dh).transpose(
+            1, 2).contiguous()
+        vg = v_pool[tables.long()].reshape(b, s_pad, n_kv, dh).transpose(
+            1, 2).contiguous()
+        mask = (torch.arange(s_pad, device="cuda")[None, :] < lens[:, None]
+                )[:, None, None, :]
+        t_lib = timer(lambda: F.scaled_dot_product_attention(
+            q, kg, vg, attn_mask=mask, scale=1.0))
+        live = sum(ctx)
+        nbytes = (live * n_kv * dh * 2 * 2 + q.numel() * 2 + acc.numel() * 4
+                  + 2 * m.numel() * 4 + tables.numel() * 4 + b * 4)
+        b_ms, b_by = bound_ms(nbytes, 4.0 * tr * dh * n_kv * live)
+        log(f"  paged_attn B={b} KV={n_kv} TR={tr} Dh={dh} ctx={ctx}: kernel "
+            f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, SDPA {t_lib:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}); max abs err {max_abs:.3e}")
+        rows[name] = dict(ctx=ctx, max_abs_err=max_abs, ms=t_kernel,
+                          plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
+                          bound_by=b_by)
+        del kg, vg
+    return rows
 
 
 # --- phase 6: paged ECDP -------------------------------------------------------------
@@ -1124,6 +1179,17 @@ def main() -> int:
     log(f"  kernels built in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(p.name for p in libs.values()))
     mma_res = {n: mma_resources(build, n) for n in ("ecdp", "paged_ecdp")}
+    pa_inst = paged_resources(build)
+    for r in pa_inst:
+        log(f"  paged_attn {r['kernel']} "
+            + (f"Dh={r['dh']} k16_tiles={r['k16_tiles']}: "
+               if r["kernel"] == "split" else ": ")
+            + f"{r['registers']} registers, {r['smem']} B smem, spills "
+              f"{r['spill_stores']}/{r['spill_loads']} B")
+    if len(pa_inst) != 9 or any(r["spill_stores"] or r["spill_loads"]
+                                for r in pa_inst):
+        raise AssertionError(f"paged_attn instances in the build log: "
+                             f"{pa_inst} (want 8 split + merge, no spills)")
     for n, rows in mma_res.items():
         if len(rows) != 6:
             raise AssertionError(f"{n}: {len(rows)} tensor-core instances "
@@ -1179,11 +1245,15 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
          "replaces": "src/repro/kernels/paged_attn.py:94",
          "launches": serve["launches"]["paged_attn"],
-         "max_abs_err": pa_res["max_abs_err"], "ms": pa_res["ms"],
-         "kernel_ms": pa_res["ms"],
-         "plain_ms": pa_res["plain_ms"], "bound_ms": pa_res["bound_ms"],
-         "bound_by": pa_res["bound_by"], "library_ms": pa_res["library_ms"],
-         "at": "B=4 KV=32 TR=16 Dh=128 block 16, ctx [0, 2047, 513, 1200]"},
+         "max_abs_err": max(r["max_abs_err"] for r in pa_res.values()),
+         "ms": pa_res["ragged"]["ms"], "kernel_ms": pa_res["ragged"]["ms"],
+         "plain_ms": pa_res["ragged"]["plain_ms"],
+         "bound_ms": pa_res["ragged"]["bound_ms"],
+         "bound_by": pa_res["ragged"]["bound_by"],
+         "library_ms": pa_res["ragged"]["library_ms"],
+         "at": "B=4 KV=32 TR=16 Dh=128 block 16, ctx %s" % PAGED_CTX,
+         "at_serving_ctx": pa_res["serving"],
+         "instances": pa_inst},
         {"name": "paged_ecdp_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_ecdp.cu",
          "replaces": "src/repro/kernels/paged_ffn.py:156",

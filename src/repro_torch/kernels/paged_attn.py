@@ -16,8 +16,9 @@ unnormalised online-softmax state ``acc (B,KV,TR,Dh), m, l (B,KV,TR)``,
 f32; an empty context gives m=-inf, l=0, acc=0.
 
 ``paged_attn`` launches the kernel for CUDA tensors and raises on anything
-the kernel does not take; it takes the plain version only for CPU tensors.
-``paged_attn.launches`` counts kernel launches.
+the kernel does not take (on the card: a bf16 pool, Dh in 16, 32, 64, 128,
+16-byte-aligned q and pools); it takes the plain version only for CPU
+tensors. ``paged_attn.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -26,10 +27,12 @@ import functools
 
 import torch
 
-_MAX_SMEM = 227 * 1024      # dynamic shared memory one H100 block may use
-# pool blocks one thread block walks: a context of n blocks spreads over
-# ceil(n / 8) thread blocks per (slot, head), merged by a second kernel
+# pool blocks one warp walks: a context of n blocks spreads over
+# ceil(n / 8) warps per (slot, head, m tile), merged by a second kernel
+# (at most 32: the kernel holds a range's table entries one a lane)
 _BLOCKS_PER_SPLIT = 8
+# head sizes the kernel is instantiated for
+_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def group_chunk_queries(q: torch.Tensor, n_kv: int, cdt) -> torch.Tensor:
@@ -178,7 +181,8 @@ def kernel_errors(q, k_pool, v_pool, block_tables, ctx_lens, acc, m, l, *,
 
 def _check(q, k_pool, v_pool, block_tables, ctx_lens):
     """What the kernel takes, checked on both devices (so the CPU tests
-    catch a caller the card would refuse); the bf16 pool only on CUDA."""
+    catch a caller the card would refuse); the bf16 pool, the head size
+    and the alignment only on CUDA."""
     dev = q.device
     ts = (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
           ("block_tables", block_tables), ("ctx_lens", ctx_lens))
@@ -205,6 +209,16 @@ def _check(q, k_pool, v_pool, block_tables, ctx_lens):
             or tuple(ctx_lens.shape) != (b,):
         raise ValueError("paged_attn: block_tables (B, max_blocks), "
                          "ctx_lens (B,)")
+    if q.is_cuda:
+        if dh not in _HEAD_DIMS or q.shape[2] < 1 or block_size < 1:
+            raise ValueError(f"paged_attn: the kernel takes Dh in {_HEAD_DIMS}"
+                             ", TR >= 1 and block_size >= 1 (got Dh="
+                             f"{dh}, TR={q.shape[2]}, block_size="
+                             f"{block_size})")
+        for name, t in ts[:3]:
+            if t.data_ptr() % 16:
+                raise ValueError(f"paged_attn: {name} must start on a 16-byte"
+                                 " boundary (the kernel copies 16-byte runs)")
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -232,10 +246,6 @@ def _launch(lib, q, k_pool, v_pool, block_tables, ctx_lens):
     l = torch.empty_like(m)
     if acc.numel() == 0:
         return acc, m.fill_(float("-inf")), l.zero_()
-    smem = lib.paged_attn_smem_bytes(tr, dh, block_size)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"paged_attn: TR={tr}, Dh={dh}, block_size="
-                         f"{block_size} need {smem} B of shared memory")
     max_blocks = block_tables.shape[1]
     n_split = -(-max_blocks // _BLOCKS_PER_SPLIT)
     acc_p = torch.empty((n_split,) + tuple(acc.shape), dtype=torch.float32,

@@ -39,7 +39,10 @@ def filter_logits(logits: torch.Tensor, cfg: SampleConfig) -> torch.Tensor:
         sorted_l = torch.sort(logits, dim=-1, descending=True).values
         probs = torch.softmax(sorted_l, dim=-1)
         cum = torch.cumsum(probs, dim=-1)
-        cutoff_idx = (cum < cfg.top_p).sum(dim=-1)
+        # all of V when the f32 sum never reaches top_p: keep everything,
+        # as the reference's out-of-range take does
+        cutoff_idx = (cum < cfg.top_p).sum(dim=-1).clamp_max(
+            logits.shape[-1] - 1)
         cutoff = torch.gather(sorted_l, -1, cutoff_idx[..., None])
         logits = torch.where(logits < cutoff, float("-inf"), logits)
     return logits

@@ -146,6 +146,19 @@ def _paged_inputs(rng, b, n_kv, tr, dh, bs, ctx, max_blocks):
     (3, 2, 10, 32, 8, [5, 0, 32], 4),
     (2, 1, 56, 16, 4, [13, 28], 7),
     (1, 4, 1, 64, 16, [1], 1),
+    # the tensor-core body's edges: a 32-key block (two k16 tiles under one
+    # max), a 40-key block (walked twice: K for the max, then K and V),
+    # TR = 17 (a ragged second m tile), the OPT_TINY width (Dh 32, KV 4)
+    (3, 4, 16, 128, 32, [70, 0, 513], 17),
+    (2, 3, 16, 64, 40, [41, 359], 9),
+    (2, 4, 17, 64, 16, [100, 7], 8),
+    (3, 4, 16, 32, 16, [0, 40, 161], 11),
+    # contexts ending mid-block, for each block-size class: one k16 tile
+    # (4, 8, 16 keys), two (32), two walks (40): inside the first block,
+    # inside the second, one short of a block's end past two ranges, one
+    # past a range
+    *[(4, 2, 16, 64, bs, [3, bs + 5, 17 * bs - 1, 8 * bs + 1], 20)
+      for bs in (4, 8, 16, 32, 40)],
 ])
 def test_paged_attn_kernel_matches_plain(cuda, b, n_kv, tr, dh, bs, ctx,
                                          max_blocks):
@@ -165,27 +178,67 @@ def test_paged_attn_kernel_matches_plain(cuda, b, n_kv, tr, dh, bs, ctx,
     assert all(v <= 1 for k, v in errs.items() if k != "max_abs_err"), errs
 
 
+def test_paged_attn_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    rng = np.random.default_rng(3)
+    q, kp, vp, tbl, lens = (t.to(cuda) for t in _paged_inputs(
+        rng, 2, 2, 16, 64, 16, [20, 5], 2))
+    pa.paged_attn(q, kp, vp, tbl, lens)
+    with pytest.raises(TypeError):
+        pa.paged_attn(q, kp.half(), vp.half(), tbl, lens)
+    # a head size the kernel is not instantiated for
+    q24, kp24, vp24, _, _ = (t.to(cuda) for t in _paged_inputs(
+        rng, 2, 2, 16, 24, 16, [20, 5], 2))
+    with pytest.raises(ValueError, match="Dh"):
+        pa.paged_attn(q24, kp24, vp24, tbl, lens)
+    # a contiguous pool view 2 bytes past a 16-byte boundary
+    flat = torch.zeros(kp.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    odd = flat[1:].view(kp.shape)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        pa.paged_attn(q, odd, vp, tbl, lens)
+    with pytest.raises(ValueError, match="16-byte"):
+        pa.paged_attn(q, kp, odd, tbl, lens)
+
+
 # Faults planted in a copy of the kernel's source, built outside the tree:
-# the checks above must catch each. (text in csrc/paged_attn.cu, its fault)
+# the checks above must catch each. (texts in csrc/paged_attn.cu and what
+# replaces each: its fault)
 FAULTS = {
-    "none": None,
-    "drop_block": ("  for (int j = j0; j < j1; ++j) {\n",
-                   "  for (int j = j0; j < j1; ++j) {\n"
-                   "    if (j == j0 + 1) continue;\n"),
+    "none": (),
+    # the second pool block of every range: neither its max nor its PV
+    "drop_block": (("    cp_commit();\n\n    const __nv_bfloat16* k_s =",
+                    "    cp_commit();\n    if (u / upb == 1) continue;\n\n"
+                    "    const __nv_bfloat16* k_s ="),),
+    # acc not rescaled when the third block of a range raises the max
     "skip_alpha_once": (
-        "acc_s[i] = acc_s[i] * alpha_s[t] + (s0 + s1);",
-        "acc_s[i] = (j == j0 + 2 ? acc_s[i] : acc_s[i] * alpha_s[t])"
-        " + (s0 + s1);"),
-    "p_unrounded": ("pr[r] = __bfloat162float(__float2bfloat16(p));",
-                    "pr[r] = p;"),
+        ("          for (int nd = 0; nd < ND; ++nd) {\n"
+         "            acc[nd][0] *= alpha[0];",
+         "          for (int nd = 0; nd < (jl == 2 ? 0 : ND); ++nd) {\n"
+         "            acc[nd][0] *= alpha[0];"),),
+    # p not rounded to bf16 for PV: its bf16 residual goes through a second
+    # product (p = hi + lo to 16 bits)
+    "p_unrounded": (
+        ("      unsigned pa[NT][4];\n",
+         "      unsigned pa[NT][4], pl[NT][4];\n"),
+        ("          pa[nt][2 * hf + 1] = pack_bf16(p[2], p[3]);\n",
+         "          pa[nt][2 * hf + 1] = pack_bf16(p[2], p[3]);\n"
+         "          pl[nt][2 * hf] = pack_bf16(\n"
+         "              p[0] - __bfloat162float(__float2bfloat16(p[0])),\n"
+         "              p[1] - __bfloat162float(__float2bfloat16(p[1])));\n"
+         "          pl[nt][2 * hf + 1] = pack_bf16(\n"
+         "              p[2] - __bfloat162float(__float2bfloat16(p[2])),\n"
+         "              p[3] - __bfloat162float(__float2bfloat16(p[3])));\n"),
+        ("          mma_bf16(acc[2 * dp + 1], pa[nt], vb[2], vb[3]);\n",
+         "          mma_bf16(acc[2 * dp + 1], pa[nt], vb[2], vb[3]);\n"
+         "          mma_bf16(acc[2 * dp], pl[nt], vb[0], vb[1]);\n"
+         "          mma_bf16(acc[2 * dp + 1], pl[nt], vb[2], vb[3]);\n")),
 }
 
 
 @pytest.mark.parametrize("fault", list(FAULTS))
 def test_paged_attn_checks_catch_planted_faults(cuda, tmp_path, fault):
     src = (build.CSRC / "paged_attn.cu").read_text()
-    if FAULTS[fault] is not None:
-        old, new = FAULTS[fault]
+    for old, new in FAULTS[fault]:
         assert src.count(old) == 1, f"{fault}: the text to alter has moved"
         src = src.replace(old, new)
     (tmp_path / "paged_attn.cu").write_text(src)

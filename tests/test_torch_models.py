@@ -265,6 +265,15 @@ def test_sampler_matches_reference():
         want = jsamp.filter_logits(logits, jsamp.SampleConfig(
             temperature=0.8, top_k=top_k, top_p=top_p))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    # top-p that the f32 cumulative softmax never reaches keeps the whole
+    # vocabulary (the reference's take past the end masks nothing)
+    flat = rng.normal(0.0, 0.01, (10, 50272)).astype(np.float32)
+    for top_p in (0.9999999, 1 - 1e-9):
+        got = tsamp.filter_logits(_t(flat), tsamp.SampleConfig(
+            temperature=1.0, top_p=top_p))
+        want = jsamp.filter_logits(flat, jsamp.SampleConfig(
+            temperature=1.0, top_p=top_p))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     # temperature > 0 draws only from the kept set, from the generator
     g = torch.Generator().manual_seed(0)
     cfg = tsamp.SampleConfig(temperature=0.8, top_k=3)

@@ -225,3 +225,18 @@ def test_kernel_errors_pass_the_pallas_kernel_and_flag_faults():
     wrong = errors([torch.from_numpy(np.array(a)) for a in paged_attn_pallas(
         args[0], args[1], args[2], tables, args[4], interpret=True)])
     assert wrong["acc_vs_plain"] > 1 and wrong["acc_vs_ordered"] > 1, wrong
+
+
+def test_kernel_source_takes_the_wrapper_plan():
+    """The wrapper's head sizes are the kernel's instantiations, and its
+    fixed split plan fits the kernel (one table entry a lane), so the plan
+    kernel_errors models is the one the card runs."""
+    import re
+    from repro_torch.kernels import build
+    src = (build.CSRC / "paged_attn.cu").read_text()
+    cases = {int(c) for c in re.findall(r"case (\d+):\s*\n\s*return "
+                                        r"launch_split<\1, NT>", src)}
+    assert cases == set(tpa._HEAD_DIMS)
+    max_bps = int(re.search(r"constexpr int MAX_BPS = (\d+);", src).group(1))
+    assert 1 <= tpa._BLOCKS_PER_SPLIT <= max_bps
+    assert "paged_attn" in build.SOURCES
