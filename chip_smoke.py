@@ -68,19 +68,26 @@ Phases (any failure exits non-zero; nothing is caught):
                 and its plain version in the kernel's order (bounds at
                 kernel_errors in kernels/decode_attn.py) at the OPT-6.7B
                 decode shape (B=4, S_max=2048, KV=32, rep=1, Dh=128,
-                lengths 0, 1, 513, 2048), GQA (KV=8, rep=4) and MQA
-                (S_max=1000), bf16 and f32 caches; timed against SDPA.
-                (b) seeded init at full width and depth, deploy at RBER
-                1e-4, 4 prompts of 128 tokens prefilled into a cache padded
-                to 2048, 32 greedy decode steps; launch counters zeroed just
-                before and read just after: decode attention = 32 x steps,
-                ECDP = 65 x (1 + steps); then 8 decode steps timed and 8
-                traced with torch.profiler. (c) OPT-6.7B width cut to 2
-                layers on the card and the CPU: byte-identical deploy,
-                prefill and 8 decode steps' logits within 2^-6 of the row's
-                largest logit, greedy tokens wherever the top-2 margin
-                exceeds twice that; teacher-forced decode against forward on
-                the card within the same bound.
+                lengths 0, 1, 513, 2048, and lengths on the walk's edges
+                31, 64, 65, 1000), GQA (KV=8, rep=4) and MQA (S_max=1000),
+                bf16 (tensor-core body) and f32 (CUDA-core body) caches;
+                timed against SDPA at lengths 144 (the main path's) and 0, 1,
+                513, 2048, on grouped queries (and through
+                decode_attention_state, which groups them first; the kernels
+                line's ms_with_grouping). The kernels line carries the
+                registers, spills and shared memory per block of each
+                instantiation (no spills allowed). (b) seeded init at full
+                width and depth, deploy at RBER 1e-4, 4 prompts of 128 tokens
+                prefilled into a cache padded to 2048, 32 greedy decode steps;
+                launch counters zeroed just before and read just after: decode
+                attention = 32 x steps, ECDP = 65 x (1 + steps); then 8 decode
+                steps timed and 8 traced with torch.profiler (a warning line
+                if the profile saw fewer than 2 decode-attention kernels a
+                call). (c) OPT-6.7B width cut to 2 layers on the card and the
+                CPU: byte-identical deploy, prefill and 8 decode steps' logits
+                within 2^-6 of the row's largest logit, greedy tokens wherever
+                the top-2 margin exceeds twice that; teacher-forced decode
+                against forward on the card within the same bound.
 
 The second-to-last line is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Times are CUDA-event medians with the
@@ -683,13 +690,16 @@ def trace_steps(torch, step, n_steps: int) -> dict:
         torch.cuda.synchronize()
         wall_traced = (time.perf_counter() - t0) / n_steps
     groups: dict[str, float] = {}
+    counts: dict[str, int] = {}
     kernels: dict[str, float] = {}
     for evt in prof.key_averages():
         dev_us = getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0.0))
         if dev_us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        groups[_group(evt.key)] = groups.get(_group(evt.key), 0.0) + dev_us
+        group = _group(evt.key)
+        groups[group] = groups.get(group, 0.0) + dev_us
+        counts[group] = counts.get(group, 0) + evt.count
         kernels[evt.key] = kernels.get(evt.key, 0.0) + dev_us
     busy = sum(groups.values()) / 1e6 / n_steps
     if busy <= 0:
@@ -700,12 +710,13 @@ def trace_steps(torch, step, n_steps: int) -> dict:
         f"(untraced wall), {1 - busy / wall_traced:.3f} (traced wall)")
     for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"    {group:32s} {us / 1e3 / n_steps:9.3f} ms/step "
-            f"{us / 1e6 / n_steps / busy:6.1%}")
+            f"{us / 1e6 / n_steps / busy:6.1%} {counts[group]:6d} kernels")
     log("  top kernels (device ms/step):")
     for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {us / 1e3 / n_steps:9.3f}  {name[:90]}")
     return dict(ms_per_step=wall * 1e3, device_ms_per_step=busy * 1e3,
-                groups_ms={g: us / 1e3 / n_steps for g, us in groups.items()})
+                groups_ms={g: us / 1e3 / n_steps for g, us in groups.items()},
+                groups_count=counts)
 
 
 def ecdp_step_calls(eng):
@@ -909,13 +920,18 @@ def phase_parity(torch):
 # --- phase 8: offline prefill / decode ----------------------------------------------
 
 # (B, S_max, KV, rep, Dh, lengths): the OPT-6.7B decode shape with an empty,
-# a one-row, a ragged and a full slot; GQA; MQA with S_max a multiple of
-# neither the kernel's 32-row tile nor its 256-row split
+# a one-row, a ragged and a full slot; the same shape with lengths on the
+# walk's edges (one short of a 32-row chunk, on and one past a 64-row
+# range); GQA; MQA with S_max a multiple of neither the kernel's 32-row
+# chunk nor its range
 DECODE_ATTN_SHAPES = {
     "opt-6.7b": (4, 2048, 32, 1, 128, [0, 1, 513, 2048]),
+    "edges": (4, 2048, 32, 1, 128, [31, 64, 65, 1000]),
     "gqa": (3, 2048, 8, 4, 128, [0, 700, 2048]),
     "mqa": (2, 1000, 1, 8, 128, [1000, 37]),
 }
+# kernels one decode-attention call launches: the split kernel and the merge
+DECODE_KERNELS_PER_CALL = 2
 OFFLINE_B, OFFLINE_PROMPT, OFFLINE_PAD, OFFLINE_STEPS = 4, 128, 2048, 32
 OFFLINE_TRACE = 8
 # the main path's decode attention: the OPT-6.7B cache at the middle of the
@@ -933,12 +949,15 @@ def _decode_inputs(torch, gen, b, s_max, n_kv, rep, dh, dtype):
 
 def time_decode_attn(torch, timer, lengths):
     """Kernel, plain version and SDPA (on the same cache, a length mask)
-    at the OPT-6.7B decode shape, bf16, with ``lengths``; and the bound:
-    the live K/V rows, q and the state at 3.35 TB/s."""
+    at the OPT-6.7B decode shape, bf16, with ``lengths``, all three on the
+    same grouped queries; the kernel also through decode_attention_state
+    (the queries grouped first, as earlier runs timed it); and the bound: the
+    live K/V rows, q and the state at 3.35 TB/s."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attn import (decode_attention_state,
-                                                 decode_attention_state_plain,
+                                                 decode_attn,
+                                                 decode_attn_plain,
                                                  group_decode_queries)
 
     b, s_max, n_kv, rep, dh, _ = DECODE_ATTN_SHAPES["opt-6.7b"]
@@ -946,10 +965,10 @@ def time_decode_attn(torch, timer, lengths):
     q, kc, vc = _decode_inputs(torch, gen, b, s_max, n_kv, rep, dh,
                                torch.bfloat16)
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    t_kernel = timer(lambda: decode_attention_state(q, kc, vc, lens))
-    t_plain = timer(lambda: decode_attention_state_plain(q, kc, vc, lens),
-                    reps=3)
     qs = group_decode_queries(q, n_kv, kc.dtype)          # (B, KV, 1, Dh)
+    t_kernel = timer(lambda: decode_attn(qs, kc, vc, lens))
+    t_grouping = timer(lambda: decode_attention_state(q, kc, vc, lens))
+    t_plain = timer(lambda: decode_attn_plain(qs, kc, vc, lens), reps=3)
     kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
     mask = (torch.arange(s_max, device="cuda")[None, :] < lens[:, None]
             )[:, None, None, :]
@@ -960,10 +979,11 @@ def time_decode_attn(torch, timer, lengths):
               + b * n_kv * rep * (dh + 2) * 4 + b * 4)
     b_ms, b_by = bound_ms(nbytes, 4.0 * rep * dh * n_kv * live)
     log(f"  decode_attn B={b} S_max={s_max} KV={n_kv} rep={rep} Dh={dh} "
-        f"lengths={lengths}: kernel {t_kernel:.4f} ms, plain {t_plain:.4f} "
-        f"ms, SDPA {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return dict(ms=t_kernel, plain_ms=t_plain, library_ms=t_lib,
-                bound_ms=b_ms, bound_by=b_by)
+        f"lengths={lengths}: kernel {t_kernel:.4f} ms ({t_grouping:.4f} ms "
+        f"with the query grouping), plain {t_plain:.4f} ms, SDPA "
+        f"{t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(ms=t_kernel, ms_with_grouping=t_grouping, plain_ms=t_plain,
+                library_ms=t_lib, bound_ms=b_ms, bound_by=b_by)
 
 
 def phase_decode_attn(torch, timer):
@@ -993,9 +1013,36 @@ def phase_decode_attn(torch, timer):
             log(f"  decode_attn {name:8s} {str(dtype)[6:]:8s} error / bound: "
                 + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
                 + f"; max abs err {max_abs:.3e}")
-    time_decode_attn(torch, timer, DECODE_ATTN_SHAPES["opt-6.7b"][5])
+    long_ctx = time_decode_attn(torch, timer,
+                                DECODE_ATTN_SHAPES["opt-6.7b"][5])
     main = time_decode_attn(torch, timer, [DECODE_MAIN_LEN] * OFFLINE_B)
-    return dict(max_abs_err=worst, **main)
+    return dict(max_abs_err=worst, at_long_ctx=dict(
+        lengths=DECODE_ATTN_SHAPES["opt-6.7b"][5], **long_ctx), **main)
+
+
+def decode_resources(build) -> list[dict]:
+    """Registers, spills and shared memory per block of each instantiation
+    of the decode-attention library: the tensor-core body
+    (decode_attn_mma_kernel<Dh>, at KV >= 4), the CUDA-core body
+    (decode_attn_split_kernel<T>, at rep=1, Dh=128) and the merge."""
+    import re
+
+    from repro_torch.kernels.decode_attn import smem_bytes
+    out = []
+    for fn, res in build.resources("decode_attn").items():
+        m = re.search(r"decode_attn_mma_kernelILi(\d+)E", fn)
+        if m:
+            dh = int(m.group(1))
+            smem = smem_bytes(1, dh, n_kv=4, mma=True)
+            out.append(resources_row(res, smem, kernel="mma", dh=dh))
+        elif "decode_attn_split_kernel" in fn:
+            dtype = "bf16" if "bfloat16" in fn else "f32"
+            out.append(resources_row(res, smem_bytes(1, 128),
+                                     kernel="cuda_core", dtype=dtype))
+        elif "decode_attn_merge_kernel" in fn:
+            out.append(resources_row(res, 0, kernel="merge"))
+    return sorted(out, key=lambda r: (r["kernel"], r.get("dh", 0),
+                                      r.get("dtype", "")))
 
 
 def phase_offline(torch):
@@ -1071,6 +1118,13 @@ def phase_offline(torch):
                                              "kv_len": kv[0]})
         kv[0] += 1
     prof = trace_steps(torch, step, OFFLINE_TRACE)
+    seen = prof["groups_count"].get("decode attention kernel", 0)
+    want = DECODE_KERNELS_PER_CALL * cfg.n_layers * OFFLINE_TRACE
+    if seen != want:
+        log(f"  WARNING: the profile saw {seen} decode-attention kernels, "
+            f"want {want} ({DECODE_KERNELS_PER_CALL} a call x "
+            f"{cfg.n_layers} layers x {OFFLINE_TRACE} steps): its device "
+            "times miss kernels")
     del params, cache
     gc.collect()
     torch.cuda.empty_cache()
@@ -1180,6 +1234,7 @@ def main() -> int:
         + ", ".join(p.name for p in libs.values()))
     mma_res = {n: mma_resources(build, n) for n in ("ecdp", "paged_ecdp")}
     pa_inst = paged_resources(build)
+    da_inst = decode_resources(build)
     for r in pa_inst:
         log(f"  paged_attn {r['kernel']} "
             + (f"Dh={r['dh']} k16_tiles={r['k16_tiles']}: "
@@ -1190,6 +1245,17 @@ def main() -> int:
                                 for r in pa_inst):
         raise AssertionError(f"paged_attn instances in the build log: "
                              f"{pa_inst} (want 8 split + merge, no spills)")
+    for r in da_inst:
+        log(f"  decode_attn {r['kernel']} "
+            + (f"Dh={r['dh']}: " if r["kernel"] == "mma" else
+               f"{r['dtype']}: " if r["kernel"] == "cuda_core" else ": ")
+            + f"{r['registers']} registers, {r['smem']} B smem, spills "
+              f"{r['spill_stores']}/{r['spill_loads']} B")
+    if len(da_inst) != 6 or any(r["spill_stores"] or r["spill_loads"]
+                                for r in da_inst):
+        raise AssertionError(f"decode_attn instances in the build log: "
+                             f"{da_inst} (want 3 tensor-core, 2 CUDA-core "
+                             "and the merge, no spills)")
     for n, rows in mma_res.items():
         if len(rows) != 6:
             raise AssertionError(f"{n}: {len(rows)} tensor-core instances "
@@ -1273,12 +1339,16 @@ def main() -> int:
          "replaces": "src/repro/kernels/decode_attn.py:79",
          "launches": offline["launches"]["decode_attn"],
          "max_abs_err": da_res["max_abs_err"], "ms": da_res["ms"],
-         "kernel_ms": da_res["ms"], "plain_ms": da_res["plain_ms"],
+         "kernel_ms": da_res["ms"],
+         "ms_with_grouping": da_res["ms_with_grouping"],
+         "plain_ms": da_res["plain_ms"],
          "bound_ms": da_res["bound_ms"], "bound_by": da_res["bound_by"],
          "library_ms": da_res["library_ms"],
          "at": f"B={OFFLINE_B} S_max={OFFLINE_PAD} KV=32 rep=1 Dh=128 bf16, "
                f"lengths {DECODE_MAIN_LEN} (one layer of an OPT-6.7B decode "
-               "step)"},
+               "step)",
+         "at_long_ctx": da_res["at_long_ctx"],
+         "instances": da_inst},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,9 +11,14 @@ in f32 and cast to the cache dtype. Every function returns the
 unnormalised online-softmax state ``acc (B,KV,rep,Dh), m, l (B,KV,rep)``,
 f32; an empty slot gives m=-inf, l=0, acc=0.
 
-``decode_attention_state`` launches the kernel for CUDA tensors and raises
-on anything the kernel does not take; it takes the plain version only for
-CPU tensors. ``decode_attention_state.launches`` counts kernel launches.
+``decode_attn`` (grouped queries, as ``decode_attn_pallas`` takes them) and
+``decode_attention_state`` (unscaled queries, grouped first) launch the
+kernel for CUDA tensors and raise on anything the kernel does not take;
+they take the plain version only for CPU tensors.
+``decode_attention_state.launches`` counts kernel launches through either.
+On the card a bf16 cache with Dh in 32, 64, 128 (q and caches on 16-byte
+boundaries) runs the tensor-core body; f32 caches and other head sizes
+the CUDA-core body, over the same ranges and chunks (``uses_mma``).
 """
 from __future__ import annotations
 
@@ -24,10 +29,16 @@ import torch
 
 _MAX_SMEM = 227 * 1024      # dynamic shared memory one H100 block may use
 # The kernel's walk: a slot's live prefix is cut into SPLIT_ROWS-row ranges,
-# one thread block each, merged by a second kernel; each block updates its
-# online softmax TILE_ROWS rows at a time (csrc/decode_attn.cu's TILE).
-SPLIT_ROWS = 256
+# one warp (tensor-core body) or thread block (CUDA-core body) each, merged
+# by a second kernel; each range updates its online softmax TILE_ROWS rows
+# at a time (csrc/decode_attn.cu's CHUNK and TILE).
+SPLIT_ROWS = 64
 TILE_ROWS = 32
+# the tensor-core body (csrc/decode_attn.cu): its head sizes, the units of
+# a warp's K/V ring (STAGES) and the KV heads a thread block holds (MAX_HPB)
+_MMA_HEAD_DIMS = (32, 64, 128)
+_STAGES = 2
+_MAX_HEADS_PER_BLOCK = 4
 
 # Unit roundoff of p's rounding to the cache dtype, for the acc bound of
 # kernel_errors: bf16 keeps 8 significant bits; an f32 cache does not round
@@ -200,13 +211,17 @@ def _check(q, k_cache, v_cache, lengths):
         if dh % 32 or dh > 256:
             raise ValueError(f"decode_attn: the kernel takes Dh a multiple "
                              f"of 32 up to 256 (got {dh})")
-        if b > 65535 or n_kv > 65535:
-            raise ValueError("decode_attn: B and KV must fit a grid axis")
+        if b > 65535 or n_kv > 65535 \
+                or -(-k_cache.shape[1] // SPLIT_ROWS) > 65535:
+            raise ValueError("decode_attn: B, KV and the ranges of S_max "
+                             "must fit a grid axis")
+        if q.numel() >= 2 ** 31:
+            raise ValueError("decode_attn: B*KV*rep*Dh must stay below 2^31")
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.decode_attn.argtypes = [p] * 10 + [i] * 7 + [p]
+    lib.decode_attn.argtypes = [p] * 10 + [i] * 8 + [p]
     lib.decode_attn.restype = ctypes.c_int
     return lib
 
@@ -217,9 +232,23 @@ def _lib():
     return _bind(build.load("decode_attn"))
 
 
-def smem_bytes(rep: int, dh: int) -> int:
-    """Shared memory one split block takes, in bytes (as the kernel sizes
-    it): q and acc (rep x Dh), p (rep x TILE_ROWS), m, l and alpha."""
+def uses_mma(q, k_cache, v_cache) -> bool:
+    """Whether the card runs the tensor-core body on these (checked)
+    inputs: a bf16 cache, Dh in _MMA_HEAD_DIMS, and q and both caches on
+    16-byte boundaries (its 16-byte copies); else the CUDA-core body."""
+    return (k_cache.dtype == torch.bfloat16 and q.shape[-1] in _MMA_HEAD_DIMS
+            and all(t.data_ptr() % 16 == 0 for t in (q, k_cache, v_cache)))
+
+
+def smem_bytes(rep: int, dh: int, *, n_kv: int = 1, mma: bool = False) -> int:
+    """Dynamic shared memory one split block takes, in bytes (as the kernel
+    sizes it). Tensor-core body: a ring of _STAGES units of TILE_ROWS
+    cache rows padded by 8 elements, bf16, for each of min(KV, 4) warps.
+    CUDA-core body: q and acc (rep x Dh), p (rep x TILE_ROWS), m, l and
+    alpha, f32."""
+    if mma:
+        return (min(n_kv, _MAX_HEADS_PER_BLOCK) * _STAGES * TILE_ROWS
+                * (dh + 8) * 2)
     return 4 * (2 * rep * dh + rep * TILE_ROWS + 3 * rep)
 
 
@@ -234,9 +263,11 @@ def _launch(lib, q, k_cache, v_cache, lengths):
     l = torch.empty_like(m)
     if acc.numel() == 0 or s_max == 0:
         return acc.zero_(), m.fill_(float("-inf")), l.zero_()
-    if smem_bytes(rep, dh) > _MAX_SMEM:
-        raise ValueError(f"decode_attn: rep={rep}, Dh={dh} need "
-                         f"{smem_bytes(rep, dh)} B of shared memory")
+    mma = uses_mma(q, k_cache, v_cache)
+    need = smem_bytes(rep, dh, n_kv=n_kv, mma=mma)
+    if need > _MAX_SMEM:
+        raise ValueError(f"decode_attn: rep={rep}, Dh={dh} need {need} B of "
+                         "shared memory")
     n_split = -(-s_max // SPLIT_ROWS)
     acc_p = torch.empty((n_split,) + tuple(acc.shape), dtype=torch.float32,
                         device=q.device)
@@ -249,24 +280,36 @@ def _launch(lib, q, k_cache, v_cache, lengths):
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lengths.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
             acc_p.data_ptr(), m_p.data_ptr(), l_p.data_ptr(), b, s_max, n_kv,
-            rep, dh, SPLIT_ROWS, int(k_cache.dtype == torch.bfloat16), stream)
+            rep, dh, SPLIT_ROWS, int(k_cache.dtype == torch.bfloat16),
+            int(mma), stream)
     if err:
         raise RuntimeError(f"decode_attn: CUDA error {err} at launch")
     return acc, m, l
 
 
-def decode_attention_state(q, k_cache, v_cache, lengths):
-    """Decode attention state. q (B, H, Dh) one UNscaled query per slot;
-    caches (B, S_max, KV, Dh), bf16 or f32; lengths (B,) int32 live prefix
-    per slot. Returns (acc (B,KV,rep,Dh) unnormalised, m, l (B,KV,rep)),
-    f32. CUDA tensors run the kernel; CPU tensors the plain version."""
-    qg = group_decode_queries(q, k_cache.shape[2], k_cache.dtype)
+def decode_attn(qg, k_cache, v_cache, lengths):
+    """Decode attention state on grouped queries: qg (B, KV, rep, Dh)
+    pre-scaled in the cache dtype (``group_decode_queries``); caches
+    (B, S_max, KV, Dh), bf16 or f32; lengths (B,) int32 live prefix per
+    slot. Returns (acc (B,KV,rep,Dh) unnormalised, m, l (B,KV,rep)), f32.
+    CUDA tensors run the kernel (counted on
+    ``decode_attention_state.launches``); CPU tensors the plain version."""
     _check(qg, k_cache, v_cache, lengths)
     if not qg.is_cuda:
         return decode_attn_plain(qg, k_cache, v_cache, lengths)
     out = _launch(_lib(), qg, k_cache, v_cache, lengths)
     decode_attention_state.launches += 1
     return out
+
+
+def decode_attention_state(q, k_cache, v_cache, lengths):
+    """Decode attention state. q (B, H, Dh) one UNscaled query per slot;
+    caches (B, S_max, KV, Dh), bf16 or f32; lengths (B,) int32 live prefix
+    per slot. Returns (acc (B,KV,rep,Dh) unnormalised, m, l (B,KV,rep)),
+    f32. The queries are grouped, then ``decode_attn``."""
+    return decode_attn(group_decode_queries(q, k_cache.shape[2],
+                                            k_cache.dtype),
+                       k_cache, v_cache, lengths)
 
 
 decode_attention_state.launches = 0

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from repro_torch.core.erdpe import maybe_flash_matmul
 from repro_torch.kernels.decode_attn import (decode_attention_state,
                                              decode_attention_state_plain,
+                                             decode_attn,
                                              group_decode_queries)
 from repro_torch.kernels.paged_attn import (paged_attention_state,
                                             paged_attention_state_plain)
@@ -184,8 +185,9 @@ def decode_attention_incremental(q, k_cache, v_cache, kv_len, k_new, v_new,
     q (B, 1, H, Dh); caches (B, S, KV, Dh) (row kv_len and later are not
     read); kv_len a host int or a tensor (scalar or (B,)); k_new/v_new
     (B, 1, KV, Dh) this token's K/V. Global attention goes through
-    ``kernels.decode_attn.decode_attention_state`` (the kernel on CUDA
-    tensors, its plain version, the reference's XLA branch, on the CPU);
+    ``kernels.decode_attn.decode_attn`` on the queries grouped once for
+    both halves (the kernel on CUDA tensors, its plain version, the
+    reference's XLA branch, on the CPU);
     windowed attention (keys at positions >= kv_len - window + 1) takes
     the plain path on any device, as in the reference.
     """
@@ -197,7 +199,7 @@ def decode_attention_incremental(q, k_cache, v_cache, kv_len, k_new, v_new,
                           k_new[:, 0].to(cdt).float())      # (B,KV,R)
     lens = _lengths(kv_len, b, q.device)
     if window is None:
-        acc, m, l = decode_attention_state(q[:, 0], k_cache, v_cache, lens)
+        acc, m, l = decode_attn(qf, k_cache, v_cache, lens)
     else:
         acc, m, l = decode_attention_state_plain(q[:, 0], k_cache, v_cache,
                                                  lens, window=window)

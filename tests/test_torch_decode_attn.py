@@ -136,7 +136,8 @@ def test_ordered_plain_matches_pallas_walk(case, dtype):
 
 
 @pytest.mark.parametrize("split,tile", [(32, 32), (64, 32), (256, 32),
-                                        (16, 8), (8, 8)])
+                                        (16, 8), (8, 8), (128, 32),
+                                        (tda.SPLIT_ROWS, tda.TILE_ROWS)])
 def test_ordered_plain_splits_merge_to_the_plain_state(split, tile):
     """f32 caches (no rounding of p): any cut into splits and tiles merges
     to the plain version's state."""
@@ -163,41 +164,30 @@ def _fault_inputs():
     return qg, kc, x["vc"], np.asarray([200, 57], np.int32)
 
 
-def test_kernel_errors_pass_the_pallas_kernel_and_flag_faults():
-    """kernel_errors, the checks the CUDA kernel is held to on the card,
-    pass the Pallas kernel's output (interpret mode, 32-row blocks: the
-    CUDA kernel's walk at S_max = one split) and fail a dropped tile, a
-    skipped rescale and a state that left out the bf16 rounding of p."""
-    qg, kc, vc, lens = _fault_inputs()
-    targs = [_t(a) for a in (qg, kc, vc, lens)]
-
-    def errors(state):
-        return tda.kernel_errors(*targs, *state)
-
-    def worst(errs):
-        return max(v for k, v in errs.items() if k != "max_abs_err")
-
-    good = errors([torch.from_numpy(np.array(a)) for a in decode_attn_pallas(
-        qg, kc, vc, lens, block_s=32, interpret=True)])
-    assert worst(good) <= 1, good
+def _faults_fail(targs, errors, split):
+    """The states of three faults on _fault_inputs, each walked in
+    ``split``-row ranges and checked by ``errors``: a state that left out
+    the bf16 rounding of p, one that never read rows 32..63, and one that
+    merged rows 0..63 and 64.. without rescaling the first."""
+    def ordered(*a):
+        return tda.decode_attn_plain_ordered(*a, split=split)
     # f32 caches holding the same values: p is not rounded
-    unrounded = errors(tda.decode_attn_plain_ordered(
-        targs[0].float(), targs[1].float(), targs[2].float(), targs[3]))
+    unrounded = errors(ordered(targs[0].float(), targs[1].float(),
+                               targs[2].float(), targs[3]))
     assert unrounded["acc_vs_ordered"] > 1, unrounded
     # rows 32..63 never read: the state of the cache without them
     keep = torch.cat([torch.arange(32), torch.arange(64, 256),
                       torch.arange(32)])
-    dropped = errors(tda.decode_attn_plain_ordered(
+    dropped = errors(ordered(
         targs[0], targs[1][:, keep], targs[2][:, keep],
         torch.where(targs[3] > 64, targs[3] - 32, targs[3].clamp(max=32))))
     assert dropped["acc_vs_plain"] > 1 and dropped["acc_vs_ordered"] > 1, \
         dropped
     # rows 0..63 and 64.. as two states, merged without rescaling the first
-    first = tda.decode_attn_plain_ordered(
-        targs[0], targs[1], targs[2], targs[3].clamp(max=64))
-    rest = tda.decode_attn_plain_ordered(
-        targs[0], targs[1][:, 64:].contiguous(), targs[2][:, 64:].contiguous(),
-        (targs[3] - 64).clamp(min=0))
+    first = ordered(targs[0], targs[1], targs[2], targs[3].clamp(max=64))
+    rest = ordered(targs[0], targs[1][:, 64:].contiguous(),
+                   targs[2][:, 64:].contiguous(),
+                   (targs[3] - 64).clamp(min=0))
     m = torch.maximum(first[1], rest[1])
     scale_rest = torch.where(torch.isfinite(rest[1]),
                              torch.exp(rest[1] - m), 0.0)
@@ -208,6 +198,42 @@ def test_kernel_errors_pass_the_pallas_kernel_and_flag_faults():
     assert skipped["acc_vs_plain"] > 1 and skipped["acc_vs_ordered"] > 1, \
         skipped
     assert skipped["l"] <= 1 and skipped["m"] <= 1, skipped
+
+
+def _worst(errs):
+    return max(v for k, v in errs.items() if k != "max_abs_err")
+
+
+def test_kernel_errors_pass_the_pallas_kernel_and_flag_faults():
+    """kernel_errors at the Pallas kernel's walk (one range over S=256,
+    32-row tiles) pass the Pallas kernel's output (interpret mode,
+    32-row blocks) and fail a dropped tile, a skipped rescale and a state
+    that left out the bf16 rounding of p."""
+    qg, kc, vc, lens = _fault_inputs()
+    targs = [_t(a) for a in (qg, kc, vc, lens)]
+
+    def errors(state):
+        return tda.kernel_errors(*targs, *state, split=256)
+
+    good = errors([torch.from_numpy(np.array(a)) for a in decode_attn_pallas(
+        qg, kc, vc, lens, block_s=32, interpret=True)])
+    assert _worst(good) <= 1, good
+    _faults_fail(targs, errors, 256)
+
+
+def test_kernel_errors_at_the_kernel_split_pass_its_order_and_flag_faults():
+    """kernel_errors as the card holds the CUDA kernel to them (SPLIT_ROWS
+    ranges of TILE_ROWS rows) pass the plain version in that order and
+    fail the same faults."""
+    qg, kc, vc, lens = _fault_inputs()
+    targs = [_t(a) for a in (qg, kc, vc, lens)]
+
+    def errors(state):
+        return tda.kernel_errors(*targs, *state)
+
+    good = errors(tda.decode_attn_plain_ordered(*targs))
+    assert _worst(good) <= 1, good
+    _faults_fail(targs, errors, tda.SPLIT_ROWS)
 
 
 @pytest.mark.parametrize("mode", [ExecMode.XLA, ExecMode.PALLAS])
@@ -266,6 +292,22 @@ def test_decode_attention_matches_reference(mode, dtype, window, case):
     _close(got, want, dtype)
 
 
+def test_grouped_entry_is_the_state_of_the_grouped_queries():
+    """decode_attn on group_decode_queries' output is decode_attention_state
+    on the unscaled queries, bit for bit, and launches nothing on the
+    CPU."""
+    x = _inputs(4, 3, 64, 8, 2, 32, "bfloat16")
+    q, kc, vc = _t(x["q"][:, 0]), _t(x["kc"]), _t(x["vc"])
+    lens = torch.tensor([0, 33, 64], dtype=torch.int32)
+    before = tda.decode_attention_state.launches
+    got = tda.decode_attn(tda.group_decode_queries(q, 2, kc.dtype), kc, vc,
+                          lens)
+    want = tda.decode_attention_state(q, kc, vc, lens)
+    assert tda.decode_attention_state.launches == before
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def test_wrapper_checks_what_the_kernel_takes_on_the_cpu_too():
     x = _inputs(1, 2, 32, 4, 2, 32, "bfloat16")
     q, kc, vc = _t(x["q"][:, 0]), _t(x["kc"]), _t(x["vc"])
@@ -284,11 +326,50 @@ def test_wrapper_checks_what_the_kernel_takes_on_the_cpu_too():
 
 def test_kernel_source_walks_the_tile_the_checks_model():
     """kernel_errors models the CUDA kernel's walk with TILE_ROWS; the
-    kernel's TILE must be the same number."""
+    CUDA-core body's TILE and the tensor-core body's CHUNK must be the same
+    number, and SPLIT_ROWS a multiple of it. The wrapper's mirror of the
+    tensor-core body (head sizes, ring depth, heads a block) is the
+    source's."""
     import re
     from repro_torch.kernels import build
     src = (build.CSRC / "decode_attn.cu").read_text()
-    assert int(re.search(r"constexpr int TILE = (\d+);", src).group(1)) \
-        == tda.TILE_ROWS
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+    assert const("TILE") == tda.TILE_ROWS
+    assert const("CHUNK") == tda.TILE_ROWS
+    assert tda.SPLIT_ROWS % const("CHUNK") == 0
     assert tda.SPLIT_ROWS % tda.TILE_ROWS == 0
+    assert const("STAGES") == tda._STAGES
+    assert const("MAX_HPB") == tda._MAX_HEADS_PER_BLOCK
+    cases = {int(c) for c in re.findall(r"case (\d+):\s*\n\s*err = "
+                                        r"launch_mma<\1>", src)}
+    assert cases == set(tda._MMA_HEAD_DIMS)
     assert "decode_attn" in build.SOURCES
+
+
+@pytest.mark.parametrize("dtype,dh,offset,mma", [
+    (torch.bfloat16, 128, 0, True), (torch.bfloat16, 64, 0, True),
+    (torch.bfloat16, 32, 0, True), (torch.bfloat16, 256, 0, False),
+    (torch.bfloat16, 96, 0, False), (torch.float32, 128, 0, False),
+    (torch.bfloat16, 128, 1, False)])
+def test_wrapper_picks_the_body_the_card_runs(dtype, dh, offset, mma):
+    """bf16 caches at Dh 32, 64, 128 on 16-byte boundaries take the
+    tensor-core body; f32, other head sizes and caches off a 16-byte
+    boundary the CUDA-core body."""
+    b, s, n_kv = 2, 40, 2
+    flat = torch.zeros(b * s * n_kv * dh + offset, dtype=dtype)
+    kc = flat[offset:].view(b, s, n_kv, dh)
+    q = torch.zeros((b, n_kv, 1, dh), dtype=dtype)
+    assert tda.uses_mma(q, kc, kc) == mma
+
+
+def test_tensor_core_ring_holds_eight_warps_an_sm_at_dh_128():
+    """The tensor-core body's shared memory: two thread blocks of four
+    warps (eight warps) fit an H100 SM's 228 KB at Dh=128, with the 1 KB
+    each block reserves; fewer heads take a smaller block."""
+    full = tda.smem_bytes(1, 128, n_kv=32, mma=True)
+    assert full == 4 * tda._STAGES * tda.TILE_ROWS * 136 * 2
+    assert 2 * (full + 1024) <= 228 * 1024
+    assert tda.smem_bytes(1, 128, n_kv=2, mma=True) == full // 2
+    assert tda.smem_bytes(3, 64) == 4 * (2 * 3 * 64 + 3 * 32 + 9)

@@ -507,14 +507,14 @@ def _decode_inputs(rng, b, s_max, n_kv, rep, dh, dtype):
             mk(b, s_max, n_kv, dh))
 
 
-@pytest.mark.parametrize("b,s_max,n_kv,rep,dh,lens", DECODE_SHAPES)
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_decode_attn_kernel_matches_plain(cuda, b, s_max, n_kv, rep, dh,
-                                          lens, dtype):
+def _check_decode_kernel(cuda, b, s_max, n_kv, rep, dh, lens, dtype):
     rng = np.random.default_rng(b * s_max + dh)
     q, kc, vc = (t.to(cuda) for t in _decode_inputs(rng, b, s_max, n_kv, rep,
                                                      dh, dtype))
     lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    qg = da.group_decode_queries(q, n_kv, dtype)
+    assert da.uses_mma(qg, kc, vc) == (dtype == torch.bfloat16
+                                       and dh in (32, 64, 128))
     before = da.decode_attention_state.launches
     acc, m, l = da.decode_attention_state(q, kc, vc, lens)
     torch.cuda.synchronize()
@@ -523,8 +523,68 @@ def test_decode_attn_kernel_matches_plain(cuda, b, s_max, n_kv, rep, dh,
     # m and l to f32 rounding, acc within 4x the spread of the roundings of
     # p against the plain version and to 2e-4 (Frobenius) against the plain
     # version in the kernel's order; empty slots exact
-    errs = da.kernel_errors(da.group_decode_queries(q, n_kv, dtype), kc, vc,
-                            lens, acc, m, l)
+    errs = da.kernel_errors(qg, kc, vc, lens, acc, m, l)
+    assert all(v <= 1 for k, v in errs.items() if k != "max_abs_err"), errs
+    # the entry on grouped queries launches the same kernel: the same bits
+    got = da.decode_attn(qg, kc, vc, lens)
+    assert da.decode_attention_state.launches == before + 2
+    assert all(torch.equal(g, w) for g, w in zip(got, (acc, m, l)))
+
+
+@pytest.mark.parametrize("b,s_max,n_kv,rep,dh,lens", DECODE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attn_kernel_matches_plain(cuda, b, s_max, n_kv, rep, dh,
+                                          lens, dtype):
+    _check_decode_kernel(cuda, b, s_max, n_kv, rep, dh, lens, dtype)
+
+
+# The walk's edges: lengths just before, on and just after a 32-row chunk
+# and a 64-row range (1, 31, 32, 33, 63, 64, 65, S_max), in bf16 at every
+# tensor-core head size, rep 1, 3, 4, 8 and 17 (two m tiles; KV=5 leaves
+# a thread block of one head); then the CUDA-core body at the same
+# lengths: an f32 cache, and Dh=256 in bf16. (B, S_max, KV, rep, Dh,
+# lengths, dtype). The ordered check bounds the Frobenius norm of the whole
+# state, so a case needs enough rows that one bf16 rounding of p which an
+# f32 score difference tips the other way stays inside it: at KV=2 the
+# rep-17 case's 102 rows let one such rounding (one ulp of a p near 0.7)
+# reach 1.12 of the bound; at KV=8 it has 408.
+EDGE_LENS = [1, 31, 32, 33, 63, 64, 65]
+DECODE_EDGE_CASES = [
+    (8, 130, 2, 1, 128, EDGE_LENS + [130], torch.bfloat16),
+    (8, 200, 3, 3, 64, EDGE_LENS + [200], torch.bfloat16),
+    (8, 129, 4, 4, 32, (EDGE_LENS + [129])[::-1], torch.bfloat16),
+    (4, 257, 2, 8, 128, [65, 128, 129, 257], torch.bfloat16),
+    (3, 100, 8, 17, 64, [1, 64, 100], torch.bfloat16),
+    (2, 96, 5, 17, 32, [33, 96], torch.bfloat16),
+    (8, 130, 2, 3, 64, EDGE_LENS + [130], torch.float32),
+    (3, 200, 2, 2, 256, [1, 65, 200], torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("b,s_max,n_kv,rep,dh,lens,dtype", DECODE_EDGE_CASES)
+def test_decode_attn_kernel_edges_match_plain(cuda, b, s_max, n_kv, rep, dh,
+                                              lens, dtype):
+    _check_decode_kernel(cuda, b, s_max, n_kv, rep, dh, lens, dtype)
+
+
+def test_decode_attn_unaligned_caches_take_the_cuda_core_body(cuda):
+    """bf16 caches 2 bytes past a 16-byte boundary cannot take the
+    tensor-core body's 16-byte copies: the CUDA-core body runs them, held
+    to the same checks."""
+    rng = np.random.default_rng(23)
+    q, kc, vc = _decode_inputs(rng, 2, 96, 4, 2, 128, torch.bfloat16)
+    lens = torch.tensor([70, 96], dtype=torch.int32, device=cuda)
+
+    def odd(t):
+        flat = torch.zeros(t.numel() + 1, dtype=t.dtype, device=cuda)
+        flat[1:] = t.reshape(-1).to(cuda)
+        return flat[1:].view(t.shape)
+    kc, vc = odd(kc), odd(vc)
+    assert kc.is_contiguous() and kc.data_ptr() % 16
+    qg = da.group_decode_queries(q.to(cuda), 4, torch.bfloat16)
+    assert not da.uses_mma(qg, kc, vc)
+    acc, m, l = da.decode_attention_state(q.to(cuda), kc, vc, lens)
+    errs = da.kernel_errors(qg, kc, vc, lens, acc, m, l)
     assert all(v <= 1 for k, v in errs.items() if k != "max_abs_err"), errs
 
 
@@ -552,26 +612,52 @@ def test_decode_attn_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 
 # Faults planted in a copy of the kernel's source, built outside the tree:
-# the checks above must catch each. (text in csrc/decode_attn.cu, its fault)
+# the checks above must catch each. (the cache dtypes each runs, and the
+# texts in csrc/decode_attn.cu and what replaces each: its fault)
+BF16, F32 = torch.bfloat16, torch.float32
 DECODE_FAULTS = {
-    "none": None,
-    "drop_tile": ("  for (int t0 = r0; t0 < r1; t0 += TILE) {\n",
-                  "  for (int t0 = r0; t0 < r1; t0 += TILE) {\n"
-                  "    if (t0 == r0 + TILE) continue;\n"),
-    "skip_alpha_once": (
-        "acc_s[i] = acc_s[i] * alpha_s[t] + (s0 + s1);",
-        "acc_s[i] = (t0 == r0 + 2 * TILE ? acc_s[i] : acc_s[i] * alpha_s[t])"
-        " + (s0 + s1);"),
-    "p_unrounded": ("p_s[t * TILE + lane] = round_as(p, k);",
-                    "p_s[t * TILE + lane] = p;"),
+    "none": ((BF16, F32), ()),
+    # tensor-core body: the second 32-row chunk of every range, neither its
+    # max nor its PV
+    "drop_chunk": ((BF16,), (
+        ("    cp_commit();\n\n    const __nv_bfloat16* t_s =",
+         "    cp_commit();\n    if (u >> 1 == 1) continue;\n\n"
+         "    const __nv_bfloat16* t_s ="),)),
+    # acc not rescaled when a range's second chunk raises the max
+    "skip_alpha_once": ((BF16,), (
+        ("        for (int nd = 0; nd < ND; ++nd) {\n"
+         "          acc[nd][0] *= alpha[0];",
+         "        for (int nd = 0; nd < (c == 1 ? 0 : ND); ++nd) {\n"
+         "          acc[nd][0] *= alpha[0];"),)),
+    # p not rounded to bf16 for PV: its bf16 residual goes through a second
+    # product (p = hi + lo to 16 bits)
+    "p_unrounded": ((BF16,), (
+        ("  unsigned pa[2][4];", "  unsigned pa[2][4], pl[2][4];"),
+        ("          pa[nt][2 * hf + 1] = pack_bf16(p[2], p[3]);\n",
+         "          pa[nt][2 * hf + 1] = pack_bf16(p[2], p[3]);\n"
+         "          pl[nt][2 * hf] = pack_bf16(\n"
+         "              p[0] - __bfloat162float(__float2bfloat16(p[0])),\n"
+         "              p[1] - __bfloat162float(__float2bfloat16(p[1])));\n"
+         "          pl[nt][2 * hf + 1] = pack_bf16(\n"
+         "              p[2] - __bfloat162float(__float2bfloat16(p[2])),\n"
+         "              p[3] - __bfloat162float(__float2bfloat16(p[3])));\n"),
+        ("          mma_bf16(acc[2 * dp + 1], pa[nt], vb[2], vb[3]);\n",
+         "          mma_bf16(acc[2 * dp + 1], pa[nt], vb[2], vb[3]);\n"
+         "          mma_bf16(acc[2 * dp], pl[nt], vb[0], vb[1]);\n"
+         "          mma_bf16(acc[2 * dp + 1], pl[nt], vb[2], vb[3]);\n"))),
+    # CUDA-core body (the f32 cache): the second tile of every range
+    "f32_drop_tile": ((F32,), (
+        ("  for (int t0 = r0; t0 < r1; t0 += TILE) {\n",
+         "  for (int t0 = r0; t0 < r1; t0 += TILE) {\n"
+         "    if (t0 == r0 + TILE) continue;\n"),)),
 }
 
 
 @pytest.mark.parametrize("fault", list(DECODE_FAULTS))
 def test_decode_attn_checks_catch_planted_faults(cuda, tmp_path, fault):
+    dtypes, edits = DECODE_FAULTS[fault]
     src = (build.CSRC / "decode_attn.cu").read_text()
-    if DECODE_FAULTS[fault] is not None:
-        old, new = DECODE_FAULTS[fault]
+    for old, new in edits:
         assert src.count(old) == 1, f"{fault}: the text to alter has moved"
         src = src.replace(old, new)
     (tmp_path / "decode_attn.cu").write_text(src)
@@ -579,17 +665,19 @@ def test_decode_attn_checks_catch_planted_faults(cuda, tmp_path, fault):
     subprocess.run(build.nvcc_command(tmp_path / "decode_attn.cu", lib_path),
                    check=True, capture_output=True)
     lib = da._bind(ctypes.CDLL(str(lib_path)))
-    # chip_smoke.py phase 8(a)'s OPT-6.7B decode shape, bf16
-    rng = np.random.default_rng(12)
-    q, kc, vc = (t.to(cuda) for t in _decode_inputs(rng, 4, 2048, 32, 1, 128,
-                                                     torch.bfloat16))
-    lens = torch.tensor([0, 1, 513, 2048], dtype=torch.int32, device=cuda)
-    qg = da.group_decode_queries(q, 32, torch.bfloat16)
-    acc, m, l = da._launch(lib, qg, kc, vc, lens)
-    errs = da.kernel_errors(qg, kc, vc, lens, acc, m, l)
-    print(f"\n{fault}: {errs}")
-    worst = max(v for k, v in errs.items() if k != "max_abs_err")
-    assert (worst <= 1) == (fault == "none"), errs
+    # chip_smoke.py phase 8(a)'s OPT-6.7B decode shape
+    for dtype in dtypes:
+        rng = np.random.default_rng(12)
+        q, kc, vc = (t.to(cuda) for t in _decode_inputs(
+            rng, 4, 2048, 32, 1, 128, dtype))
+        lens = torch.tensor([0, 1, 513, 2048], dtype=torch.int32,
+                            device=cuda)
+        qg = da.group_decode_queries(q, 32, dtype)
+        acc, m, l = da._launch(lib, qg, kc, vc, lens)
+        errs = da.kernel_errors(qg, kc, vc, lens, acc, m, l)
+        print(f"\n{fault} {dtype}: {errs}")
+        worst = max(v for k, v in errs.items() if k != "max_abs_err")
+        assert (worst <= 1) == (fault == "none"), errs
 
 
 def test_offline_decode_runs_the_kernels_and_matches_the_cpu(cuda):
