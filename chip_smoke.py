@@ -26,21 +26,37 @@ Phases (any failure exits non-zero; nothing is caught):
                 stated at kernel_errors in kernels/paged_attn.py) at B=4,
                 KV=32, TR=16, Dh=128, block 16 over scrambled block tables,
                 at ragged contexts (0 .. 2047) and at contexts the resident
-                run has (96 .. 544); each timed beside SDPA. The kernels
-                line carries the registers, spills and shared memory per
-                block of each instantiation (no spills allowed).
-  4. serving  — Engine(OPT_6_7B) on the card: seeded init, deploy at RBER
-                1e-4, full width and depth, 4 slots, max_seq 2048, chunk
-                16; 6 requests (prompts 7..512 tokens, 32 new each) run to
-                completion. The kernels' launch counters are zeroed just
-                before and read just after: ECDP = steps x (32 x 4 + 1),
-                paged attention = steps x 32. Then the same requests again:
-                8 steps, 12 timed steps, 12 steps traced with
-                torch.profiler (device time per kernel group, idle share);
-                and one step's 129 flash matmuls replayed back to back on
-                the engine's weights (the ECDP times of the kernels line).
+                run has (96 .. 544); each timed beside SDPA; and at
+                OPT-2.7B's Dh=80 over the ragged contexts (checked, not
+                timed). The kernels line carries the registers, spills and
+                shared memory per block of each instantiation (no spills
+                allowed).
+  4. serving  — Engine(OPT_6_7B) on the card, compiled (the default: the
+                step captured once in a CUDA graph and replayed): seeded
+                init, deploy at RBER 1e-4, full width and depth, 4 slots,
+                max_seq 2048, chunk 16; 6 requests (prompts 7..512 tokens,
+                32 new each) run to completion. The kernels' launch
+                counters are zeroed just before and read just after: ECDP
+                = steps x (32 x 4 + 1), paged attention = steps x 32. Then
+                the same requests again: 8 steps, 12 timed steps, 12 steps
+                traced with torch.profiler (device time per kernel group,
+                idle share; the replays' span from CUDA events, printed
+                apart); step_traces must be 1 after both waves; and one
+                step's 129 flash matmuls replayed back to back on the
+                engine's weights (the ECDP times of the kernels line). Then
+                an eager engine (compiled=False) on the same seeded weights
+                serves the same requests the same way: every step's logits
+                (so its greedy tokens) must equal the compiled engine's bit
+                for bit. A replay runs no Python, so it ticks no launch
+                counter: the compiled run's counters hold its warm-up and
+                capture (2 x 129 ECDP, 2 x 32 paged attention), and the
+                replays' kernels are counted in its profile, which must
+                hold each traced step's 129 ECDP and 32 paged-attention
+                kernels (and so must the eager run's); the eager run's
+                counters are the kernels line's launches.
   5. parity   — the same seeded engine at OPT-6.7B width cut to 2 layers,
-                on the card (kernels) and on the CPU (plain versions):
+                compiled on the card (kernels, one graph) and on the CPU
+                (plain versions, the same step body without capture):
                 byte-identical deploy, per-step logits within 2^-6 of the
                 row's largest logit, greedy tokens wherever the top-2
                 margin exceeds twice that.
@@ -69,8 +85,9 @@ Phases (any failure exits non-zero; nothing is caught):
                 kernel_errors in kernels/decode_attn.py) at the OPT-6.7B
                 decode shape (B=4, S_max=2048, KV=32, rep=1, Dh=128,
                 lengths 0, 1, 513, 2048, and lengths on the walk's edges
-                31, 64, 65, 1000), GQA (KV=8, rep=4) and MQA (S_max=1000),
-                bf16 (tensor-core body) and f32 (CUDA-core body) caches;
+                31, 64, 65, 1000), GQA (KV=8, rep=4), MQA (S_max=1000) and
+                the OPT-2.7B decode shape (Dh=80), bf16 (tensor-core body)
+                and f32 (CUDA-core body) caches;
                 timed against SDPA at lengths 144 (the main path's) and 0, 1,
                 513, 2048, on grouped queries (and through
                 decode_attention_state, which groups them first; the kernels
@@ -78,16 +95,20 @@ Phases (any failure exits non-zero; nothing is caught):
                 registers, spills and shared memory per block of each
                 instantiation (no spills allowed). (b) seeded init at full
                 width and depth, deploy at RBER 1e-4, 4 prompts of 128 tokens
-                prefilled into a cache padded to 2048, 32 greedy decode steps;
-                launch counters zeroed just before and read just after: decode
-                attention = 32 x steps, ECDP = 65 x (1 + steps); then 8 decode
-                steps timed and 8 traced with torch.profiler (a warning line
-                if the profile saw fewer than 2 decode-attention kernels a
-                call). (c) OPT-6.7B width cut to 2 layers on the card and the
-                CPU: byte-identical deploy, prefill and 8 decode steps' logits
-                within 2^-6 of the row's largest logit, greedy tokens wherever
-                the top-2 margin exceeds twice that; teacher-forced decode
-                against forward on the card within the same bound.
+                prefilled into a cache padded to 2048, 32 greedy decode steps
+                through make_decode_step(compiled=True) (one capture), then
+                the same through the eager step: tokens and logits bit-equal;
+                for each, launch counters zeroed just before and read just
+                after: eager, decode attention = 32 x steps, ECDP = 65 x (1 +
+                steps); compiled, the warm-up and the capture, 32 x 2 and
+                65 x (1 + 2); then 8 decode steps timed and 8 traced with
+                torch.profiler, whose records must hold 32 decode-attention
+                and 65 ECDP kernels a step, the replays' included. (c) OPT-6.7B width cut to 2 layers on
+                the card and the CPU: byte-identical deploy, prefill and 8
+                decode steps' logits within 2^-6 of the row's largest logit,
+                greedy tokens wherever the top-2 margin exceeds twice that;
+                teacher-forced decode against forward on the card within the
+                same bound.
 
 The second-to-last line is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Times are CUDA-event medians with the
@@ -96,7 +117,10 @@ weight bytes than L2 holds) and the card held while the call is enqueued
 (``Timer``). bound_ms is the larger of the bytes a call
 must move at 3.35 TB/s and its operations at the bf16 tensor-core peak of
 989 TFLOP/s (H100 SXM data sheet, 700 W). In the kernels line ``ms`` and
-``kernel_ms`` are the same number under the two names it is read by.
+``kernel_ms`` are the same number under the two names it is read by;
+``launches`` is the eager run's count on the path (phase 4's or 8(b)'s;
+the paged ECDP's, phase 7's streamed run) and ``replayed_in_profile`` the
+kernel's records in the compiled run's profile.
 """
 from __future__ import annotations
 
@@ -268,6 +292,9 @@ PAGED_CTX = [0, 2047, 513, 1200]          # ragged, an empty slot, a long one
 # contexts phase 4's resident run has mid-run (prompts 7..512 + 32 new,
 # chunk 16)
 PAGED_SERVING_CTX = [96, 544, 215, 146]
+# OPT-2.7B's head size (2560 / 32 = 80: ten 16-byte pieces a key row, five
+# k16 steps), at PAGED_SHAPE's other dims over the ragged contexts
+PAGED_DH80 = 80
 
 
 def paged_resources(build) -> list[dict]:
@@ -358,6 +385,23 @@ def phase_paged(torch, timer):
                           plain_ms=t_plain, library_ms=t_lib, bound_ms=b_ms,
                           bound_by=b_by)
         del kg, vg
+    # OPT-2.7B's Dh 80 under the same bounds, on the ragged tables
+    dh = PAGED_DH80
+    q80 = (bf(b, n_kv, tr, dh).float() * dh ** -0.5).to(torch.bfloat16)
+    k80, v80 = bf(n_blocks, bs, n_kv, dh), bf(n_blocks, bs, n_kv, dh)
+    lens = torch.tensor(PAGED_CTX, dtype=torch.int32, device="cuda")
+    acc, m, l = paged_attn(q80, k80, v80, ragged, lens)
+    torch.cuda.synchronize()
+    errs = kernel_errors(q80, k80, v80, ragged, lens, acc, m, l)
+    max_abs = errs.pop("max_abs_err")
+    if not all(v <= 1 for v in errs.values()):
+        raise AssertionError(f"paged attention, Dh {dh}: error / bound "
+                             f"{errs}")
+    log(f"  paged_attn Dh={dh} ctx={PAGED_CTX} error / bound: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; max abs err {max_abs:.3e}")
+    rows["dh80"] = dict(ctx=PAGED_CTX, dh=dh, max_abs_err=max_abs,
+                        error_over_bound=errs)
     return rows
 
 
@@ -603,6 +647,7 @@ def phase_streamed(torch):
         f" RSS {rss / 2**30:.2f} GiB, store array "
         f"{store._data.nbytes / 2**30:.2f} GiB")
     stream_ms = wall / steps * 1e3
+    eng_traces = eng.step_traces
     del eng, store
     gc.collect()
     torch.cuda.empty_cache()
@@ -625,8 +670,10 @@ def phase_streamed(torch):
     torch.cuda.synchronize()
     wall_r = time.perf_counter() - t0
     assert [res.requests[r].out for r in rids_r] == [out[r] for r in rids]
-    log(f"  resident: {steps} steps, {wall_r / steps * 1e3:.1f} ms/step; "
-        f"logits bit-equal to the streamed engine's at all {steps} steps")
+    assert res.step_traces == 1 and eng_traces == -1
+    log(f"  resident (compiled, one graph): {steps} steps, "
+        f"{wall_r / steps * 1e3:.1f} ms/step; logits bit-equal to the "
+        f"streamed engine's (eager) at all {steps} steps")
     del res
     gc.collect()
     torch.cuda.empty_cache()
@@ -657,57 +704,118 @@ def _group(name: str) -> str:
     return "other"
 
 
-def profile_steps(torch, eng, prompts):
+# the kernel one wrapper call launches once (beside its merge or split-K
+# reduce), by the start of its name; the paged ECDP shares the ECDP's
+MAIN_KERNELS = {"ecdp": ("ecdp_mma_kernel<", "ecdp_kernel<"),
+                "paged_attn": ("paged_attn_split_kernel<",),
+                "decode_attn": ("decode_attn_mma_kernel<",
+                                "decode_attn_split_kernel<")}
+
+
+def profile_steps(torch, eng, prompts, per_step: dict) -> dict:
     """The same requests again: PROFILE_WARMUP steps, then trace_steps over
-    PROFILE_STEPS engine steps."""
+    PROFILE_STEPS engine steps (the replays timed with CUDA events where
+    the engine is compiled)."""
     for p in prompts:
         eng.submit(p, max_new=32)
     for _ in range(PROFILE_WARMUP):
         eng.step()
-    trace_steps(torch, eng.step, PROFILE_STEPS)
+    return trace_steps(torch, eng.step, PROFILE_STEPS, per_step,
+                       captured=eng.captured)
 
 
-def trace_steps(torch, step, n_steps: int) -> dict:
+def trace_steps(torch, step, n_steps: int, per_step: dict,
+                captured=None) -> dict:
     """``n_steps`` calls of ``step`` timed on the host clock, then
     ``n_steps`` more traced with torch.profiler. Prints the device time per
     kernel group and the idle share, 1 - device time / wall time, against
     the untraced steps' wall time (adjacent steps; the profiler's own host
     cost inflates the traced wall time, whose share is printed beside
-    it). Returns the untraced ms/step, device ms/step and the groups'."""
+    it). Fails unless the profile holds ``per_step[name]`` kernels of each
+    MAIN_KERNELS entry a step (a profile short of them is retaken once
+    over the next steps): a replay ticks no launch counter, so its profile
+    is where its kernels are counted, and a profile without them has no
+    device time of the step. ``captured``: the step's
+    ``graphs.Captured`` (a compiled step, one replay a call); the replays'
+    span over the untraced steps, from CUDA events around each launch, is
+    printed apart (it holds the gaps between the graph's kernels). Returns
+    the untraced ms/step, device ms/step, the groups' and the main
+    kernels' records."""
     from torch.profiler import ProfilerActivity, profile
 
+    spans = []
+    if captured is not None:
+        replay = captured.replay
+
+        def timed():
+            span = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            span[0].record()
+            out = replay()
+            span[1].record()
+            spans.append(span)
+            return out
+        captured.replay = timed          # an instance attribute, removed below
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(n_steps):
-        step()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / n_steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    try:
         for _ in range(n_steps):
             step()
         torch.cuda.synchronize()
-        wall_traced = (time.perf_counter() - t0) / n_steps
-    groups: dict[str, float] = {}
-    counts: dict[str, int] = {}
-    kernels: dict[str, float] = {}
-    for evt in prof.key_averages():
-        dev_us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0.0))
-        if dev_us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        group = _group(evt.key)
-        groups[group] = groups.get(group, 0.0) + dev_us
-        counts[group] = counts.get(group, 0) + evt.count
-        kernels[evt.key] = kernels.get(evt.key, 0.0) + dev_us
+    finally:
+        if captured is not None:
+            del captured.replay
+    wall = (time.perf_counter() - t0) / n_steps
+    replay_ms = None
+    if captured is not None:
+        assert len(spans) == n_steps, (len(spans), n_steps)
+        replay_ms = sum(a.elapsed_time(b) for a, b in spans) / n_steps
+    want = {name: n * n_steps for name, n in per_step.items()}
+    for attempt in (1, 2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                step()
+            torch.cuda.synchronize()
+            wall_traced = (time.perf_counter() - t0) / n_steps
+        groups: dict[str, float] = {}
+        counts: dict[str, int] = {}
+        kernels: dict[str, float] = {}
+        records = {name: 0 for name in MAIN_KERNELS}
+        graph_launches = 0
+        for evt in prof.key_averages():
+            if "cudaGraphLaunch" in evt.key:
+                graph_launches += evt.count
+            dev_us = getattr(evt, "self_device_time_total",
+                             getattr(evt, "self_cuda_time_total", 0.0))
+            if (dev_us <= 0
+                    or evt.device_type != torch.autograd.DeviceType.CUDA):
+                continue
+            group = _group(evt.key)
+            groups[group] = groups.get(group, 0.0) + dev_us
+            counts[group] = counts.get(group, 0) + evt.count
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + dev_us
+            for name, starts in MAIN_KERNELS.items():
+                if any(k in evt.key for k in starts):
+                    records[name] += evt.count
+        if {name: records[name] for name in want} == want:
+            break
+        miss = (f"the profile of {n_steps} steps ({graph_launches} "
+                f"cudaGraphLaunch calls) holds {records} kernel records, "
+                f"want {want}: it does not see every kernel of the steps")
+        if attempt == 2:
+            raise AssertionError(miss)
+        log(f"  {miss}; tracing {n_steps} more steps")
     busy = sum(groups.values()) / 1e6 / n_steps
-    if busy <= 0:
-        raise AssertionError("the profiler saw no device time")
     log(f"  profile: {n_steps} untraced steps {wall * 1e3:.2f} ms/step;"
         f" {n_steps} traced steps {wall_traced * 1e3:.2f} ms/step, "
         f"device {busy * 1e3:.2f} ms/step; idle share {1 - busy / wall:.3f} "
-        f"(untraced wall), {1 - busy / wall_traced:.3f} (traced wall)")
+        f"(untraced wall), {1 - busy / wall_traced:.3f} (traced wall); "
+        f"kernel records {want} as launched")
+    if replay_ms is not None:
+        log(f"  replay span {replay_ms:.3f} ms/step (CUDA events around each"
+            " graph launch, untraced steps)")
     for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"    {group:32s} {us / 1e3 / n_steps:9.3f} ms/step "
             f"{us / 1e6 / n_steps / busy:6.1%} {counts[group]:6d} kernels")
@@ -715,8 +823,9 @@ def trace_steps(torch, step, n_steps: int) -> dict:
     for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
         log(f"    {us / 1e3 / n_steps:9.3f}  {name[:90]}")
     return dict(ms_per_step=wall * 1e3, device_ms_per_step=busy * 1e3,
+                idle_share=1 - busy / wall, replay_ms=replay_ms,
                 groups_ms={g: us / 1e3 / n_steps for g, us in groups.items()},
-                groups_count=counts)
+                groups_count=counts, records=records)
 
 
 def ecdp_step_calls(eng):
@@ -770,72 +879,134 @@ def time_ecdp_step(torch, timer, calls):
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def phase_serving(torch, timer):
-    import numpy as np
-
-    from repro_torch.configs import OPT_6_7B
+def serve_run(torch, cfg, prompts, compiled: bool) -> dict:
+    """Engine(cfg) on the card from the seeded init, ``prompts`` (32 new
+    each) served to completion with the launch counters zeroed just before
+    and read just after; every step's logits kept. The eager engine
+    launches each step's kernels from Python; the compiled one launches
+    them in its warm-up and into its graph, and its replays tick no
+    counter. Returns the engine and the run's figures."""
     from repro_torch.core.scheduler import AdmissionConfig
     from repro_torch.kernels import ecdp, paged_attn
     from repro_torch.models import dense
     from repro_torch.serving.engine import Engine
 
-    cfg = OPT_6_7B
+    what = "compiled" if compiled else "eager"
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = dense.init(cfg, gen, device="cuda")
     eng = Engine(cfg, params, max_slots=4, max_seq=2048, rber=1e-4, seed=0,
                  admission_cfg=AdmissionConfig(chunk_tokens=16,
                                                token_budget=64),
-                 device="cuda")
+                 device="cuda", compiled=compiled)
     del params
     gc.collect()
     torch.cuda.synchronize()
-    log(f"  init + deploy {cfg.name} ({cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}): "
+    log(f"  {what}: init + deploy {cfg.name} ({cfg.n_layers} layers, "
+        f"d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}): "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
-    rng = np.random.default_rng(0)
-    lens = [7, 64, 200, 512, 33, 130]
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
     rids = [eng.submit(p, max_new=32) for p in prompts]
     ecdp.ecdp_matmul.launches = 0
     paged_attn.paged_attn.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    logits = []
     t0 = time.perf_counter()
-    out = eng.run()
+    while eng.step():
+        logits.append(eng.last_logits)
+        if len(logits) == 1:        # the step's host reads synchronised
+            first_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"ecdp": ecdp.ecdp_matmul.launches,
                 "paged_attn": paged_attn.paged_attn.launches}
     steps = len(eng.stats)
     peak = torch.cuda.max_memory_allocated()
-    for rid in rids:
-        toks = out[rid]
-        assert len(toks) == 32, (rid, len(toks))
+    out = [list(eng.requests[rid].out) for rid in rids]
+    for toks in out:
+        assert len(toks) == 32, len(toks)
         assert all(0 <= t < cfg.vocab_size for t in toks)
+    assert len(logits) == steps
     assert bool(torch.isfinite(eng.last_logits).all())
     calls = ecdp_step_calls(eng)
     assert len(calls) == cfg.n_layers * 4 + 1
-    assert launches["ecdp"] == steps * len(calls), launches
-    assert launches["paged_attn"] == steps * cfg.n_layers, launches
+    per_step = {"ecdp": len(calls), "paged_attn": cfg.n_layers}
+    bodies = 2 if compiled else steps     # warm-up + capture, or every step
+    assert launches == {k: bodies * n for k, n in per_step.items()}, \
+        (launches, steps)
     generated = 32 * len(rids)
     processed = sum(s["prefill_tokens"] + s["decode_tokens"]
                     for s in eng.stats)
-    log(f"  served {len(rids)} requests (prompts {lens}, 32 new each) in "
-        f"{steps} steps, {wall:.2f} s: {generated / wall:.1f} generated "
-        f"tokens/s, {processed / wall:.1f} processed tokens/s, "
-        f"{wall / steps * 1e3:.1f} ms/step")
-    log(f"  peak device memory {peak / 2**30:.2f} GiB; launches {launches}; "
-        f"final npu_fraction {eng.stats[-1]['npu_fraction']}")
-    log(f"  first request's tokens: {out[rids[0]][:12]}")
-    profile_steps(torch, eng, prompts)
-    ecdp_step = time_ecdp_step(torch, timer, calls)
-    del eng, calls
-    gc.collect()
-    torch.cuda.empty_cache()
-    return dict(steps=steps, wall_s=wall, launches=launches, peak_bytes=peak,
-                ecdp_step=ecdp_step)
+    log(f"  {what}: served {len(rids)} requests (prompts "
+        f"{[len(p) for p in prompts]}, 32 new each) in {steps} steps, "
+        f"{wall:.2f} s: {generated / wall:.1f} generated tokens/s, "
+        f"{processed / wall:.1f} processed tokens/s, "
+        f"{wall / steps * 1e3:.1f} ms/step (the first {first_ms:.1f} ms); "
+        f"step_traces {eng.step_traces}")
+    log(f"  {what}: peak device memory {peak / 2**30:.2f} GiB; launches "
+        f"{launches}; final npu_fraction {eng.stats[-1]['npu_fraction']}")
+    log(f"  {what}: first request's tokens: {out[0][:12]}")
+    return dict(eng=eng, out=out, logits=torch.stack(logits).cpu(),
+                steps=steps, wall_s=wall, ms_per_step=wall / steps * 1e3,
+                first_step_ms=first_ms,
+                tokens_per_s=generated / wall, launches=launches,
+                per_step=per_step, peak_bytes=peak, stats=list(eng.stats))
+
+
+def phase_serving(torch, timer):
+    """The compiled engine (one graph; its profile and the ECDP step), then
+    the eager one on the same seeded weights: bit-equal logits at every
+    step; both profiles hold every step's kernels."""
+    import numpy as np
+
+    from repro_torch.configs import OPT_6_7B
+
+    cfg = OPT_6_7B
+    rng = np.random.default_rng(0)
+    lens = [7, 64, 200, 512, 33, 130]
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    runs = {}
+    for compiled in (True, False):
+        run = serve_run(torch, cfg, prompts, compiled)
+        eng = run.pop("eng")
+        assert eng.step_traces == (1 if compiled else -1), eng.step_traces
+        run["profile"] = profile_steps(torch, eng, prompts, run["per_step"])
+        assert eng.step_traces == (1 if compiled else -1), eng.step_traces
+        if compiled:
+            calls = ecdp_step_calls(eng)
+            run["ecdp_step"] = time_ecdp_step(torch, timer, calls)
+            del calls
+        runs[compiled] = run
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    comp, eager = runs[True], runs[False]
+    assert comp["out"] == eager["out"]
+    assert comp["stats"] == eager["stats"]
+    assert comp["logits"].shape == eager["logits"].shape
+    for i, (a, b) in enumerate(zip(comp["logits"], eager["logits"])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"step {i}: replayed logits differ from the"
+                                 f" eager step's by "
+                                 f"{float((a - b).abs().max())}")
+    for what, run in (("compiled", comp), ("eager", eager)):
+        prof = run["profile"]
+        log(f"  {what:8s}: {run['ms_per_step']:.2f} ms/step, "
+            f"{run['tokens_per_s']:.1f} generated tokens/s; profile "
+            f"{prof['ms_per_step']:.2f} ms/step untraced, device "
+            f"{prof['device_ms_per_step']:.2f} ms/step, idle share "
+            f"{prof['idle_share']:.3f}; peak {run['peak_bytes'] / 2**30:.2f}"
+            " GiB")
+    log(f"  compiled vs eager: {comp['steps']} steps, logits and greedy "
+        "tokens bit-equal at every step; launches counted (eager) "
+        f"{eager['launches']}, profiled (compiled, {PROFILE_STEPS} steps) "
+        f"{comp['profile']['records']}")
+    return dict(steps=eager["steps"], launches=eager["launches"],
+                ecdp_step=comp["ecdp_step"],
+                **{w: {k: r[k] for k in ("ms_per_step", "tokens_per_s",
+                                         "peak_bytes", "profile")}
+                   for w, r in (("compiled", comp), ("eager", eager))})
 
 
 # --- phase 5: engine parity, card vs CPU -------------------------------------------
@@ -907,8 +1078,11 @@ def phase_parity(torch):
                 compared += 1
             elif t_cpu != t_gpu:
                 diverged.add(rid)            # a near-tie broke differently
+    # the card engine replays one captured step; the CPU runs its body
+    assert (eng_gpu.step_traces, eng_cpu.step_traces) == (1, 0)
     log(f"  parity over {len(eng_cpu.stats)} steps in "
-        f"{time.perf_counter() - t0:.1f} s: {n_flash} flash weights "
+        f"{time.perf_counter() - t0:.1f} s (card engine compiled, one "
+        f"graph): {n_flash} flash weights "
         f"byte-identical, max |logit diff| {max_diff:.3e} = {max_rel:.3e} of "
         f"the row's max |logit| (tol {PARITY_REL_TOL:.3e}),"
         f" {compared} greedy tokens compared, {len(diverged)} near-tie "
@@ -923,15 +1097,14 @@ def phase_parity(torch):
 # a one-row, a ragged and a full slot; the same shape with lengths on the
 # walk's edges (one short of a 32-row chunk, on and one past a 64-row
 # range); GQA; MQA with S_max a multiple of neither the kernel's 32-row
-# chunk nor its range
+# chunk nor its range; the OPT-2.7B decode shape (Dh 80)
 DECODE_ATTN_SHAPES = {
     "opt-6.7b": (4, 2048, 32, 1, 128, [0, 1, 513, 2048]),
     "edges": (4, 2048, 32, 1, 128, [31, 64, 65, 1000]),
     "gqa": (3, 2048, 8, 4, 128, [0, 700, 2048]),
     "mqa": (2, 1000, 1, 8, 128, [1000, 37]),
+    "opt-2.7b": (4, 2048, 32, 1, 80, [0, 1, 513, 2048]),
 }
-# kernels one decode-attention call launches: the split kernel and the merge
-DECODE_KERNELS_PER_CALL = 2
 OFFLINE_B, OFFLINE_PROMPT, OFFLINE_PAD, OFFLINE_STEPS = 4, 128, 2048, 32
 OFFLINE_TRACE = 8
 # the main path's decode attention: the OPT-6.7B cache at the middle of the
@@ -1049,7 +1222,10 @@ def phase_offline(torch):
     """8(b): seeded OPT-6.7B at full width and depth, deployed at RBER 1e-4;
     prefill 4 prompts of 128 tokens into a cache padded to 2048, then 32
     greedy decode steps, the launch counters zeroed just before and read
-    just after; then 8 decode steps timed and 8 traced."""
+    just after; then 8 decode steps timed and 8 traced. Once through
+    make_decode_step(compiled=True), once eagerly: tokens and logits
+    bit-equal, one capture; the compiled run's counters hold its warm-up
+    and capture, its profile the replays' kernels."""
     import numpy as np
 
     from repro_torch.configs import OPT_6_7B
@@ -1068,68 +1244,107 @@ def phase_offline(torch):
     log(f"  init + deploy {cfg.name}: {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident")
     prefill = make_prefill_step(cfg, pad_to=OFFLINE_PAD)
-    decode = make_decode_step(cfg)
     toks = torch.from_numpy(np.random.default_rng(8).integers(
         0, cfg.vocab_size, (OFFLINE_B, OFFLINE_PROMPT))).int().cuda()
     counters = (decode_attn.decode_attention_state, ecdp.ecdp_matmul,
                 paged_attn.paged_attn, paged_ecdp.paged_ecdp_matmul)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
-    t0 = time.perf_counter()
-    last, cache = prefill(params, {"tokens": toks})
-    torch.cuda.synchronize()
-    t_prefill = time.perf_counter() - t0
-    out = [last.argmax(-1)]
-    t0 = time.perf_counter()
-    for i in range(OFFLINE_STEPS):
-        last, cache = decode(params, cache, {"token": out[-1],
-                                             "kv_len": OFFLINE_PROMPT + i})
-        out.append(last.argmax(-1))
-    torch.cuda.synchronize()
-    t_decode = time.perf_counter() - t0
-    launches = {"decode_attn": counters[0].launches,
-                "ecdp": counters[1].launches,
-                "paged_attn": counters[2].launches,
-                "paged_ecdp": counters[3].launches}
-    peak = torch.cuda.max_memory_allocated()
     per_pass = cfg.n_layers * 2 + 1                # FFN w_up, w_down; lm_head
-    assert launches == {"decode_attn": cfg.n_layers * OFFLINE_STEPS,
-                        "ecdp": per_pass * (1 + OFFLINE_STEPS),
-                        "paged_attn": 0, "paged_ecdp": 0}, launches
-    assert tuple(cache["k"].shape) == (cfg.n_layers, OFFLINE_B, OFFLINE_PAD,
-                                       cfg.n_kv_heads, cfg.head_dim)
-    assert bool(torch.isfinite(last).all())
-    gen_toks = torch.stack(out, 1).cpu()
-    assert bool(((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all())
-    ms_step = t_decode / OFFLINE_STEPS * 1e3
-    log(f"  prefill {OFFLINE_B} x {OFFLINE_PROMPT} tokens (cache padded to "
-        f"{OFFLINE_PAD}): {t_prefill * 1e3:.1f} ms; {OFFLINE_STEPS} greedy "
-        f"decode steps: {ms_step:.2f} ms/step, "
-        f"{OFFLINE_B * OFFLINE_STEPS / t_decode:.1f} generated tokens/s; "
-        f"peak device memory {peak / 2**30:.2f} GiB; launches {launches}")
-    log(f"  first prompt's tokens: {gen_toks[0, :12].tolist()}")
-    kv = [OFFLINE_PROMPT + OFFLINE_STEPS]
+    runs = {}
+    for compiled in (True, False):
+        what = "compiled" if compiled else "eager"
+        decode = make_decode_step(cfg, compiled=compiled)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        last, cache = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        out, logits = [last.argmax(-1)], []
+        t0 = time.perf_counter()
+        for i in range(OFFLINE_STEPS):
+            last, cache = decode(params, cache, {"token": out[-1],
+                                                 "kv_len": OFFLINE_PROMPT + i})
+            out.append(last.argmax(-1))
+            logits.append(last)
+            if i == 0:
+                torch.cuda.synchronize()
+                first_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t_decode = time.perf_counter() - t0
+        launches = {"decode_attn": counters[0].launches,
+                    "ecdp": counters[1].launches,
+                    "paged_attn": counters[2].launches,
+                    "paged_ecdp": counters[3].launches}
+        peak = torch.cuda.max_memory_allocated()
+        bodies = 2 if compiled else OFFLINE_STEPS   # warm-up + capture
+        assert launches == {"decode_attn": cfg.n_layers * bodies,
+                            "ecdp": per_pass * (1 + bodies),
+                            "paged_attn": 0, "paged_ecdp": 0}, launches
+        assert tuple(cache["k"].shape) == (cfg.n_layers, OFFLINE_B,
+                                           OFFLINE_PAD, cfg.n_kv_heads,
+                                           cfg.head_dim)
+        assert bool(torch.isfinite(last).all())
+        gen_toks = torch.stack(out, 1).cpu()
+        assert bool(((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all())
+        if compiled:
+            assert decode.captures == 1, decode.captures
+        ms_step = t_decode / OFFLINE_STEPS * 1e3
+        tok_s = OFFLINE_B * OFFLINE_STEPS / t_decode
+        log(f"  {what}: prefill {OFFLINE_B} x {OFFLINE_PROMPT} tokens (cache "
+            f"padded to {OFFLINE_PAD}): {t_prefill * 1e3:.1f} ms; "
+            f"{OFFLINE_STEPS} greedy decode steps: {ms_step:.2f} ms/step "
+            f"(the first {first_ms:.1f} ms), {tok_s:.1f} generated tokens/s;"
+            " peak device memory "
+            f"{peak / 2**30:.2f} GiB; launches {launches}")
+        log(f"  {what}: first prompt's tokens: {gen_toks[0, :12].tolist()}")
+        kv = [OFFLINE_PROMPT + OFFLINE_STEPS]
 
-    def step():
-        nonlocal last, cache
-        last, cache = decode(params, cache, {"token": last.argmax(-1),
-                                             "kv_len": kv[0]})
-        kv[0] += 1
-    prof = trace_steps(torch, step, OFFLINE_TRACE)
-    seen = prof["groups_count"].get("decode attention kernel", 0)
-    want = DECODE_KERNELS_PER_CALL * cfg.n_layers * OFFLINE_TRACE
-    if seen != want:
-        log(f"  WARNING: the profile saw {seen} decode-attention kernels, "
-            f"want {want} ({DECODE_KERNELS_PER_CALL} a call x "
-            f"{cfg.n_layers} layers x {OFFLINE_TRACE} steps): its device "
-            "times miss kernels")
-    del params, cache
+        def step():
+            nonlocal last, cache
+            last, cache = decode(params, cache, {"token": last.argmax(-1),
+                                                 "kv_len": kv[0]})
+            kv[0] += 1
+        prof = trace_steps(torch, step, OFFLINE_TRACE,
+                           {"decode_attn": cfg.n_layers, "ecdp": per_pass},
+                           captured=decode.captured if compiled else None)
+        if compiled:
+            assert decode.captures == 1, decode.captures
+        runs[compiled] = dict(tokens=gen_toks,
+                              logits=torch.stack(logits).cpu(),
+                              launches=launches, prefill_ms=t_prefill * 1e3,
+                              ms_per_step=ms_step, tokens_per_s=tok_s,
+                              peak_bytes=peak, profile=prof)
+        del cache, last, logits, out, decode
+        gc.collect()
+        torch.cuda.empty_cache()
+    comp, eager = runs[True], runs[False]
+    assert torch.equal(comp["tokens"], eager["tokens"])
+    for i, (a, b) in enumerate(zip(comp["logits"], eager["logits"])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"decode step {i}: replayed logits differ "
+                                 f"from the eager step's by "
+                                 f"{float((a - b).abs().max())}")
+    for what, run in (("compiled", comp), ("eager", eager)):
+        prof = run["profile"]
+        log(f"  {what:8s}: {run['ms_per_step']:.2f} ms/step, "
+            f"{run['tokens_per_s']:.1f} generated tokens/s, prefill "
+            f"{run['prefill_ms']:.1f} ms; profile {prof['ms_per_step']:.2f} "
+            f"ms/step untraced, device {prof['device_ms_per_step']:.2f} "
+            f"ms/step, idle share {prof['idle_share']:.3f}; peak "
+            f"{run['peak_bytes'] / 2**30:.2f} GiB")
+    log(f"  compiled vs eager: {OFFLINE_STEPS} decode steps, logits and "
+        "greedy tokens bit-equal, 1 capture; launches counted (eager) "
+        f"{eager['launches']}, profiled (compiled, {OFFLINE_TRACE} steps) "
+        f"{comp['profile']['records']}")
+    del params
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(launches=launches, prefill_ms=t_prefill * 1e3,
-                ms_per_step=ms_step, peak_bytes=peak, profile=prof)
+    return dict(launches=eager["launches"], **{
+        w: {k: r[k] for k in ("prefill_ms", "ms_per_step", "tokens_per_s",
+                              "peak_bytes", "profile")}
+        for w, r in (("compiled", comp), ("eager", eager))})
 
 
 def phase_offline_parity(torch):
@@ -1241,20 +1456,20 @@ def main() -> int:
                if r["kernel"] == "split" else ": ")
             + f"{r['registers']} registers, {r['smem']} B smem, spills "
               f"{r['spill_stores']}/{r['spill_loads']} B")
-    if len(pa_inst) != 9 or any(r["spill_stores"] or r["spill_loads"]
-                                for r in pa_inst):
+    if len(pa_inst) != 11 or any(r["spill_stores"] or r["spill_loads"]
+                                 for r in pa_inst):
         raise AssertionError(f"paged_attn instances in the build log: "
-                             f"{pa_inst} (want 8 split + merge, no spills)")
+                             f"{pa_inst} (want 10 split + merge, no spills)")
     for r in da_inst:
         log(f"  decode_attn {r['kernel']} "
             + (f"Dh={r['dh']}: " if r["kernel"] == "mma" else
                f"{r['dtype']}: " if r["kernel"] == "cuda_core" else ": ")
             + f"{r['registers']} registers, {r['smem']} B smem, spills "
               f"{r['spill_stores']}/{r['spill_loads']} B")
-    if len(da_inst) != 6 or any(r["spill_stores"] or r["spill_loads"]
+    if len(da_inst) != 7 or any(r["spill_stores"] or r["spill_loads"]
                                 for r in da_inst):
         raise AssertionError(f"decode_attn instances in the build log: "
-                             f"{da_inst} (want 3 tensor-core, 2 CUDA-core "
+                             f"{da_inst} (want 4 tensor-core, 2 CUDA-core "
                              "and the merge, no spills)")
     for n, rows in mma_res.items():
         if len(rows) != 6:
@@ -1299,6 +1514,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/ecdp.cu",
          "replaces": "src/repro/kernels/ecdp.py:72",
          "launches": serve["launches"]["ecdp"],
+         "replayed_in_profile": serve["compiled"]["profile"]["records"][
+             "ecdp"],
          "max_abs_err": ecdp_res["max_abs_err"], "ms": step["ms"],
          "kernel_ms": step["ms"], "plain_ms": step["plain_ms"],
          "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
@@ -1311,6 +1528,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
          "replaces": "src/repro/kernels/paged_attn.py:94",
          "launches": serve["launches"]["paged_attn"],
+         "replayed_in_profile": serve["compiled"]["profile"]["records"][
+             "paged_attn"],
          "max_abs_err": max(r["max_abs_err"] for r in pa_res.values()),
          "ms": pa_res["ragged"]["ms"], "kernel_ms": pa_res["ragged"]["ms"],
          "plain_ms": pa_res["ragged"]["plain_ms"],
@@ -1319,6 +1538,7 @@ def main() -> int:
          "library_ms": pa_res["ragged"]["library_ms"],
          "at": "B=4 KV=32 TR=16 Dh=128 block 16, ctx %s" % PAGED_CTX,
          "at_serving_ctx": pa_res["serving"],
+         "at_dh80": pa_res["dh80"],
          "instances": pa_inst},
         {"name": "paged_ecdp_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_ecdp.cu",
@@ -1338,6 +1558,8 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/decode_attn.cu",
          "replaces": "src/repro/kernels/decode_attn.py:79",
          "launches": offline["launches"]["decode_attn"],
+         "replayed_in_profile": offline["compiled"]["profile"]["records"][
+             "decode_attn"],
          "max_abs_err": da_res["max_abs_err"], "ms": da_res["ms"],
          "kernel_ms": da_res["ms"],
          "ms_with_grouping": da_res["ms_with_grouping"],

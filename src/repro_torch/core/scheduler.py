@@ -153,13 +153,15 @@ def split_projection(x: torch.Tensor, w_dram: torch.Tensor,
                      flash_out: torch.Tensor, bitmap: torch.Tensor
                      ) -> torch.Tensor:
     """Bitmap-dispatched projection: column-groups with bit 1 take the
-    DRAM-resident bf16 weights (NPU path, an f32 GEMM); groups with bit 0
-    take the flash-tier ERDPE result. x: (..., K); w_dram (K, N);
-    flash_out (..., N); bitmap (H,) with N % H == 0. Returns f32."""
+    DRAM-resident weights (NPU path, an f32 GEMM; the resident engine keeps
+    them in f32, made once from bf16, so ``.float()`` returns them as they
+    are); groups with bit 0 take the flash-tier ERDPE result. x: (..., K);
+    w_dram (K, N); flash_out (..., N); bitmap (H,) with N % H == 0.
+    Returns f32."""
     n = w_dram.shape[-1]
     h = bitmap.shape[0]
     if n % h:
         raise ValueError(f"N={n} not divisible by H={h}")
     npu_out = x.float() @ w_dram.float()
-    group_mask = (bitmap > 0).repeat_interleave(n // h)
+    group_mask = (bitmap > 0)[:, None].expand(h, n // h).reshape(n)
     return torch.where(group_mask, npu_out, flash_out.float())

@@ -26,8 +26,8 @@
 // cache dtype against it; l sums the unrounded p
 // (decode_attn_plain_ordered holds both bodies to that order).
 //
-// bf16 caches with Dh in {32, 64, 128} (16-byte-aligned q and caches) take
-// decode_attn_mma_kernel<Dh>:
+// bf16 caches with Dh in {32, 64, 80, 128} (16-byte-aligned q and caches)
+// take decode_attn_mma_kernel<Dh>:
 //   * one warp per (slot b, KV head h, m16 query tile, range); a thread
 //     block holds up to four heads of one (slot, m tile, range), with no
 //     block-wide barrier; the R query rows are zero-padded to 16 (more
@@ -53,7 +53,8 @@
 //   * PV on the tensor cores: S's C fragments are, register for register,
 //     P's A fragment; V is the B operand via ldmatrix.trans; acc (Dh/8 n8
 //     tiles) is f32 in registers: acc = acc * alpha + P V per chunk.
-// The f32 cache, and Dh outside {32, 64, 128}, take the CUDA-core body
+// The f32 cache, and the other head sizes (a multiple of 16 up to 256),
+// take the CUDA-core body
 // decode_attn_split_kernel<T> (one 128-thread block per range, the walk
 // TILE rows at a time in shared memory) with the same ranges and chunks.
 // What the variants found (scripts/decode_attn_variants.py, PERF.md,
@@ -78,7 +79,7 @@ __device__ __forceinline__ int live_len(const int* lengths, int b, int S) {
   return n < 0 ? 0 : (n < S ? n : S);
 }
 
-// --- the tensor-core body: bf16, Dh in {32, 64, 128} -------------------------
+// --- the tensor-core body: bf16, Dh in {32, 64, 80, 128} ---------------------
 
 // key rows per K (or V) unit and per max update; kernels/decode_attn.py's
 // TILE_ROWS models the same walk
@@ -176,8 +177,9 @@ decode_attn_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int KS = DH / 16;          // k-steps of Q K^T
   constexpr int ND = DH / 8;           // n8 tiles of acc
   constexpr int CPR = DH / 8;          // 16-byte pieces of a cache row
-  constexpr int RPI = 32 / CPR;        // rows one warp-wide copy covers
-  constexpr int LOADS = CHUNK / RPI;   // copies per lane per unit
+  constexpr int LOADS = CHUNK * CPR / 32;  // copies per lane per unit
+  static_assert(DH % 16 == 0 && CHUNK * CPR % 32 == 0,
+                "a unit is whole k16 steps and whole warp-wide copies");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int hpb = blockDim.x >> 5;
@@ -195,24 +197,25 @@ decode_attn_mma_kernel(const __nv_bfloat16* __restrict__ q,
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(
       smem + warp * warp_smem_bytes(DH));
 
-  // The copy of unit u into ring stage st: lane (row lrow, piece lcol)
-  // copies rows lrow + RPI i of the unit's chunk; a row past the live
-  // length reads nothing (source size 0, from the range's first row) and
-  // writes zeros.
-  const int lrow = lane / CPR, lcol = (lane % CPR) * 8;
+  // The copy of unit u into ring stage st: piece pc = lane + 32 i of the
+  // unit (16 bytes) is row pc / CPR of its chunk, column 8 (pc % CPR).
+  // Where a row's pieces divide the warp, a lane keeps its column and steps
+  // 32 / CPR rows a copy; at Dh 80 (ten pieces) its row and column vary. A
+  // row past the live length reads nothing (source size 0, from the range's
+  // first row) and writes zeros.
   const size_t pitch = (size_t)KV * DH;  // elements between cache rows
-  const size_t first = ((size_t)b * S + row0) * pitch + (size_t)h * DH + lcol;
+  const size_t first = ((size_t)b * S + row0) * pitch + (size_t)h * DH;
   const unsigned long long policy = evict_first_policy();
   auto load_unit = [&](int u, int st) {
-    const int r = (u >> 1) * CHUNK + lrow;           // in the range
+    const int r0u = (u >> 1) * CHUNK;                // in the range
     const __nv_bfloat16* base = ((u & 1) ? v : k) + first;
-    const __nv_bfloat16* src = base + (size_t)r * pitch;
-    __nv_bfloat16* dst = ring + st * unit_elems(DH) + lrow * LDS + lcol;
+    __nv_bfloat16* dst = ring + st * unit_elems(DH);
 #pragma unroll
     for (int i = 0; i < LOADS; ++i) {
-      const bool ok = r + RPI * i < rows;
-      cp16(dst + RPI * i * LDS, ok ? src : base, ok, policy);
-      src += RPI * pitch;
+      const int pc = lane + 32 * i, row = pc / CPR, col = (pc % CPR) * 8;
+      const bool ok = r0u + row < rows;
+      cp16(dst + row * LDS + col,
+           base + (ok ? (size_t)(r0u + row) * pitch : 0) + col, ok, policy);
     }
   };
 #pragma unroll
@@ -360,7 +363,7 @@ decode_attn_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// --- the CUDA-core body: f32 caches, and Dh outside {32, 64, 128} ----------
+// --- the CUDA-core body: f32 caches, and the other head sizes -------------
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
@@ -421,7 +424,9 @@ decode_attn_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int n_dw = Dh >> 5;
+  // 32-column steps of a row; in a partial last one (Dh 80: 16 columns)
+  // the lanes past Dh idle (zeros, no reads)
+  const int n_dw = (Dh + 31) >> 5;
 
   const size_t q_base = ((size_t)b * KV + h) * R * Dh;
   for (int i = tid; i < R * Dh; i += THREADS) {
@@ -448,13 +453,15 @@ decode_attn_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float kv[MAX_DW];
 #pragma unroll
       for (int j = 0; j < MAX_DW; ++j)
-        kv[j] = j < n_dw ? to_f32(kr[lane + 32 * j]) : 0.f;
+        kv[j] = lane + 32 * j < Dh ? to_f32(kr[lane + 32 * j]) : 0.f;
       for (int t = 0; t < R; ++t) {
         const float* qr = q_s + t * Dh;
         float part = 0.f;
 #pragma unroll
         for (int j = 0; j < MAX_DW; ++j)
-          if (j < n_dw) part = fmaf(qr[lane + 32 * j], kv[j], part);
+          if (j < n_dw)
+            part = fmaf(lane + 32 * j < Dh ? qr[lane + 32 * j] : 0.f, kv[j],
+                        part);
         part = warp_sum(part);
         if (lane == 0) p_s[t * TILE + r] = part;
       }
@@ -662,9 +669,9 @@ int launch_split(const void* q, const void* k, const void* v,
 // q (B,KV,R,Dh) and k/v (B,S,KV,Dh) in one dtype: bf16 (is_bf16=1) or f32;
 // lengths (B,) i32; acc (B,KV,R,Dh), m, l (B,KV,R) f32. Partials: acc_p
 // (n_split,B,KV,R,Dh), m_p, l_p (n_split,B,KV,R) f32 with n_split =
-// ceil(S / split). B, KV, R, S > 0; Dh % 32 == 0 and Dh <= 256; split a
+// ceil(S / split). B, KV, R, S > 0; Dh % 16 == 0 and Dh <= 256; split a
 // positive multiple of 32; B*KV*R*Dh < 2^31. mma=1 takes the tensor-core
-// body: bf16, Dh in {32, 64, 128}, q, k and v on 16-byte boundaries.
+// body: bf16, Dh in {32, 64, 80, 128}, q, k and v on 16-byte boundaries.
 // Returns cudaGetLastError() after the launches (cudaErrorInvalidValue for
 // what neither body takes).
 extern "C" int decode_attn(const void* q, const void* k, const void* v,
@@ -673,7 +680,7 @@ extern "C" int decode_attn(const void* q, const void* k, const void* v,
                            int KV, int R, int Dh, int split, int is_bf16,
                            int mma, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B < 1 || S < 1 || KV < 1 || R < 1 || Dh < 32 || Dh > 256 || Dh % 32
+  if (B < 1 || S < 1 || KV < 1 || R < 1 || Dh < 16 || Dh > 256 || Dh % 16
       || split < CHUNK || split % CHUNK
       || (long long)B * KV * R * Dh > 0x7fffffffLL || (mma && !is_bf16))
     return cudaErrorInvalidValue;
@@ -687,6 +694,10 @@ extern "C" int decode_attn(const void* q, const void* k, const void* v,
         break;
       case 64:
         err = launch_mma<64>(q, k, v, lengths, acc_p, m_p, l_p, B, S, KV, R,
+                             split, n_split, st);
+        break;
+      case 80:
+        err = launch_mma<80>(q, k, v, lengths, acc_p, m_p, l_p, B, S, KV, R,
                              split, n_split, st);
         break;
       case 128:

@@ -163,8 +163,9 @@ paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int KS = DH / 16;          // k-steps of Q K^T
   constexpr int ND = DH / 8;           // n8 tiles of acc
   constexpr int CPR = DH / 8;          // 16-byte pieces of a key row
-  constexpr int RPI = 32 / CPR;        // key rows one warp copy covers
-  constexpr int LOADS = CK / RPI;      // copies per lane per K (or V) chunk
+  constexpr int LOADS = CK * CPR / 32; // copies per lane per K (or V) chunk
+  static_assert(DH % 16 == 0 && CK * CPR % 32 == 0,
+                "a chunk is whole k16 steps and whole warp-wide copies");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int hpb = blockDim.x >> 5;
@@ -215,9 +216,10 @@ paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
   float m_safe[2] = {0.f, 0.f}, mx_blk[2] = {-INFINITY, -INFINITY};
 
-  // The copy of unit u into ring stage st: lane (row lrow, piece lcol)
-  // copies key rows lrow + RPI i of the chunk.
-  const int lrow = lane / CPR, lcol = (lane % CPR) * 8;
+  // The copy of unit u into ring stage st: piece pc = lane + 32 i of the
+  // chunk (16 bytes) is key row pc / CPR, column 8 (pc % CPR). Where a
+  // row's pieces divide the warp, a lane keeps its column and steps 32 / CPR
+  // rows a copy; at Dh 80 (ten pieces) its row and column vary.
   const size_t pitch = (size_t)KV * DH;  // elements between key rows
   const unsigned long long policy = evict_first_policy();
   auto load_unit = [&](int u, int st) {
@@ -227,20 +229,17 @@ paged_attn_split_kernel(const __nv_bfloat16* __restrict__ q,
     const int blk = __shfl_sync(0xffffffffu, my_blk, jl);
     const int jj = j0 + jl;
     const int lim = min(BS, ctx - jj * BS) - c * CK;   // live rows here
-    const size_t off = ((size_t)blk * BS + c * CK + lrow) * pitch
-                       + (size_t)h * DH + lcol;
-    const __nv_bfloat16* ksrc = k_pool + off;
-    const __nv_bfloat16* vsrc = v_pool + off;
-    __nv_bfloat16* kd = ring + st * 2 * CK * LDS + lrow * LDS + lcol;
+    const size_t base = ((size_t)blk * BS + c * CK) * pitch + (size_t)h * DH;
+    __nv_bfloat16* kd = ring + st * 2 * CK * LDS;
     __nv_bfloat16* vd = kd + CK * LDS;
     // a dead row's copy reads nothing (source size 0) and writes zeros
 #pragma unroll
     for (int i = 0; i < LOADS; ++i) {
-      const bool ok = lrow + RPI * i < lim;
-      cp16(kd + RPI * i * LDS, ksrc, ok, policy);
-      if (v_too) cp16(vd + RPI * i * LDS, vsrc, ok, policy);
-      ksrc += RPI * pitch;
-      vsrc += RPI * pitch;
+      const int pc = lane + 32 * i, row = pc / CPR, col = (pc % CPR) * 8;
+      const bool ok = row < lim;
+      const size_t o = base + row * pitch + col;
+      cp16(kd + row * LDS + col, k_pool + o, ok, policy);
+      if (v_too) cp16(vd + row * LDS + col, v_pool + o, ok, policy);
     }
   };
 
@@ -506,6 +505,10 @@ int launch_split_dh(int Dh, const void* q, const void* k_pool,
       return launch_split<64, NT>(q, k_pool, v_pool, tables, ctx_lens, acc_p,
                                   m_p, l_p, B, KV, TR, n_blocks, BS,
                                   max_blocks, bps, n_split, st);
+    case 80:
+      return launch_split<80, NT>(q, k_pool, v_pool, tables, ctx_lens, acc_p,
+                                  m_p, l_p, B, KV, TR, n_blocks, BS,
+                                  max_blocks, bps, n_split, st);
     case 128:
       return launch_split<128, NT>(q, k_pool, v_pool, tables, ctx_lens,
                                    acc_p, m_p, l_p, B, KV, TR, n_blocks, BS,
@@ -520,12 +523,12 @@ int launch_split_dh(int Dh, const void* q, const void* k_pool,
 // Dynamic shared memory of one split block, in bytes: heads per block x
 // one warp's ring (-1 for a head size the kernel does not take).
 extern "C" long long paged_attn_smem_bytes(int KV, int Dh, int BS) {
-  if (Dh != 16 && Dh != 32 && Dh != 64 && Dh != 128) return -1;
+  if (Dh != 16 && Dh != 32 && Dh != 64 && Dh != 80 && Dh != 128) return -1;
   return (long long)heads_per_block(KV) * warp_smem_bytes(Dh, chunk_tiles(BS));
 }
 
 // q (B,KV,TR,Dh) bf16; k_pool/v_pool (n_blocks,BS,KV,Dh) bf16, 16-byte
-// aligned, Dh in {16, 32, 64, 128}; tables (B,max_blocks) i32; ctx_lens
+// aligned, Dh in {16, 32, 64, 80, 128}; tables (B,max_blocks) i32; ctx_lens
 // (B,) i32; acc (B,KV,TR,Dh), m, l (B,KV,TR) f32. Partials: acc_p
 // (S,B,KV,TR,Dh), m_p, l_p (S,B,KV,TR) f32 with S = ceil(max_blocks /
 // bps), 1 <= bps <= 32. B, KV, TR, BS > 0, B*KV*TR*Dh < 2^31. Returns

@@ -16,9 +16,11 @@ f32; an empty slot gives m=-inf, l=0, acc=0.
 kernel for CUDA tensors and raise on anything the kernel does not take;
 they take the plain version only for CPU tensors.
 ``decode_attention_state.launches`` counts kernel launches through either.
-On the card a bf16 cache with Dh in 32, 64, 128 (q and caches on 16-byte
-boundaries) runs the tensor-core body; f32 caches and other head sizes
-the CUDA-core body, over the same ranges and chunks (``uses_mma``).
+On the card the kernel takes Dh a multiple of 16 up to 256
+(``takes_head_dim``): a bf16 cache with Dh in 32, 64, 80, 128 (q and caches
+on 16-byte boundaries) runs the tensor-core body; f32 caches, the other
+head sizes and unaligned caches the CUDA-core body, over the same ranges
+and chunks (``uses_mma``).
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ SPLIT_ROWS = 64
 TILE_ROWS = 32
 # the tensor-core body (csrc/decode_attn.cu): its head sizes, the units of
 # a warp's K/V ring (STAGES) and the KV heads a thread block holds (MAX_HPB)
-_MMA_HEAD_DIMS = (32, 64, 128)
+_MMA_HEAD_DIMS = (32, 64, 80, 128)
 _STAGES = 2
 _MAX_HEADS_PER_BLOCK = 4
 
@@ -44,6 +46,14 @@ _MAX_HEADS_PER_BLOCK = 4
 # kernel_errors: bf16 keeps 8 significant bits; an f32 cache does not round
 # p, and 2^-16 stands far above the f32 reorderings left.
 _P_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float32: 2.0 ** -16}
+
+
+def takes_head_dim(dh: int) -> bool:
+    """Whether the card's kernel takes head size ``dh``: the CUDA-core body
+    takes a multiple of 16 up to 256 (its lanes idle past Dh in a partial
+    32-column step), the tensor-core body the bf16 caches at
+    ``_MMA_HEAD_DIMS``."""
+    return dh % 16 == 0 and 16 <= dh <= 256
 
 
 def group_decode_queries(q: torch.Tensor, n_kv: int, cdt) -> torch.Tensor:
@@ -208,9 +218,11 @@ def _check(q, k_cache, v_cache, lengths):
             raise TypeError("decode_attn: the kernel takes q and caches in "
                             f"one dtype, bf16 or f32 (got {q.dtype}, "
                             f"{k_cache.dtype}, {v_cache.dtype})")
-        if dh % 32 or dh > 256:
+        if not takes_head_dim(dh):
             raise ValueError(f"decode_attn: the kernel takes Dh a multiple "
-                             f"of 32 up to 256 (got {dh})")
+                             f"of 16 up to 256: the tensor-core body Dh in "
+                             f"{_MMA_HEAD_DIMS} (bf16), the CUDA-core body "
+                             f"the rest (got {dh})")
         if b > 65535 or n_kv > 65535 \
                 or -(-k_cache.shape[1] // SPLIT_ROWS) > 65535:
             raise ValueError("decode_attn: B, KV and the ranges of S_max "

@@ -16,8 +16,8 @@ unnormalised online-softmax state ``acc (B,KV,TR,Dh), m, l (B,KV,TR)``,
 f32; an empty context gives m=-inf, l=0, acc=0.
 
 ``paged_attn`` launches the kernel for CUDA tensors and raises on anything
-the kernel does not take (on the card: a bf16 pool, Dh in 16, 32, 64, 128,
-16-byte-aligned q and pools); it takes the plain version only for CPU
+the kernel does not take (on the card: a bf16 pool, Dh in 16, 32, 64, 80,
+128, 16-byte-aligned q and pools); it takes the plain version only for CPU
 tensors. ``paged_attn.launches`` counts kernel launches.
 """
 from __future__ import annotations
@@ -32,7 +32,12 @@ import torch
 # (at most 32: the kernel holds a range's table entries one a lane)
 _BLOCKS_PER_SPLIT = 8
 # head sizes the kernel is instantiated for
-_HEAD_DIMS = (16, 32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 80, 128)
+
+
+def takes_head_dim(dh: int) -> bool:
+    """Whether the card's kernel takes head size ``dh``."""
+    return dh in _HEAD_DIMS
 
 
 def group_chunk_queries(q: torch.Tensor, n_kv: int, cdt) -> torch.Tensor:
@@ -210,7 +215,7 @@ def _check(q, k_pool, v_pool, block_tables, ctx_lens):
         raise ValueError("paged_attn: block_tables (B, max_blocks), "
                          "ctx_lens (B,)")
     if q.is_cuda:
-        if dh not in _HEAD_DIMS or q.shape[2] < 1 or block_size < 1:
+        if not takes_head_dim(dh) or q.shape[2] < 1 or block_size < 1:
             raise ValueError(f"paged_attn: the kernel takes Dh in {_HEAD_DIMS}"
                              ", TR >= 1 and block_size >= 1 (got Dh="
                              f"{dh}, TR={q.shape[2]}, block_size="

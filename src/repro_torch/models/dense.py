@@ -1,7 +1,8 @@
 """Dense decoder-only transformer family — the port of
 ``repro/models/dense.py``: the norm and FFN dispatch, ``attn_cfg``, an
 ``init`` of the port's own, and the offline inference API — ``forward``,
-``prefill``, ``decode_step``, ``cache_shape``.
+``prefill``, ``decode_step`` (a host check and a device body, which
+``launch.steps`` captures in a CUDA graph), ``cache_shape``.
 
 Params are plain nested dicts of tensors with the JAX package's names and
 layout: per-layer weights (bf16 tensors or stacked ``FlashWeight``s) are
@@ -108,6 +109,44 @@ def prefill(cfg, params, batch, pad_to: int | None = None):
     return logits[:, -1], cache
 
 
+def decode_check(cache, batch) -> int:
+    """The host half of ``decode_step``: batch["kv_len"] as an int, which
+    must lie in [0, S_max) (the reference's ``dynamic_update_slice`` clamps
+    a start past the cache; here it raises, before anything is written)."""
+    kv_len = int(batch["kv_len"])
+    s_max = cache["k"].shape[2]
+    if not 0 <= kv_len < s_max:
+        raise ValueError(f"decode_step: kv_len {kv_len} outside the cache's "
+                         f"{s_max} rows")
+    return kv_len
+
+
+def decode_body(cfg, params, cache, token, kv_len):
+    """The device half of ``decode_step``: token (B,) int, kv_len a (1,)
+    int64 device tensor (a checked one). Reads no tensor on the host, so
+    ``launch.steps.make_decode_step(compiled=True)`` captures it. Returns
+    the logits (B, V) f32; the cache is written in place."""
+    positions = kv_len.reshape(1)
+    x = _embed(cfg, params, token[:, None], positions)
+    for li in range(cfg.n_layers):
+        lp = layer_slice(params["layers"], li)
+        h = _norm(cfg, x, lp, "ln1")
+        q, k, v = cm.qkv_project(lp["attn"], h, attn_cfg(cfg), positions)
+        attn = cm.decode_attention_incremental(
+            q, cache["k"][li], cache["v"][li], positions, k, v,
+            window=cfg.local_window)
+        b = attn.shape[0]
+        attn = maybe_flash_matmul(attn.reshape(b, 1, -1), lp["attn"]["wo"])
+        x = x + attn
+        x = x + _ffn_apply(cfg, lp["ffn"], _norm(cfg, x, lp, "ln2"))
+        # rows >= kv_len are masked in every later read of this step
+        cache["k"][li].index_copy_(1, positions, k.to(cache["k"].dtype))
+        cache["v"][li].index_copy_(1, positions, v.to(cache["v"].dtype))
+    x = _final_norm(cfg, params, x)
+    return maybe_flash_matmul(x[:, 0], params["lm_head"],
+                              out_dtype=torch.float32)
+
+
 def decode_step(cfg, params, cache, batch):
     """One decode step. batch: {"token" (B,), "kv_len" host int: the filled
     prefix}. cache: {"k"/"v": (L, B, Smax, KV, Dh)}. Returns (logits (B, V)
@@ -118,34 +157,13 @@ def decode_step(cfg, params, cache, batch):
     IN PLACE: the returned cache is the dict passed in. The reference
     writes all layers' rows after its layer scan with a
     ``dynamic_update_slice``, which clamps an out-of-range start; here
-    kv_len outside [0, Smax) raises.
+    kv_len outside [0, Smax) raises. The host check (``decode_check``),
+    then the body (``decode_body``) on kv_len as a device tensor.
     """
-    tokens = batch["token"][:, None]                      # (B, 1)
-    kv_len = int(batch["kv_len"])
-    s_max = cache["k"].shape[2]
-    if not 0 <= kv_len < s_max:
-        raise ValueError(f"decode_step: kv_len {kv_len} outside the cache's "
-                         f"{s_max} rows")
-    positions = torch.full((1,), kv_len, device=tokens.device)
-    x = _embed(cfg, params, tokens, positions)
-    for li in range(cfg.n_layers):
-        lp = layer_slice(params["layers"], li)
-        h = _norm(cfg, x, lp, "ln1")
-        q, k, v = cm.qkv_project(lp["attn"], h, attn_cfg(cfg), positions)
-        attn = cm.decode_attention_incremental(
-            q, cache["k"][li], cache["v"][li], kv_len, k, v,
-            window=cfg.local_window)
-        b = attn.shape[0]
-        attn = maybe_flash_matmul(attn.reshape(b, 1, -1), lp["attn"]["wo"])
-        x = x + attn
-        x = x + _ffn_apply(cfg, lp["ffn"], _norm(cfg, x, lp, "ln2"))
-        # rows >= kv_len are masked in every later read of this step
-        cache["k"][li, :, kv_len] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][li, :, kv_len] = v[:, 0].to(cache["v"].dtype)
-    x = _final_norm(cfg, params, x)
-    logits = maybe_flash_matmul(x[:, 0], params["lm_head"],
-                                out_dtype=torch.float32)
-    return logits, cache
+    kv_len = decode_check(cache, batch)
+    token = batch["token"]
+    pos = torch.full((1,), kv_len, dtype=torch.int64, device=token.device)
+    return decode_body(cfg, params, cache, token, pos), cache
 
 
 def cache_shape(cfg, batch: int, max_seq: int) -> dict:

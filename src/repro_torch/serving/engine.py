@@ -11,9 +11,12 @@ request level, with the KV-cache-aware scheduler (Algorithm 2) in the loop.
     (models/common.chunk_attention_paged), evaluates lm_head only at each
     slot's last valid lane, samples, writes every new K/V row through the
     block tables IN PLACE in one ``index_put_`` per pool, bumps the
-    per-slot lengths and updates the Algorithm 2 bitmap. Padding lanes
-    write to the pool's reserved dump block, so every write is
-    unconditional.
+    per-slot lengths and updates the Algorithm 2 bitmap, in place too.
+    Padding lanes write to the pool's reserved dump block, so every write
+    is unconditional. Its inputs are static device buffers, so on the card
+    the compiled engine captures the whole step once in a CUDA graph and
+    replays it every step (``repro_torch.graphs``) — the counterpart of
+    the reference's jitted step.
   * flash tier — FFN weights and ``lm_head`` are deployed as INT8 + parity
     (``core.tiering.deploy``) and read through the ECDP on every use; the
     Q and O projections also keep a flash copy, and Algorithm 2's bitmap
@@ -49,6 +52,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import graphs
 from repro_torch.core import scheduler as sched
 from repro_torch.core.erdpe import flash_matmul
 from repro_torch.core.tiering import (ATTN_FLASH_KEYS, PagedWeight, deploy,
@@ -159,8 +163,11 @@ def _finish_step(cfg, sched_cfg, sample_cfg, kv_aware, final_norm, lm_head,
                  state, x, k_new, v_new, q_lens, admitted, positions,
                  block_tables, generator):
     """Everything after the layer stack: final norm, last-lane lm_head and
-    sampling, ONE paged KV write per pool (in place), Algorithm 2.
-    Returns (tokens (slots,) int32, logits (slots, V) f32, state, stats)."""
+    sampling, ONE paged KV write per pool, Algorithm 2. Writes the state IN
+    PLACE (the pools, lengths, bitmap and prev_cycles keep their tensors,
+    so a captured step replays over them). Returns (tokens (slots,) int32,
+    logits (slots, V) f32, stats (3,) f32: kv_len, delta_cycles,
+    npu_fraction)."""
     lengths = state["lengths"]
     if cfg.norm_type == "rms":
         x = cm.rms_norm(x, final_norm)
@@ -193,11 +200,12 @@ def _finish_step(cfg, sched_cfg, sample_cfg, kv_aware, final_norm, lm_head,
     new_bitmap, new_prev, delta = sched.kv_aware_step(
         state["bitmap"], state["prev_cycles"], kv_len, cfg.d_model,
         cfg.n_kv_heads, cfg.head_dim, sched_cfg, kv_aware)
-    new_state = {"k": k_pool, "v": v_pool, "lengths": new_lengths,
-                 "bitmap": new_bitmap, "prev_cycles": new_prev}
-    stats = {"kv_len": kv_len, "delta_cycles": delta,
-             "npu_fraction": sched.npu_fraction(new_bitmap)}
-    return toks, logits, new_state, stats
+    lengths.copy_(new_lengths)
+    state["bitmap"].copy_(new_bitmap)
+    state["prev_cycles"].copy_(new_prev)
+    stats = torch.stack([kv_len.float(), delta.float(),
+                         sched.npu_fraction(new_bitmap)])
+    return toks, logits, stats
 
 
 def _step_impl(cfg, sched_cfg, sample_cfg, kv_aware, params, layers,
@@ -205,14 +213,18 @@ def _step_impl(cfg, sched_cfg, sample_cfg, kv_aware, params, layers,
                generator):
     """One mixed prefill/decode step for ALL pool slots — the data plane.
 
-    state  : {"k","v": (L, n_blocks, block_size, KV, Dh) — written in
-              place, "lengths": (slots,) i32, "bitmap": (H,) i32,
-              "prev_cycles": i32}.
+    state  : {"k","v": (L, n_blocks, block_size, KV, Dh), "lengths":
+              (slots,) i32, "bitmap": (H,) i32, "prev_cycles": i32}, all
+              written in place.
     layers : per-layer param dicts (views of the stacked params);
     attn_flash : per-layer {"wq", "wo"} FlashWeights.
     tokens : (slots, T) i32 chunk lanes; q_lens (slots,) valid lanes;
     admitted (slots,) bool; block_tables (slots, max_blocks) i32.
-    Returns (sampled (slots,) i32, logits (slots, V) f32, state, stats).
+    Returns (sampled (slots,) i32, logits (slots, V) f32, stats (3,) f32).
+    An IDLE batch (every q_lens 0, every admitted False) writes only the
+    dump block 0 and leaves lengths and bitmap as they are; Algorithm 2
+    sees kv_len 0, so under ``kv_aware`` prev_cycles stays too (without
+    it prev_cycles always takes the step's cycles, here 0).
     """
     bitmap = state["bitmap"] if kv_aware else None
     x, positions, ctx_lens = _embed_chunk(cfg, params, state["lengths"],
@@ -282,12 +294,34 @@ class Engine:
     (``submit`` then blocks). ``last_logits`` holds the latest step's
     (slots, V) f32 logits.
 
+    ``compiled`` (the default, as in the reference) serves every step
+    through ONE static-shape step body: its inputs are device buffers made
+    once and filled from pinned host arrays before each step, and it writes
+    the pools, lengths, bitmap and Algorithm 2 baseline in place. On the
+    card the first step captures that body in a CUDA graph
+    (``repro_torch.graphs``: warmed up and captured on an idle batch) and
+    every step replays it; ``step_traces`` counts the captures (1 after
+    the first step, whatever the slot churn, chunked prefills or
+    admission). A failed capture raises: the engine never drops to eager
+    on its own. On the CPU, where PyTorch has no graphs, the same body runs
+    without capture and ``step_traces`` is 0. ``compiled=False`` runs the
+    body eagerly on every device (``step_traces`` -1). A non-greedy
+    ``sample_cfg`` draws inside the graph from the engine's generator,
+    registered with it; a build that cannot register one refuses
+    ``compiled=True`` with temperature > 0 on the card.
+
+    The resident engine keeps the DRAM projections ``wq``/``wk``/``wv``/
+    ``wo`` in f32, made once from bf16 (exact), so no step upcasts them.
+
     ``weight_store`` (a ``store.PageStore``) serves the streamed plane:
     the flash tier is programmed into the store (or, if the store already
     holds a page table — a die image — taken from it, and ``params`` is the
     DRAM tier) and streamed onto the device under ``stream_cfg``
-    (``store.StreamConfig``). On the card every kernel of a step runs on
-    the stream current at construction.
+    (``store.StreamConfig``). The streamed step always runs eagerly
+    (``step_traces`` -1): each layer group binds another window's page
+    tables, so one graph cannot serve every group. Its DRAM weights stay
+    bf16, within its device budget. On the card every kernel of a step
+    runs on the stream current at construction.
     """
 
     def __init__(self, cfg, params, max_slots: int = 4, max_seq: int = 256,
@@ -297,7 +331,8 @@ class Engine:
                  block_size: int = 16, n_blocks: int | None = None,
                  admission_cfg: sched.AdmissionConfig | None = None,
                  max_waiting: int | None = None, weight_store=None,
-                 stream_cfg: StreamConfig | None = None, device="cuda"):
+                 stream_cfg: StreamConfig | None = None, device="cuda",
+                 compiled: bool = True):
         if cfg.family != "dense":
             raise ValueError(f"engine serves dense-family archs (got "
                              f"{cfg.family!r})")
@@ -310,6 +345,14 @@ class Engine:
         self.admission_cfg = admission_cfg or sched.AdmissionConfig()
         self.store = weight_store
         self.streamed = weight_store is not None
+        self.compiled = compiled and not self.streamed
+        if (self.compiled and self.device.type == "cuda"
+                and sample_cfg.temperature > 0
+                and not graphs.can_capture_generator()):
+            raise ValueError("compiled=True with temperature > 0 samples "
+                             "inside the CUDA graph, and this PyTorch build "
+                             "cannot register a generator with one; pass "
+                             "compiled=False")
         # a store that already holds a page table was programmed before (a
         # die image): NAND programming is write-once, so the flash tier
         # comes from its table and ``params`` is the DRAM tier only
@@ -341,6 +384,11 @@ class Engine:
             else:
                 self.stream_cfg = None
                 self.attn_flash = self._flash_attn_copy(params, rber, seed)
+                # the DRAM projections in f32, made once (bf16 -> f32 is
+                # exact): _proj's and split_projection's upcast returns them
+                attn = self.params["layers"]["attn"]
+                for k in ("wq", "wk", "wv", "wo"):
+                    attn[k] = attn[k].float()
                 self._layers = [_layer_slice(self.params["layers"], li)
                                 for li in range(cfg.n_layers)]
         h = sched_cfg.h if sched_cfg else 32
@@ -361,6 +409,20 @@ class Engine:
         if "pos_embed" in self.params:
             kv_cap = min(kv_cap, self.params["pos_embed"].shape[0])
         self._kv_cap = kv_cap
+        # the step's inputs: device buffers made once, filled before each
+        # step from pinned host arrays (non-blocking copies on the stream)
+        n, t_chunk = self.pool.n_slots, self.admission_cfg.chunk_tokens
+        shapes = {"tokens": ((n, t_chunk), torch.int32),
+                  "q_lens": ((n,), torch.int32),
+                  "admitted": ((n,), torch.bool),
+                  "block_tables": ((n, self.pool.max_blocks), torch.int32)}
+        pin = self.device.type == "cuda"
+        self._host_in = {k: torch.zeros(shape, dtype=dt, pin_memory=pin)
+                         for k, (shape, dt) in shapes.items()}
+        self._dev_in = {k: torch.zeros(shape, dtype=dt, device=self.device)
+                        for k, (shape, dt) in shapes.items()}
+        self._captured = None            # the step's CUDA graph
+        self._traces = 0
         # control-plane lock: submit / step / close may come from several
         # threads; ``cancel`` stays lock-free (flag flips only).
         self._mu = threading.RLock()
@@ -530,12 +592,71 @@ class Engine:
         }
         return win, sum(self.store.entry_nbytes(n) for n in names)
 
-    def _streamed_step(self, state, tokens, q_lens, admitted, block_tables):
+    def _state(self) -> dict:
+        """The step's device state (every tensor written in place)."""
+        return {"k": self.pool.k, "v": self.pool.v,
+                "lengths": self.pool.lengths_dev, "bitmap": self.bitmap,
+                "prev_cycles": self._prev_cycles}
+
+    def _resident_body(self):
+        """The resident data plane over the static inputs and the state:
+        what the graph captures. Returns what ``_step_impl`` returns."""
+        d = self._dev_in
+        return _step_impl(self.cfg, self.sched_cfg, self.sample_cfg,
+                          self.kv_aware, self.params, self._layers,
+                          self.attn_flash, self._state(), d["tokens"],
+                          d["q_lens"], d["admitted"], d["block_tables"],
+                          self._generator)
+
+    def _load_inputs(self):
+        """The host arrays into the static device buffers, on the current
+        stream (non-blocking from pinned memory: the step's host reads
+        complete them before the arrays are filled again)."""
+        for k, t in self._dev_in.items():
+            t.copy_(self._host_in[k], non_blocking=True)
+
+    def _run_resident(self):
+        """One resident step: eager, or (compiled, on the card) the graph's
+        replay, captured at the first step on an idle batch."""
+        if not (self.compiled and self.device.type == "cuda"):
+            self._load_inputs()
+            return self._resident_body()
+        if self._captured is None:
+            for t in self._dev_in.values():
+                t.zero_()                # the idle batch: no lanes
+            self._captured = graphs.capture(
+                self._resident_body, generator=(
+                    self._generator if self.sample_cfg.temperature > 0
+                    else None))
+            self._traces += 1
+        self._load_inputs()
+        toks, logits, stats = self._captured.replay()
+        # the next replay overwrites the graph's output
+        return toks, logits.clone(), stats
+
+    @property
+    def captured(self):
+        """The step's ``graphs.Captured`` once the card has captured it, else
+        None."""
+        return self._captured
+
+    @property
+    def step_traces(self) -> int:
+        """Captures of the serving step: 1 once the card has stepped
+        (compiled), 0 on the CPU (no graphs; the same body runs), -1 for an
+        eager or streamed engine."""
+        return self._traces if self.compiled else -1
+
+    def _streamed_step(self):
         """The streamed data plane: embed, the layer groups as their
         windows arrive (the worker fills group l+1's window while group l's
         launched compute runs), finish. Returns what ``_step_impl``
         returns."""
         cfg, gs = self.cfg, self.stream_cfg.group_size
+        self._load_inputs()
+        d, state = self._dev_in, self._state()
+        tokens, q_lens, admitted, block_tables = (
+            d["tokens"], d["q_lens"], d["admitted"], d["block_tables"])
         bitmap = state["bitmap"] if self.kv_aware else None
         x, positions, ctx_lens = _embed_chunk(cfg, self._dram_params,
                                               state["lengths"], tokens, q_lens)
@@ -742,10 +863,13 @@ class Engine:
                                  cancelled=cancelled)
         if not plan:
             return 0
-        n, t_chunk = self.pool.n_slots, self.admission_cfg.chunk_tokens
-        tokens = np.zeros((n, t_chunk), np.int32)
-        q_lens = np.zeros((n,), np.int32)
-        admitted = np.zeros((n,), bool)
+        # the step's inputs, in the pinned host arrays (numpy views)
+        tokens, q_lens, admitted, tables = (
+            self._host_in[k].numpy()
+            for k in ("tokens", "q_lens", "admitted", "block_tables"))
+        tokens.fill(0)
+        q_lens.fill(0)
+        admitted.fill(False)
         for slot, _ in prefill_slots:
             admitted[slot] = True
         admitted[decode_slots] = True
@@ -761,34 +885,20 @@ class Engine:
             # map physical blocks for this step's writes (draws on the
             # admission reservation, so it cannot fail)
             self.pool.ensure(slot, int(self.pool.lengths[slot]) + cnt)
-        dev = self.device
-        state = dict(self.pool.device_state(), bitmap=self.bitmap,
-                     prev_cycles=self._prev_cycles)
+        np.copyto(tables, self.pool.block_tables)
         t_step0 = time.perf_counter()
         stall0 = self._stream_stall_s()
         ctx = (torch.cuda.stream(self._stream) if self._stream is not None
                else contextlib.nullcontext())
         with torch.no_grad(), ctx:
-            args = (state, torch.tensor(tokens, device=dev),
-                    torch.tensor(q_lens, device=dev),
-                    torch.tensor(admitted, device=dev),
-                    self.pool.block_tables_dev())
             if self.streamed:
-                toks, logits, state, stats = self._streamed_step(*args)
+                toks, logits, stats = self._streamed_step()
             else:
-                toks, logits, state, stats = _step_impl(
-                    self.cfg, self.sched_cfg, self.sample_cfg, self.kv_aware,
-                    self.params, self._layers, self.attn_flash, *args,
-                    self._generator)
-        self.pool.set_device_state(state)
-        self.bitmap = state["bitmap"]
-        self._prev_cycles = state["prev_cycles"]
-        self.last_logits = logits
-        # the step's device->host reads: sampled tokens + stat scalars
-        toks_host = toks.cpu().numpy()
-        st = torch.stack([stats["kv_len"].float(),
-                          stats["delta_cycles"].float(),
-                          stats["npu_fraction"].float()]).cpu().tolist()
+                toks, logits, stats = self._run_resident()
+            self.last_logits = logits
+            # the step's device->host reads: sampled tokens + stat scalars
+            toks_host = toks.cpu().numpy()
+            st = stats.cpu().tolist()
         n_processed = n_prefill = 0
         for slot in plan:
             req = self.requests[self.pool.active[slot]]

@@ -8,11 +8,12 @@ of ``repro/serving/kvcache.py`` (``PagedKVPool``).
     unconditional. The serving step writes new rows IN PLACE (one
     ``index_put_`` per step, engine ``_finish_step``).
   * ``block_tables``: host ``(n_slots, max_blocks)`` int32 mapping a slot's
-    logical block index to a pool block id (0 = unmapped), uploaded to the
-    step each call.
+    logical block index to a pool block id (0 = unmapped), copied into the
+    engine's static device buffer before each step.
   * ``lengths_dev`` is the device copy of the per-slot lengths the step
-    reads and advances; ``lengths`` is the host MIRROR the control plane
-    keeps in sync without device syncs.
+    reads and advances IN PLACE (the tensor never changes, so a captured
+    step replays over it); ``lengths`` is the host MIRROR the control
+    plane keeps in sync without device syncs.
 
 The allocator is host-side: a free list plus per-block ref counts.
 Admission RESERVES a request's worst-case block count up front, so lazily
@@ -92,7 +93,7 @@ class PagedKVPool:
         self.active[slot] = request_id
         self.reserved[slot] = need_blocks
         self.lengths[slot] = 0
-        self.lengths_dev[slot] = 0
+        self.lengths_dev[slot] = 0       # a write into the same tensor
         return slot
 
     def ensure(self, slot: int, new_len: int):
@@ -129,16 +130,3 @@ class PagedKVPool:
         """Advance the HOST mirror after a step (the step advanced the
         device lengths already)."""
         self.lengths[slot] += n
-
-    # --- device-facing views --------------------------------------------------
-
-    def device_state(self) -> dict:
-        """The pool's device-resident half, as fed to the serving step."""
-        return {"k": self.k, "v": self.v, "lengths": self.lengths_dev}
-
-    def set_device_state(self, state: dict):
-        self.k, self.v = state["k"], state["v"]
-        self.lengths_dev = state["lengths"]
-
-    def block_tables_dev(self) -> torch.Tensor:
-        return torch.tensor(self.block_tables, device=self.device)

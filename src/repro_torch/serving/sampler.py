@@ -3,8 +3,10 @@
 
 Logits may carry any leading batch shape ``(..., V)``. ``sample`` takes a
 ``torch.Generator`` in place of a JAX key; greedy (temperature == 0) never
-touches it. Torch and JAX draw different numbers from the same seed, so
-only greedy sampling is comparable token for token.
+touches it, and no sampler reads a tensor on the host, so a captured step
+(``repro_torch.graphs``) samples inside its graph. Torch and JAX draw
+different numbers from the same seed, so only greedy sampling is
+comparable token for token.
 """
 from __future__ import annotations
 
@@ -54,6 +56,8 @@ def sample(logits: torch.Tensor, generator: torch.Generator | None,
     if cfg.temperature <= 0.0:
         return logits.argmax(dim=-1).to(torch.int32)
     probs = torch.softmax(filter_logits(logits, cfg), dim=-1)
-    flat = probs.reshape(-1, probs.shape[-1])
-    draw = torch.multinomial(flat, 1, generator=generator)
-    return draw.reshape(probs.shape[:-1]).to(torch.int32)
+    # torch.multinomial's one-sample draw, argmax(p / q) with q ~ Exp(1),
+    # written out: the same numbers from the same generator, without its
+    # host-side checks of p (device reads a captured step cannot make)
+    q = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / q, dim=-1).to(torch.int32)

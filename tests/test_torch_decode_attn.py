@@ -352,9 +352,10 @@ def test_kernel_source_walks_the_tile_the_checks_model():
     (torch.bfloat16, 128, 0, True), (torch.bfloat16, 64, 0, True),
     (torch.bfloat16, 32, 0, True), (torch.bfloat16, 256, 0, False),
     (torch.bfloat16, 96, 0, False), (torch.float32, 128, 0, False),
-    (torch.bfloat16, 128, 1, False)])
+    (torch.bfloat16, 128, 1, False), (torch.bfloat16, 80, 0, True),
+    (torch.float32, 80, 0, False)])
 def test_wrapper_picks_the_body_the_card_runs(dtype, dh, offset, mma):
-    """bf16 caches at Dh 32, 64, 128 on 16-byte boundaries take the
+    """bf16 caches at Dh 32, 64, 80, 128 on 16-byte boundaries take the
     tensor-core body; f32, other head sizes and caches off a 16-byte
     boundary the CUDA-core body."""
     b, s, n_kv = 2, 40, 2
@@ -373,3 +374,26 @@ def test_tensor_core_ring_holds_eight_warps_an_sm_at_dh_128():
     assert 2 * (full + 1024) <= 228 * 1024
     assert tda.smem_bytes(1, 128, n_kv=2, mma=True) == full // 2
     assert tda.smem_bytes(3, 64) == 4 * (2 * 3 * 64 + 3 * 32 + 9)
+
+
+def test_card_head_sizes_cover_every_config():
+    """Every config the port ships (the OPT family, LLaMA-2-7B, OPT_TINY)
+    passes the card's head-size checks: the paged-attention kernel's
+    instances and both decode-attention bodies, the tensor-core one for
+    its bf16 caches (OPT-2.7B's Dh 80 among them). Head sizes no kernel
+    takes stay refused."""
+    from repro_torch import configs
+    from repro_torch.kernels import paged_attn as tpa
+    cfgs = [c for c in vars(configs).values()
+            if isinstance(c, configs.ArchConfig)]
+    assert {c.name for c in cfgs} >= {"opt-1.3b", "opt-2.7b", "opt-6.7b",
+                                       "opt-13b", "opt-30b", "llama2-7b"}
+    for c in cfgs:
+        assert tpa.takes_head_dim(c.head_dim), c.name
+        assert tda.takes_head_dim(c.head_dim), c.name
+        assert c.head_dim in tda._MMA_HEAD_DIMS, c.name
+    assert configs.OPT_2_7B.head_dim == 80
+    for dh in (24, 40, 96, 272):
+        assert not tpa.takes_head_dim(dh)
+    for dh in (8, 40, 272):
+        assert not tda.takes_head_dim(dh)

@@ -1,5 +1,6 @@
 """The slice as a whole: the port's ``Engine`` on the CPU (plain kernel
-versions), on params carried across from ``dense.init(OPT_TINY,
+versions), compiled (the static-buffer step body; no graphs on the CPU) and
+eager, on params carried across from ``dense.init(OPT_TINY,
 PRNGKey(0))``, against the JAX ``Engine`` (compiled, ``exec_mode`` XLA and
 PALLAS) in the tests/test_engine_jit.py scenarios: the same greedy tokens
 and the same per-step stats. Plus the port's admission checks, cancel and
@@ -155,10 +156,13 @@ def _launches():
 
 @pytest.fixture(scope="module")
 def port_runs(port_params):
-    before = _launches()
-    runs = {name: fn(_port_maker(port_params))
+    runs = {}
+    for compiled in (True, False):
+        before = _launches()
+        runs[compiled] = {
+            name: fn(_port_maker(port_params, compiled=compiled))
             for name, fn in SCENARIOS.items()}
-    runs["kernel_launches"] = _launches() - before
+        runs[compiled]["kernel_launches"] = _launches() - before
     return runs
 
 
@@ -169,12 +173,15 @@ def jax_runs(jax_params):
             for mode in (ExecMode.XLA, ExecMode.PALLAS)}
 
 
+@pytest.mark.parametrize("compiled", [True, False],
+                         ids=["compiled", "eager"])
 @pytest.mark.parametrize("mode", [ExecMode.XLA, ExecMode.PALLAS],
                          ids=["xla", "pallas"])
 @pytest.mark.parametrize("scenario", list(SCENARIOS))
 def test_engine_emits_the_reference_tokens(port_runs, jax_runs, scenario,
-                                           mode):
-    t_eng, t_out = port_runs[scenario]
+                                           mode, compiled):
+    t_eng, t_out = port_runs[compiled][scenario]
+    assert t_eng.step_traces == (0 if compiled else -1)   # no graphs here
     j_eng, j_out = jax_runs[mode][scenario]
     assert t_out == j_out
     # the control plane and Algorithm 2 take the same decisions each step
@@ -186,7 +193,7 @@ def test_engine_emits_the_reference_tokens(port_runs, jax_runs, scenario,
 
 def test_cpu_engine_launches_no_kernel(port_runs):
     """On CPU tensors every wrapper takes its plain version."""
-    assert port_runs["kernel_launches"] == 0
+    assert [port_runs[c]["kernel_launches"] for c in (True, False)] == [0, 0]
 
 
 def test_engine_on_a_rope_swiglu_gqa_config_matches_reference():

@@ -159,6 +159,12 @@ def _paged_inputs(rng, b, n_kv, tr, dh, bs, ctx, max_blocks):
     # past a range
     *[(4, 2, 16, 64, bs, [3, bs + 5, 17 * bs - 1, 8 * bs + 1], 20)
       for bs in (4, 8, 16, 32, 40)],
+    # Dh 80 (OPT-2.7B: ten 16-byte pieces a row, five k16 steps): its
+    # serving shape, and each block-size class (one k16 tile, two, two
+    # walks) with contexts ending mid-block
+    (4, 32, 16, 80, 16, [0, 2047, 300, 17], 128),
+    *[(4, 2, 16, 80, bs, [3, bs + 5, 17 * bs - 1, 8 * bs + 1], 20)
+      for bs in (8, 32, 40)],
 ])
 def test_paged_attn_kernel_matches_plain(cuda, b, n_kv, tr, dh, bs, ctx,
                                          max_blocks):
@@ -514,7 +520,7 @@ def _check_decode_kernel(cuda, b, s_max, n_kv, rep, dh, lens, dtype):
     lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
     qg = da.group_decode_queries(q, n_kv, dtype)
     assert da.uses_mma(qg, kc, vc) == (dtype == torch.bfloat16
-                                       and dh in (32, 64, 128))
+                                       and dh in (32, 64, 80, 128))
     before = da.decode_attention_state.launches
     acc, m, l = da.decode_attention_state(q, kc, vc, lens)
     torch.cuda.synchronize()
@@ -558,6 +564,13 @@ DECODE_EDGE_CASES = [
     (2, 96, 5, 17, 32, [33, 96], torch.bfloat16),
     (8, 130, 2, 3, 64, EDGE_LENS + [130], torch.float32),
     (3, 200, 2, 2, 256, [1, 65, 200], torch.bfloat16),
+    # Dh 80 (OPT-2.7B): the tensor-core body (bf16) and the CUDA-core body
+    # with lanes idle past Dh in its partial 32-column step (f32), at the
+    # OPT-2.7B decode shape and at the walk's edges with rep 3
+    (4, 2048, 32, 1, 80, [0, 1, 513, 2048], torch.bfloat16),
+    (4, 2048, 32, 1, 80, [0, 1, 513, 2048], torch.float32),
+    (8, 130, 2, 3, 80, EDGE_LENS + [130], torch.bfloat16),
+    (8, 130, 2, 3, 80, EDGE_LENS + [130], torch.float32),
 ]
 
 
@@ -606,8 +619,8 @@ def test_decode_attn_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):                      # lengths on the CPU
         da.decode_attention_state(q, kc, vc, lens.cpu())
     with pytest.raises(ValueError):                      # Dh not a multiple
-        q2, k2, v2 = (t.to(cuda) for t in _decode_inputs(
-            rng, 2, 64, 2, 2, 48, torch.bfloat16))
+        q2, k2, v2 = (t.to(cuda) for t in _decode_inputs(    # of 16
+            rng, 2, 64, 2, 2, 40, torch.bfloat16))
         da.decode_attention_state(q2, k2, v2, lens)
 
 
@@ -717,3 +730,206 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+# --- compiled steps (CUDA graphs) --------------------------------------------
+
+# the kernel one wrapper call launches once (beside its merge or split-K
+# reduce), by the start of its name; the paged ECDP shares the ECDP's
+MAIN_KERNELS = {"ecdp": ("ecdp_mma_kernel<", "ecdp_kernel<"),
+                "paged_attn": ("paged_attn_split_kernel<",),
+                "decode_attn": ("decode_attn_mma_kernel<",
+                                "decode_attn_split_kernel<")}
+
+
+def _counts():
+    """The wrappers' launch counts, by MAIN_KERNELS name."""
+    return {"ecdp": ecdp.ecdp_matmul.launches + pe.paged_ecdp_matmul.launches,
+            "paged_attn": pa.paged_attn.launches,
+            "decode_attn": da.decode_attention_state.launches}
+
+
+def _since(before):
+    return {k: n - before[k] for k, n in _counts().items()}
+
+
+def _profiled(fn):
+    """fn() under torch.profiler: its result and the card's records of each
+    MAIN_KERNELS kernel (a replay's kernels show here, one record each;
+    its launches tick no counter)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    records = {name: 0 for name in MAIN_KERNELS}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name, starts in MAIN_KERNELS.items():
+            if any(k in evt.key for k in starts):
+                records[name] += evt.count
+    return out, records
+
+
+def _serve(eng, scenario):
+    """tests/test_engine_jit.py's slot-churn and mixed-workload scenarios
+    (the mixed one with the port's margin-safe second prompt,
+    tests/test_torch_engine.py::_mixed). Returns (tokens per request,
+    per-step logits)."""
+    logits = []
+
+    def step():
+        n = eng.step()
+        if n:
+            logits.append(eng.last_logits.clone())
+        return n
+    if scenario == "slot_churn":
+        r1 = eng.submit([1, 2, 3], max_new=2)
+        r2 = eng.submit([5, 6, 7, 8, 9], max_new=12)
+        while not eng.requests[r1].done:
+            step()
+        r3 = eng.submit([2, 2], max_new=4)
+        rids = [r1, r2, r3]
+    else:
+        prompts = [[7], list(range(2, 10)), list(range(1, 21)),
+                   list(range(1, 30)), [3, 1, 4]]
+        rids = [eng.submit(p, max_new=4 + i) for i, p in enumerate(prompts)]
+    while step():
+        pass
+    return [eng.requests[r].out for r in rids], logits
+
+
+@pytest.mark.parametrize("scenario", ["slot_churn", "mixed_workload"])
+def test_compiled_engine_replays_one_graph_bit_equal_to_eager(cuda,
+                                                              scenario):
+    """OPT_TINY on the card: the compiled engine captures its step once
+    (step_traces == 1 through slot churn, chunked prefills and
+    oversubscribed admission, and a second wave) and every replay's tokens
+    and logits equal the eager engine's bit for bit. Its counters tick at
+    the warm-up and the capture only, each once a step's launches; a
+    profile of the second wave holds, replay by replay, the kernels the
+    eager engine launched and counted in that wave."""
+    from repro_torch.configs import OPT_TINY
+    from repro_torch.core.scheduler import AdmissionConfig
+    from repro_torch.models import dense
+    from repro_torch.serving.engine import Engine
+
+    params = dense.init(OPT_TINY, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    adm = (AdmissionConfig(chunk_tokens=8, token_budget=16)
+           if scenario == "mixed_workload" else None)
+    runs = {}
+    for compiled in (True, False):
+        eng = Engine(OPT_TINY, params, max_slots=2, max_seq=96, rber=1e-4,
+                     seed=1, device=cuda, admission_cfg=adm,
+                     compiled=compiled)
+        before = _counts()
+        out, logits = _serve(eng, scenario)
+        torch.cuda.synchronize()
+        run = dict(out=out, logits=logits, launches=_since(before),
+                   stats=list(eng.stats))
+        before = _counts()
+        _, run["records"] = _profiled(lambda: _serve(eng, "slot_churn"))
+        run["wave2"] = _since(before)
+        run["traces"] = eng.step_traces
+        runs[compiled] = run
+    comp, eager = runs[True], runs[False]
+    assert comp["traces"] == 1 and eager["traces"] == -1
+    assert comp["out"] == eager["out"]
+    assert comp["stats"] == eager["stats"]
+    bodies = len(eager["stats"])
+    assert comp["launches"]["ecdp"] > 0 and comp["launches"]["paged_attn"] > 0
+    assert eager["launches"] == {k: n // 2 * bodies
+                                 for k, n in comp["launches"].items()}
+    assert comp["wave2"] == {k: 0 for k in MAIN_KERNELS}
+    assert comp["records"] == eager["records"] == eager["wave2"]
+    assert len(comp["logits"]) == len(eager["logits"]) > 0
+    for i, (got, want) in enumerate(zip(comp["logits"], eager["logits"])):
+        assert torch.equal(got, want), (i, float((got - want).abs().max()))
+
+
+def test_compiled_engine_samples_inside_the_graph(cuda):
+    """A non-greedy compiled engine draws from its generator inside the
+    graph: two engines with the same seed draw the same tokens, all in the
+    vocabulary (or the build cannot register a generator, and the engine
+    refuses)."""
+    from repro_torch import graphs
+    from repro_torch.configs import OPT_TINY
+    from repro_torch.models import dense
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.sampler import SampleConfig
+
+    params = dense.init(OPT_TINY, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    kw = dict(max_slots=2, max_seq=96, seed=7, device=cuda,
+              sample_cfg=SampleConfig(temperature=0.8, top_k=50, top_p=0.9))
+    if not graphs.can_capture_generator():
+        with pytest.raises(ValueError, match="generator"):
+            Engine(OPT_TINY, params, **kw)
+        return
+    outs = []
+    for _ in range(2):
+        eng = Engine(OPT_TINY, params, **kw)
+        rids = [eng.submit(list(range(1, 20)), max_new=12),
+                eng.submit([4, 2], max_new=12)]
+        res = eng.run()
+        assert eng.step_traces == 1
+        outs.append([res[r] for r in rids])
+    assert outs[0] == outs[1]
+    toks = [t for o in outs[0] for t in o]
+    assert len(toks) == 24 and all(0 <= t < OPT_TINY.vocab_size
+                                   for t in toks)
+    assert len(set(toks)) > 1
+
+
+def test_compiled_decode_captures_once_per_cache(cuda):
+    """make_decode_step(compiled=True) on the card: logits and cache rows
+    bit-equal to the eager step, one capture for the cache and another for
+    a second cache at the same shape; kv_len outside the cache raises
+    before the graph runs. The first call's warm-up and capture tick the
+    counters twice the eager step's launches; a replay ticks none, and its
+    profile holds the kernels the eager step launched."""
+    from repro_torch.configs import OPT_TINY
+    from repro_torch.core.tiering import deploy
+    from repro_torch.launch import steps
+    from repro_torch.models import dense
+
+    raw = dense.init(OPT_TINY, torch.Generator(device=cuda).manual_seed(3),
+                     device=cuda)
+    p, _ = deploy(raw, rber=1e-4, seed=1)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, OPT_TINY.vocab_size, (3, 9))).int().to(cuda)
+    prefill = steps.make_prefill_step(OPT_TINY, pad_to=32)
+    eager = steps.make_decode_step(OPT_TINY)
+    comp = steps.make_decode_step(OPT_TINY, compiled=True)
+    last, c_e = prefill(p, {"tokens": toks})
+    _, c_c = prefill(p, {"tokens": toks})
+    tok = last.argmax(-1)
+    for i in range(6):
+        batch = {"token": tok, "kv_len": 9 + i}
+        before = _counts()
+        lg_e, c_e = eager(p, c_e, batch)
+        n_eager = _since(before)
+        before = _counts()
+        if i == 0:
+            lg_c, c_c = comp(p, c_c, batch)
+            assert _since(before) == {k: 2 * n for k, n in n_eager.items()}
+        else:
+            (lg_c, c_c), records = _profiled(lambda: comp(p, c_c, batch))
+            assert _since(before) == {k: 0 for k in MAIN_KERNELS}
+            assert records == n_eager
+        assert n_eager["decode_attn"] == OPT_TINY.n_layers
+        assert torch.equal(lg_c, lg_e), i
+        tok = lg_e.argmax(-1)
+    torch.cuda.synchronize()
+    assert comp.captures == 1
+    for k in ("k", "v"):
+        assert torch.equal(c_c[k], c_e[k])
+    _, c2 = prefill(p, {"tokens": toks})
+    lg2, _ = comp(p, c2, {"token": tok, "kv_len": 9})
+    assert comp.captures == 2
+    assert bool(torch.isfinite(lg2).all())
+    with pytest.raises(ValueError, match="outside"):
+        comp(p, c2, {"token": tok, "kv_len": 32})

@@ -217,11 +217,15 @@ def test_finish_step_matches_reference(tiny):
                "lengths": _t(d["lengths"]), "bitmap": _t(d["bitmap"]),
                "prev_cycles": torch.tensor(3, dtype=torch.int32)}
     t_sched = tsched.SchedulerConfig(column_bytes=OPT_TINY.d_model, h=32)
-    t_toks, logits, t_new, t_stats = teng._finish_step(
+    t_new = {k: t.clone() for k, t in t_state.items()}
+    tensors = {k: id(t) for k, t in t_new.items()}
+    t_toks, logits, t_stats = teng._finish_step(
         OPT_TINY, t_sched, tsamp.SampleConfig(), True, tt["final_norm"],
-        tt["lm_head"], t_state, _t(d["x"]), _t(d["k_new"]), _t(d["v_new"]),
+        tt["lm_head"], t_new, _t(d["x"]), _t(d["k_new"]), _t(d["v_new"]),
         _t(d["q_lens"]), _t(d["admitted"]), _t(d["positions"]),
         _t(d["tables"]), None)
+    # the port writes the state in place: the same tensors, new values
+    assert {k: id(t) for k, t in t_new.items()} == tensors
     # the KV write: identical rows everywhere but the dump block 0 (where
     # padding lanes collide and either write may land)
     for key in ("k", "v"):
@@ -230,8 +234,8 @@ def test_finish_step_matches_reference(tiny):
     for key in ("lengths", "bitmap", "prev_cycles"):
         np.testing.assert_array_equal(t_new[key].numpy(),
                                       np.asarray(j_new[key]))
-    for key in ("kv_len", "delta_cycles", "npu_fraction"):
-        assert float(t_stats[key]) == float(j_stats[key]), key
+    for i, key in enumerate(("kv_len", "delta_cycles", "npu_fraction")):
+        assert float(t_stats[i]) == float(j_stats[key]), key
     # logits: the reference's lm_head at the last valid lanes
     x_last = jsamp.last_valid_hidden(
         jcm.layer_norm(jnp.asarray(d["x"]), jt["final_norm"]["g"],
