@@ -22,6 +22,7 @@ CUDA kernel computes the same bits with 64-bit masks and popcounts
 from __future__ import annotations
 
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -163,6 +164,185 @@ def check_and_correct(raw_bytes: torch.Tensor, parity: torch.Tensor
                                 | (is_err & ~data_hit & ~is_power))
         dirty[g0:g1] = is_err | (s32 != 0)
     return corrected.reshape(raw_bytes.shape), dirty, uncorrectable
+
+
+# --- host verify: the store's read-retry path -------------------------------
+#
+# The codec's parity bits are parities of masked bytes, and parity is
+# linear: the parity of bit k over a codeword's 8 bytes is the parity of
+# ONE byte, the XOR of the 8 masked bytes. A codeword's 8 bytes are 8
+# consecutive rows of one column, so that XOR runs over whole rows, 8
+# columns per uint64 word, and a byte's parity folds into its bit 0 with
+# three shift-XORs. The encoded byte of the received data XOR the stored
+# parity byte is the error byte ``e``: bits 0..6 the syndrome, and the
+# parity of all of ``e`` the overall check (dq). ``e == 0`` is a clean
+# codeword; only the few nonzero ones are classified and corrected, from
+# the same syndrome tables as the plain version above. Chunks of pages
+# run on a thread pool: numpy's loops release the GIL, and a dozen whole-
+# array operations a chunk keep the threads off the interpreter. (PyTorch
+# CPU ops over larger chunks ran at half the rate when called from the
+# streamer's worker thread on the card machine's host.)
+
+_LSB = {np.uint8: np.uint8(0x01), np.uint64: np.uint64(0x0101010101010101)}
+# PHYS_MASK per (bit, byte) as (7, 8, 1) arrays, a byte (or a byte in each
+# of a word's 8 lanes); and each bit's shift into the parity byte
+_MASKS = {dt: (_PHYS_MASK.astype(dt) * dt(int(_LSB[dt])))[:, :, None]
+          for dt in (np.uint8, np.uint64)}
+_SHIFTS = {dt: np.arange(8, dtype=dt)[:, None] for dt in (np.uint8, np.uint64)}
+_POW2_OR_0 = np.array([(s & (s - 1)) == 0 for s in range(128)], bool)
+_CHUNK_BYTES = 2 << 20            # page bytes per thread task
+_pool = None
+_work = threading.local()
+
+
+def _workspace(dt, n: int):
+    """This thread's scratch arrays for ``_error_words`` over ``n`` words
+    a row, reused across calls (fresh large arrays cost page faults)."""
+    ws = getattr(_work, "ws", None)
+    if ws is None or ws[0] != (dt, n):
+        ws = ((dt, n), np.empty((8, n), dt), np.empty((7, 8, n), dt),
+              np.empty((8, n), dt), np.empty((8, n), dt))
+        _work.ws = ws
+    return ws[1:]
+
+
+def _error_words(cw: np.ndarray, parity: np.ndarray, out: np.ndarray):
+    """(G, 8, W) codeword words (uint8 bytes or uint64 words of 8
+    columns) and the (G, W) stored parity -> ``out`` (G, W): the encoded
+    byte of the received data XOR the stored one."""
+    dt = cw.dtype.type
+    g, _, w = cw.shape
+    rows, masked, bits, tmp = _workspace(dt, g * w)
+    # byte position major: each of the 8 rows one contiguous run
+    np.copyto(rows.reshape(8, g, w), cw.transpose(1, 0, 2))
+    np.bitwise_and(rows[None], _MASKS[dt], out=masked)      # (7, 8, L)
+    np.bitwise_xor.reduce(masked, axis=1, out=bits[:7])      # Hamming bits
+    np.bitwise_xor.reduce(bits[:7], axis=0, out=tmp[0])
+    np.bitwise_xor.reduce(rows, axis=0, out=bits[7])
+    bits[7] ^= tmp[0]                 # overall: data and Hamming bits
+    for sh in (4, 2, 1):              # each byte's parity -> its bit 0
+        np.right_shift(bits, dt(sh), out=tmp)
+        bits ^= tmp
+    bits &= _LSB[dt]
+    bits <<= _SHIFTS[dt]
+    np.bitwise_or.reduce(bits, axis=0, out=out.reshape(-1))
+    out ^= parity
+
+
+def _errors(raw: np.ndarray, parity: np.ndarray, out: np.ndarray):
+    """(G, 8, N) contiguous codeword bytes, (G, N) parity -> ``out``
+    (G, N) uint8 error bytes, as uint64 words when N divides into them."""
+    g, _, n = raw.shape
+    if n % 8 == 0:
+        raw, parity, out = (raw.view(np.uint64), parity.view(np.uint64),
+                            out.view(np.uint64))
+    _error_words(raw, parity, out)
+
+
+def _thread_pool():
+    global _pool
+    if _pool is None:
+        import concurrent.futures
+        import os
+        _pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=min(8, os.cpu_count() or 1),
+            thread_name_prefix="ecc-verify")
+    return _pool
+
+
+def page_errors(pages: np.ndarray, parity: np.ndarray) -> np.ndarray:
+    """(n, K, N) uint8 pages, (n, K//8, N) parity -> (n, K//8, N) error
+    bytes (0 = clean codeword)."""
+    n, k, w = pages.shape
+    if k % 8:
+        raise ValueError(f"K={k} must be a multiple of 8")
+    if tuple(parity.shape) != (n, k // 8, w):
+        raise ValueError(f"parity {tuple(parity.shape)} != "
+                         f"{(n, k // 8, w)}")
+    raw = np.ascontiguousarray(pages, np.uint8).reshape(n, k // 8, 8, w)
+    par = np.ascontiguousarray(parity, np.uint8)
+    e = np.empty((n, k // 8, w), np.uint8)
+    step = max(1, _CHUNK_BYTES // (k * w))
+
+    def run(i0):
+        i1 = min(i0 + step, n)
+        g = (i1 - i0) * (k // 8)
+        _errors(raw[i0:i1].reshape(g, 8, w), par[i0:i1].reshape(g, w),
+                e[i0:i1].reshape(g, w))
+
+    if n <= step:
+        run(0)
+    else:
+        for f in [_thread_pool().submit(run, i) for i in range(0, n, step)]:
+            f.result()
+    return e
+
+
+def _repair(pages: np.ndarray, e: np.ndarray):
+    """Flip the single-bit data errors the error bytes ``e`` name, in
+    place. Returns the dirty codewords' (page, group, column) indices and
+    which of them are uncorrectable."""
+    flat = e.reshape(-1)
+    if flat.size % 8 == 0:
+        # scan 8 error bytes at a time: almost every codeword is clean
+        words = np.flatnonzero(flat.view(np.uint64))
+        cand = (words[:, None] * 8 + np.arange(8)).reshape(-1)
+        hits = cand[flat[cand] != 0]
+    else:
+        hits = np.flatnonzero(flat)
+    p, rem = np.divmod(hits, e.shape[1] * e.shape[2])
+    g, col = np.divmod(rem, e.shape[2])
+    s = e[p, g, col] & 0x7F
+    dq = _PAR8[e[p, g, col]].astype(bool)
+    byte = np.where(dq, _SYN_BYTE[s], 8)
+    hit = byte < 8
+    # dq == 1: correctable iff the syndrome names a data position, a
+    # parity position (power of two) or 0 (overall-bit flip);
+    # dq == 0 and syndrome != 0: a double error
+    bad = (~dq & (s != 0)) | (dq & ~hit & ~_POW2_OR_0[s])
+    pages[p[hit], 8 * g[hit] + byte[hit], col[hit]] ^= _SYN_MASK[s[hit]]
+    return (p, g, col), bad
+
+
+def check_and_correct_pages(pages: np.ndarray, parity: np.ndarray
+                            ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``check_and_correct_np`` over a batch of pages at once: (n, K, N)
+    uint8 and (n, K//8, N) parity -> (corrected (n, K, N), dirty
+    (n, K//8, N), uncorrectable (n, K//8, N)), each page exactly what the
+    per-page call gives."""
+    corrected = np.array(pages, np.uint8, copy=True, order="C")
+    e = page_errors(corrected, parity)
+    idx, bad = _repair(corrected, e)
+    uecc = np.zeros(e.shape, bool)
+    uecc[idx] = bad
+    return corrected, e != 0, uecc
+
+
+def check_and_correct_np(raw_bytes: np.ndarray, parity: np.ndarray
+                         ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host-side (numpy) ``check_and_correct``: the counterpart of the
+    reference's ``check_and_correct_np``, with its contract and shapes.
+    raw_bytes (K, N) uint8, parity (K//8, N) uint8 -> (corrected (K, N)
+    uint8, dirty (K//8, N) bool, uncorrectable (K//8, N) bool)."""
+    return tuple(a[0] for a in check_and_correct_pages(
+        np.asarray(raw_bytes)[None], np.asarray(parity)[None]))
+
+
+def correct_pages_(pages: np.ndarray, parity: np.ndarray
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Verify (n, K, N) uint8 pages against their (n, K//8, N) parity and
+    repair the correctable codewords IN PLACE: the store's armed read.
+    Returns (dirty (n,) bool: any codeword flagged, uncorrectable (n,)
+    int: codewords flagged uncorrectable) — per page what
+    ``check_and_correct_np`` gives, and ``pages`` then hold its
+    ``corrected``."""
+    if not pages.flags.c_contiguous or pages.dtype != np.uint8:
+        raise ValueError("correct_pages_ needs contiguous uint8 pages")
+    (p, _, _), bad = _repair(pages, page_errors(pages, parity))
+    n = pages.shape[0]
+    dirty = np.zeros((n,), bool)
+    dirty[p] = True
+    return dirty, np.bincount(p[bad], minlength=n)
 
 
 def weights_to_bytes(w_int8: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,7 @@ import re
 import zlib
 from typing import Any
 
+import numpy as np
 import torch
 
 from repro_torch.core import ecc
@@ -156,6 +157,38 @@ def deploy(params: dict, patterns=DEFAULT_FLASH_PATTERNS, rber: float = 0.0,
             node = node.setdefault(key, {})
         node[last] = out
     return tiered, tier_map
+
+
+def tile_parity(parity: np.ndarray, k_tile: int, n_tile: int,
+                tile: int = 128) -> np.ndarray:
+    """The parity slice protecting ONE (tile, tile) q page of a flash
+    param: rows ``k_tile*tile/8 .. +tile/8``, cols ``n_tile*tile .. +tile``
+    of the (K//8, N) parity plane, zero-padded to the full page grid.
+
+    Valid because codewords are local to 8-row groups within a column and
+    the page grid pads K/N up to tile multiples: K and the tile are
+    multiples of 8, so no codeword straddles real and padded rows, and the
+    parity byte of an all-zero padded codeword is 0. The PageStore's
+    read-retry path verifies pages host-side with it."""
+    rows = tile // 8
+    out = np.zeros((rows, tile), np.uint8)
+    pr = parity[k_tile * rows:(k_tile + 1) * rows,
+                n_tile * tile:(n_tile + 1) * tile]
+    out[:pr.shape[0], :pr.shape[1]] = pr
+    return out
+
+
+def page_parities(parity: np.ndarray, grid: tuple, tile: int = 128
+                  ) -> np.ndarray:
+    """``tile_parity`` of every page of a (kt, nt) q grid at once, in the
+    page table's tile-row-major order: (kt * nt, tile // 8, tile)."""
+    kt, nt = grid
+    rows = tile // 8
+    padded = np.zeros((kt * rows, nt * tile), np.uint8)
+    padded[:parity.shape[0], :parity.shape[1]] = parity
+    return np.ascontiguousarray(padded.reshape(kt, rows, nt, tile)
+                                .transpose(0, 2, 1, 3)
+                                .reshape(kt * nt, rows, tile))
 
 
 # Per-layer flash Q/K/V/O copies (Algorithm 2's in-flash projection

@@ -39,7 +39,18 @@ request level, with the KV-cache-aware scheduler (Algorithm 2) in the loop.
     the paged ECDP), then finishes as the resident step does. lm_head stays
     a device ``FlashWeight``. A ``ResidencyCache`` keeps pinned and recent
     groups resident under ``StreamConfig.device_budget_bytes``; the
-    streamer's stall fraction contracts the step token budget.
+    streamer's stall fraction contracts the step token budget. With a
+    ``faults.FaultInjector`` armed on the store, every window read is
+    verified on the host before its upload (``store/pagestore.py``).
+  * prefix cache — ``prefix_cache=True``: a completed request's full
+    prompt blocks stay in the KV pool under a chain hash
+    (``serving/prefix.py``), and admission adopts the longest cached
+    prefix copy-free, so a warm request prefills only its tail.
+  * observability — each step's host phases (``plan``, ``dispatch``,
+    ``sync``; streamed: ``embed``, ``stream_wait``, ``group_dispatch``,
+    ``finish``) land in ``timeline``, the ``engine_step_seconds``
+    histogram and, when the tracer is on, spans; ``telemetry()`` and
+    ``obs_samples()`` feed the serving front (``serving/server.py``).
 """
 from __future__ import annotations
 
@@ -52,7 +63,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import graphs
+from repro_torch import graphs, obs
 from repro_torch.core import scheduler as sched
 from repro_torch.core.erdpe import flash_matmul
 from repro_torch.core.tiering import (ATTN_FLASH_KEYS, PagedWeight, deploy,
@@ -60,6 +71,7 @@ from repro_torch.core.tiering import (ATTN_FLASH_KEYS, PagedWeight, deploy,
 from repro_torch.models import common as cm
 from repro_torch.models import dense
 from repro_torch.serving.kvcache import PagedKVPool
+from repro_torch.serving.prefix import PrefixIndex, block_hashes
 from repro_torch.serving.sampler import SampleConfig, last_valid_hidden, sample
 from repro_torch.store.page_pool import WeightPagePool
 from repro_torch.store.pagestore import (StoreRef, drop_store_refs,
@@ -78,6 +90,8 @@ class Request:
     out: list[int] = dataclasses.field(default_factory=list)
     done: bool = False
     cancelled: bool = False          # set by Engine.cancel
+    cached_len: int = 0              # prompt tokens adopted from the prefix
+                                     # cache at admission (pos starts here)
 
     @property
     def prefilling(self) -> bool:
@@ -322,6 +336,10 @@ class Engine:
     tables, so one graph cannot serve every group. Its DRAM weights stay
     bf16, within its device budget. On the card every kernel of a step
     runs on the stream current at construction.
+
+    ``prefix_cache`` turns on hash-based prefix caching; ``registry`` is
+    the ``obs.MetricsRegistry`` the step histogram and token counter live
+    in (default: the process-wide one).
     """
 
     def __init__(self, cfg, params, max_slots: int = 4, max_seq: int = 256,
@@ -332,7 +350,8 @@ class Engine:
                  admission_cfg: sched.AdmissionConfig | None = None,
                  max_waiting: int | None = None, weight_store=None,
                  stream_cfg: StreamConfig | None = None, device="cuda",
-                 compiled: bool = True):
+                 compiled: bool = True, prefix_cache: bool = False,
+                 registry: "obs.MetricsRegistry | None" = None):
         if cfg.family != "dense":
             raise ValueError(f"engine serves dense-family archs (got "
                              f"{cfg.family!r})")
@@ -401,6 +420,7 @@ class Engine:
                                 cfg.n_kv_heads, cfg.head_dim,
                                 block_size=block_size, n_blocks=n_blocks,
                                 device=self.device)
+        self.pool.stream = self._stream  # admission's lengths writes
         # admission cap on a request's KV rows: the exact max_seq, the
         # physical pool minus the dump block, and (learned positions) the
         # embedding table
@@ -444,6 +464,24 @@ class Engine:
         self._auto_depth_done = False
         self.stats: list[dict] = []
         self.last_logits: torch.Tensor | None = None
+        # hash-based prefix caching: completed requests retain their full
+        # prompt blocks under a chain hash; admission adopts the longest
+        # cached chain copy-free (ref bump only)
+        self.prefix = PrefixIndex(self.pool) if prefix_cache else None
+        self._prefix_tokens_saved = 0
+        # ObsPlane: per-step phase histogram + timeline ring. A disabled
+        # registry hands out no-op instruments, so a dark plane costs a
+        # few perf_counter reads per step.
+        self.obs = registry if registry is not None \
+            else obs.default_registry()
+        self.timeline = obs.StepTimeline(256)
+        self._h_step = self.obs.histogram(
+            "engine_step_seconds", "serving step host wall time by phase",
+            label_names=("phase",))
+        self._c_step_tokens = self.obs.counter(
+            "engine_tokens_total", "tokens processed by the step loop",
+            label_names=("kind",))
+        self._phases: dict[str, float] = {}
 
     def _flash_attn_copy(self, params, rber, seed):
         """Per-layer flash (INT8+ECC) copies of the Q and O projections —
@@ -653,6 +691,7 @@ class Engine:
         launched compute runs), finish. Returns what ``_step_impl``
         returns."""
         cfg, gs = self.cfg, self.stream_cfg.group_size
+        t = time.perf_counter()
         self._load_inputs()
         d, state = self._dev_in, self._state()
         tokens, q_lens, admitted, block_tables = (
@@ -660,21 +699,48 @@ class Engine:
         bitmap = state["bitmap"] if self.kv_aware else None
         x, positions, ctx_lens = _embed_chunk(cfg, self._dram_params,
                                               state["lengths"], tokens, q_lens)
+        t = self._phase("embed", t)
         ks, vs = [], []
-        for g, win in self.streamer.stream():
-            if win["ready"] is not None:
-                self._stream.wait_event(win["ready"])   # its pages are in
-            x, k_g, v_g = _stream_group_impl(
-                cfg, bitmap, self._win_shapes, self._layers, win,
-                self.wpool.buffer, state["k"], state["v"], x, positions,
-                ctx_lens, block_tables, g * gs, gs)
-            ks += k_g
-            vs += v_g
-        return _finish_step(cfg, self.sched_cfg, self.sample_cfg,
-                            self.kv_aware, self._dram_params["final_norm"],
-                            self._lm_head, state, x, torch.stack(ks),
-                            torch.stack(vs), q_lens, admitted, positions,
-                            block_tables, self._generator)
+        # closed explicitly: a group whose compute raises leaves the
+        # generator at its yield, and only closing it retires the held
+        # window (its pool slots) and stops the worker before a retry
+        # starts a new stream
+        it = self.streamer.stream()
+        try:
+            for g, win in it:
+                t = self._phase("stream_wait", t)
+                if win["ready"] is not None:
+                    self._stream.wait_event(win["ready"])  # its pages are in
+                x, k_g, v_g = _stream_group_impl(
+                    cfg, bitmap, self._win_shapes, self._layers, win,
+                    self.wpool.buffer, state["k"], state["v"], x, positions,
+                    ctx_lens, block_tables, g * gs, gs)
+                ks += k_g
+                vs += v_g
+                t = self._phase("group_dispatch", t)
+        finally:
+            it.close()
+        out = _finish_step(cfg, self.sched_cfg, self.sample_cfg,
+                           self.kv_aware, self._dram_params["final_norm"],
+                           self._lm_head, state, x, torch.stack(ks),
+                           torch.stack(vs), q_lens, admitted, positions,
+                           block_tables, self._generator)
+        self._phase("finish", t)
+        return out
+
+    def _phase(self, name: str, t0: float, now: float | None = None) -> float:
+        """Accumulate one step-phase interval (ObsPlane): seconds since
+        ``t0`` land in this step's phase breakdown and, when tracing is
+        on, as a span on the compute track. Returns now, so boundaries
+        chain: ``t = self._phase("embed", t)``."""
+        if now is None:
+            now = time.perf_counter()
+        self._phases[name] = self._phases.get(name, 0.0) + (now - t0)
+        tracer = obs.default_tracer()
+        if tracer.enabled:
+            tracer.complete(name, t0, now - t0, tid=obs.TID_COMPUTE,
+                            cat="step")
+        return now
 
     def _stream_stall_s(self) -> float:
         """Seconds the compute path has spent blocked on the weight
@@ -715,18 +781,86 @@ class Engine:
                 self.cache.pinned_bytes,
                 sc.device_budget_bytes - want * self._group_bytes))
 
-    def stream_stats(self) -> dict:
+    def stream_stats(self, *, strict: bool = True) -> dict:
         """Streamer + residency-cache + page-store + pool counters:
         stall/stream seconds, streamed bytes, cache hits/misses, per-plane
-        page reads and the NAND seconds they imply, pool uploads and the
-        host-to-device copy time. Page counters cover serving only."""
+        page reads and the NAND seconds they imply, the fault plane's
+        counters, pool uploads and the host-to-device copy time. Page
+        counters cover serving only. ``strict=False`` returns ``{}`` on a
+        resident engine."""
         if not self.streamed:
+            if not strict:
+                return {}
             raise ValueError("stream_stats: engine is not in streamed mode")
         return {**self.streamer.stats(), **self.store.stats(),
                 **self.wpool.stats(),
                 "pool_reserve_bytes":
                     self._pool_reserve_pages * self.store.page_bytes,
                 "prefetch_depth": self.streamer.prefetch_depth}
+
+    def spec_stats(self, *, strict: bool = True) -> dict:
+        """Speculative-decode telemetry. The port serves no speculative
+        mode: ``strict=False`` returns ``{}``, ``strict=True`` raises, as
+        the reference does for an engine not in that mode."""
+        if not strict:
+            return {}
+        raise ValueError("spec_stats: engine is not in speculative mode")
+
+    def expert_stats(self, *, strict: bool = True) -> dict:
+        """Expert-cache telemetry. The port serves no MoE model:
+        ``strict=False`` returns ``{}``, ``strict=True`` raises, as the
+        reference does for an engine not serving one."""
+        if not strict:
+            return {}
+        raise ValueError("expert_stats: engine is not serving a "
+                         "store-backed MoE model")
+
+    def prefix_stats(self, *, strict: bool = True) -> dict:
+        """Prefix-cache telemetry: index entries/hits/misses/evictions
+        plus the prefill tokens admission skipped through cache hits.
+        ``strict=False`` returns ``{}`` when prefix caching is off."""
+        if self.prefix is None:
+            if not strict:
+                return {}
+            raise ValueError("prefix_stats: prefix caching is disabled "
+                             "(construct with prefix_cache=True)")
+        return {**self.prefix.stats(),
+                "prefix_prefill_tokens_saved": self._prefix_tokens_saved}
+
+    def telemetry(self) -> dict:
+        """Every applicable ``*_stats`` family merged, wrong-mode families
+        absent (``strict=False`` everywhere). The streamed families read
+        under the streamer/pool locks, so the serving front refreshes its
+        copy from its loop thread, not per HTTP request."""
+        out = {"steps": self._steps_done,
+               "free_kv_blocks": int(self.pool.n_free_blocks),
+               "active_slots": len(self.pool.active),
+               "waiting": len(self.waiting)}
+        out.update(self.stream_stats(strict=False))
+        out.update(self.spec_stats(strict=False))
+        out.update(self.prefix_stats(strict=False))
+        return out
+
+    def obs_samples(self):
+        """ObsPlane scrape samples for the engine and every subsystem it
+        owns (lock-free counter reads: safe from a scrape thread while a
+        step holds the streamer/pool locks)."""
+        yield obs.Sample("engine_steps_total", "counter",
+                         float(self._steps_done))
+        yield obs.Sample("engine_free_kv_blocks", "gauge",
+                         float(self.pool.n_free_blocks))
+        yield obs.Sample("engine_active_slots", "gauge",
+                         float(len(self.pool.active)))
+        yield obs.Sample("engine_waiting_requests", "gauge",
+                         float(len(self.waiting)))
+        if self.streamed:
+            yield obs.Sample("engine_stall_frac", "gauge",
+                             float(self._stall_frac))
+            yield from self.store.obs_samples()
+            yield from self.wpool.obs_samples()
+            yield from self.streamer.obs_samples()
+        if self.prefix is not None:
+            yield from self.prefix.obs_samples()
 
     # --- request management (control plane) ---------------------------------
 
@@ -798,22 +932,50 @@ class Engine:
 
     def _admit(self):
         """waiting -> running, FCFS: claim a slot and reserve the request's
-        worst-case block count."""
+        worst-case block count. With prefix caching on, admission first
+        adopts the longest cached prefix copy-free (ref bump on the shared
+        blocks; only the tail is reserved and prefilled), evicting cold
+        fully-released chains when the tail reservation falls short."""
         while self.waiting:
             req = self.waiting[0]
             if req.done:                 # cancelled while waiting
                 self.waiting.popleft()
                 self._cv.notify_all()
                 continue
-            slot = self.pool.alloc(req.rid, req.kv_rows)
+            shared, hashes = (), None
+            if self.prefix is not None:
+                bs = self.pool.block_size
+                # cap: >= 1 prompt token always prefills — every request
+                # samples from its own last prompt lane
+                hashes = block_hashes(req.prompt, bs,
+                                      limit=(len(req.prompt) - 1) // bs)
+                shared = self.prefix.lookup(hashes)
+            slot = self.pool.alloc(req.rid, req.kv_rows,
+                                   shared_blocks=shared)
+            if slot is None and self.prefix is not None \
+                    and self.pool.free_slots:
+                need = self.pool.blocks_for(req.kv_rows) - len(shared)
+                short = need - self.pool.n_free_blocks
+                if short > 0 and self.prefix.evict(short) > 0:
+                    # eviction may have reclaimed part of the hit chain
+                    # itself (LRU does not pin this lookup): re-resolve
+                    shared = self.prefix.lookup(hashes)
+                    slot = self.pool.alloc(req.rid, req.kv_rows,
+                                           shared_blocks=shared)
             if slot is None:
                 break
             req.slot = slot
+            if shared:
+                req.cached_len = len(shared) * self.pool.block_size
+                req.pos = req.cached_len
+                self._prefix_tokens_saved += req.cached_len
             self.waiting.popleft()
             self._cv.notify_all()
 
     def _sweep_cancelled(self):
-        """Reclaim cancelled requests' resources at the top of every step."""
+        """Reclaim cancelled requests' resources at the top of every step.
+        No prefix retain: a cancelled stream was never fully served, so
+        its blocks are not certified shareable."""
         for slot, rid in list(self.pool.active.items()):
             req = self.requests[rid]
             if req.done and req.cancelled:
@@ -824,6 +986,15 @@ class Engine:
             self._cv.notify_all()
 
     def _finish_request(self, req: Request, slot: int):
+        """Completion: retain the request's full prompt blocks in the
+        prefix index (ref bump BEFORE the slot's release drops its own
+        refs), then release the slot."""
+        if self.prefix is not None:
+            hashes = block_hashes(req.prompt, self.pool.block_size)
+            if hashes:
+                blocks = [int(b) for b in
+                          self.pool.block_tables[slot, :len(hashes)]]
+                self.prefix.insert(hashes, blocks)
         self.pool.release(slot)          # O(1): no device work
 
     # --- the serving step ---------------------------------------------------
@@ -840,6 +1011,8 @@ class Engine:
             return n
 
     def _step_locked(self) -> int:
+        t_plan0 = time.perf_counter()
+        self._phases = {}                # this step's ObsPlane breakdown
         self._admit()
         decode_slots, prefill_slots = [], []
         # ARRIVAL order (rid), not slot order: plan_chunks funds prefill
@@ -886,15 +1059,19 @@ class Engine:
             # admission reservation, so it cannot fail)
             self.pool.ensure(slot, int(self.pool.lengths[slot]) + cnt)
         np.copyto(tables, self.pool.block_tables)
-        t_step0 = time.perf_counter()
+        t_step0 = self._phase("plan", t_plan0)
         stall0 = self._stream_stall_s()
         ctx = (torch.cuda.stream(self._stream) if self._stream is not None
                else contextlib.nullcontext())
         with torch.no_grad(), ctx:
             if self.streamed:
                 toks, logits, stats = self._streamed_step()
+                t_sync0 = time.perf_counter()
             else:
                 toks, logits, stats = self._run_resident()
+                # the resident plane is one dispatch (the streamed one
+                # timed its embed / groups / finish itself)
+                t_sync0 = self._phase("dispatch", t_step0)
             self.last_logits = logits
             # the step's device->host reads: sampled tokens + stat scalars
             toks_host = toks.cpu().numpy()
@@ -921,6 +1098,7 @@ class Engine:
             elif not req.prefilling and len(req.out) >= req.max_new:
                 req.done = True
                 self._finish_request(req, slot)
+        self._phase("sync", t_sync0)
         self._npu_frac = float(st[2])
         entry = {
             "kv_len": int(st[0]),
@@ -929,6 +1107,7 @@ class Engine:
             "prefill_tokens": n_prefill,
             "decode_tokens": n_processed - n_prefill,
         }
+        stall_s = 0.0
         if self.streamed:
             # stall fraction of step wall time (EMA): the residency signal
             # the token budget contracts with (scheduler.step_token_budget)
@@ -937,6 +1116,17 @@ class Engine:
             frac = min(max(stall_s / max(dt, 1e-9), 0.0), 1.0)
             self._stall_frac = 0.5 * self._stall_frac + 0.5 * frac
             entry["stall_frac"] = self._stall_frac
+        for name, dt_p in self._phases.items():
+            self._h_step.observe(dt_p, labels={"phase": name})
+        self._h_step.observe(time.perf_counter() - t_plan0,
+                             labels={"phase": "total"})
+        if n_prefill:
+            self._c_step_tokens.inc(n_prefill, labels={"kind": "prefill"})
+        if n_processed - n_prefill:
+            self._c_step_tokens.inc(n_processed - n_prefill,
+                                    labels={"kind": "decode"})
+        self.timeline.record(self._steps_done, self._phases,
+                             tokens=n_processed, stall_s=stall_s)
         self.stats.append(entry)
         self._steps_done += 1
         if self.streamed:

@@ -15,13 +15,22 @@ of ``repro/serving/kvcache.py`` (``PagedKVPool``).
     step replays over it); ``lengths`` is the host MIRROR the control
     plane keeps in sync without device syncs.
 
-The allocator is host-side: a free list plus per-block ref counts.
-Admission RESERVES a request's worst-case block count up front, so lazily
-growing slots never deadlock on an exhausted pool; physical blocks are
-mapped on demand (``ensure``). ``release`` is O(1) host bookkeeping: freed
-blocks keep their stale K/V, unreachable behind the length masks.
+The allocator is host-side: a free list plus per-block ref counts (a
+count above 1 is a block shared through the prefix cache,
+``serving/prefix.py``). Admission RESERVES a request's worst-case block
+count up front, so lazily growing slots never deadlock on an exhausted
+pool; physical blocks are mapped on demand (``ensure``). ``release`` is
+O(1) host bookkeeping: freed blocks keep their stale K/V, unreachable
+behind the length masks.
+
+``alloc`` writes the slot's start length into ``lengths_dev``; on the card
+that write runs on ``stream`` (the engine's, when it sets one), the stream
+every step reads the lengths on. Callers hold the engine's lock, which a
+step holds across a CUDA-graph capture.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -58,6 +67,7 @@ class PagedKVPool:
         self.free_slots = list(range(n_slots))[::-1]
         self.reserved = np.zeros((n_slots,), np.int32)      # unmapped claim
         self.active: dict[int, int] = {}                    # slot -> rid
+        self.stream = None               # the lengths writes' CUDA stream
 
     # --- capacity arithmetic -------------------------------------------------
 
@@ -78,22 +88,42 @@ class PagedKVPool:
 
     # --- slot lifecycle ------------------------------------------------------
 
-    def alloc(self, request_id: int, need_tokens: int) -> int | None:
+    def alloc(self, request_id: int, need_tokens: int,
+              shared_blocks=()) -> int | None:
         """Admit a request: claim a slot and RESERVE its worst-case block
         count (``need_tokens`` KV rows). Returns the slot, or None when no
-        slot is free or the reservation would oversubscribe the pool."""
+        slot is free or the reservation would oversubscribe the pool.
+
+        ``shared_blocks`` is a prefix-cache hit: already-populated pool
+        blocks the request ADOPTS copy-free — they map at the head of the
+        slot's table with a ref bump each (never drawn from the free list),
+        the slot's length starts past them (host mirror and device copy),
+        and only the tail of the worst case is reserved. The caller (the
+        prefix index) holds its own ref on every shared block."""
         need_blocks = self.blocks_for(need_tokens)
         if need_blocks > self.max_blocks:
             raise ValueError(
                 f"request needs {need_tokens} KV rows > "
                 f"max_seq={self.max_blocks * self.block_size}")
-        if not self.free_slots or need_blocks > self.n_free_blocks:
+        n_shared = len(shared_blocks)
+        assert n_shared < max(need_blocks, 1), \
+            "shared prefix must leave >= 1 tail block to prefill/decode"
+        if not self.free_slots or need_blocks - n_shared > self.n_free_blocks:
             return None
         slot = self.free_slots.pop()
         self.active[slot] = request_id
-        self.reserved[slot] = need_blocks
-        self.lengths[slot] = 0
-        self.lengths_dev[slot] = 0       # a write into the same tensor
+        self.reserved[slot] = need_blocks - n_shared
+        for i, blk in enumerate(shared_blocks):
+            blk = int(blk)
+            assert self.ref_count[blk] > 0, "adopting an unreferenced block"
+            self.ref_count[blk] += 1
+            self.block_tables[slot, i] = blk
+        cached_len = n_shared * self.block_size
+        self.lengths[slot] = cached_len
+        ctx = (torch.cuda.stream(self.stream) if self.stream is not None
+               else contextlib.nullcontext())
+        with ctx:
+            self.lengths_dev[slot] = cached_len   # into the same tensor
         return slot
 
     def ensure(self, slot: int, new_len: int):
@@ -125,6 +155,24 @@ class PagedKVPool:
             self.block_tables[slot, i] = 0
         self.reserved[slot] = 0
         self.free_slots.append(slot)
+
+    # --- prefix-cache ref plumbing (serving/prefix.py) ----------------------
+
+    def ref(self, blk: int):
+        """Take one ref on a LIVE block (the prefix index retaining a
+        completed request's prompt blocks before its slot releases)."""
+        assert blk != 0 and self.ref_count[blk] > 0, \
+            "prefix retain of a free/dump block"
+        self.ref_count[blk] += 1
+
+    def deref(self, blk: int) -> bool:
+        """Drop one ref; frees the block at zero. Returns True if freed."""
+        assert self.ref_count[blk] > 0, "deref underflow"
+        self.ref_count[blk] -= 1
+        if self.ref_count[blk] == 0:
+            self.free_blocks.append(blk)
+            return True
+        return False
 
     def bump(self, slot: int, n: int = 1):
         """Advance the HOST mirror after a step (the step advanced the

@@ -40,10 +40,14 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import time
 from typing import Any, Iterable
 
 import numpy as np
 import torch
+
+from repro_torch.obs.registry import Sample
+from repro_torch.obs.trace import TID_POOL, default_tracer
 
 
 class WeightPagePool:
@@ -190,6 +194,8 @@ class WeightPagePool:
             for comp in ("q", "parity", "scale"):
                 plan.append((name, comp, entry[comp].pages))
         ids = np.concatenate([np.asarray(p, np.int64) for _, _, p in plan])
+        tracer = default_tracer()
+        t0 = time.perf_counter() if tracer.enabled else 0.0
         with self._lock:
             if len(ids) > len(self._free):
                 self._grow(len(ids) - len(self._free))
@@ -207,6 +213,10 @@ class WeightPagePool:
             self.uploads += 1
             self.pages_staged += int(ids.size)
             self.bytes_staged += int(ids.size) * self.page_bytes
+        tracer.complete("pool.upload", t0, time.perf_counter() - t0,
+                        tid=TID_POOL, cat="pool",
+                        args={"pages": int(ids.size),
+                              "bytes": int(ids.size) * self.page_bytes})
         out: dict[str, dict] = {}
         off = 0
         for name, comp, pages in plan:
@@ -289,3 +299,18 @@ class WeightPagePool:
                     "pool_staging_allocs": self.staging_allocs,
                     "pool_h2d_s": self.h2d_s,
                     "pool_grows": self.grows}
+
+    def obs_samples(self):
+        """ObsPlane scrape samples. Lock-free: ``upload`` holds the pool
+        lock across a whole staged transfer, and a scrape must not wait
+        behind it."""
+        yield Sample("pool_pages", "gauge", float(self.n_pages))
+        yield Sample("pool_free_pages", "gauge", float(len(self._free)))
+        yield Sample("pool_uploads_total", "counter", float(self.uploads))
+        yield Sample("pool_pages_staged_total", "counter",
+                     float(self.pages_staged))
+        yield Sample("pool_bytes_staged_total", "counter",
+                     float(self.bytes_staged))
+        yield Sample("pool_pinned_uploads_total", "counter",
+                     float(self.pinned_uploads))
+        yield Sample("pool_grows_total", "counter", float(self.grows))

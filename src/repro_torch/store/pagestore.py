@@ -1,5 +1,5 @@
 """FlashStore page store: the flash tier as host-resident 16 KiB NAND pages —
-the port of ``repro/store/pagestore.py`` (unsharded; no fault plane).
+the port of ``repro/store/pagestore.py`` (unsharded).
 
 A deployed ``FlashWeight`` (raw INT8 codeword bytes + Hamming parity +
 dequant scales) is serialized into a PLANE-INTERLEAVED array of 16 KiB
@@ -17,6 +17,17 @@ The store is host numpy. ``save``/``open`` persist it as a raw die image +
 JSON page table in the JAX package's format: an image either package
 writes opens in the other, page for page. Reads count pages per plane;
 ``nand_seconds`` turns the counters into analytical array time.
+
+The fault plane (``attach_injector``): with a ``faults.FaultInjector``
+armed, every read of an ECC-protected q page is perturbed by the injector,
+verified on the host against its parity (SEC-DED, ``core.ecc``), retried
+when uncorrectable, and escalated past the retry budget — relocated into a
+fresh page of a writable store, or served from the DRAM-tier good copy of
+a read-only die image. Corrected bytes land in the caller's buffer, so a
+reader (the page pool's staging rows) only ever sees verified pages. The
+verify runs batched over a read's pages; which pages are retried, how
+often, in which order the injector's per-page nonces advance and which
+page ids a relocation takes are the reference's.
 """
 from __future__ import annotations
 
@@ -24,12 +35,16 @@ import dataclasses
 import json
 import os
 import threading
+import time
 from typing import Any
 
 import numpy as np
 import torch
 
-from repro_torch.core.tiering import FlashWeight
+from repro_torch.core import ecc
+from repro_torch.core.tiering import FlashWeight, page_parities
+from repro_torch.obs.registry import Sample
+from repro_torch.obs.trace import TID_NAND, default_tracer
 from repro_torch.store import nand
 
 PAGE_BYTES = nand.PAGE_BYTES
@@ -134,6 +149,14 @@ class PageStore:
         # reads come from the streamer's worker thread and the engine's
         # init; the counters are the only shared mutable state on the path
         self._read_lock = threading.Lock()
+        # the fault plane: disarmed (None), reads take the plain fast path
+        self.injector = None
+        self.max_read_retries = 3
+        self._page_owner: dict[int, tuple[str, int]] = {}
+        self._prow = np.zeros((0,), np.int64)     # pid -> parity row, -1
+        self._fparity = np.zeros((0, TILE // 8, TILE), np.uint8)
+        self._fbase = np.zeros((0,), np.int64)    # baseline uecc per row
+        self._degraded: set[int] = set()
         self.reset_counters()
 
     # --- write path (deploy-time "flash programming"; write-once) -----------
@@ -207,6 +230,20 @@ class PageStore:
         self.plane_reads = np.zeros((self.n_planes,), np.int64)
         self.pages_read = 0
         self.bytes_read = 0
+        # fault-plane counters (all stay zero while no injector is armed)
+        self.plane_uecc = np.zeros((self.n_planes,), np.int64)
+        self.plane_retries = np.zeros((self.n_planes,), np.int64)
+        self.plane_relocations = np.zeros((self.n_planes,), np.int64)
+        self.uecc_detected = 0
+        self.read_retries = 0
+        self.retry_corrected = 0
+        self.ecc_corrected_pages = 0
+        self.relocations = 0
+        self.dram_fallback_reads = 0
+        # the armed reads' host verify: pages and seconds (the verify rate;
+        # not in ``stats()``, whose keys are the reference's)
+        self.pages_verified = 0
+        self.verify_s = 0.0
 
     def plane_of(self, pid: int) -> tuple[int, int]:
         """Physical (plane, page-in-plane) of a global page id."""
@@ -223,7 +260,9 @@ class PageStore:
 
     def read_pages(self, ids, out: np.ndarray | None = None) -> np.ndarray:
         """Raw page reads (len(ids), page_bytes) — counts per-plane traffic.
-        ``out`` reads straight into a caller-owned (staging) buffer."""
+        ``out`` reads straight into a caller-owned (staging) buffer. With
+        a ``FaultInjector`` armed (``attach_injector``) the read runs the
+        fault plane (module docstring); disarmed, the plain fast path."""
         ids = np.asarray(ids, np.int64)
         if ids.size and (ids.min() < 0 or ids.max() >= self.n_pages):
             raise IndexError(f"page ids outside the store's {self.n_pages}")
@@ -231,12 +270,234 @@ class PageStore:
             np.add.at(self.plane_reads, ids % self.n_planes, 1)
             self.pages_read += ids.size
             self.bytes_read += ids.size * self.page_bytes
+        tracer = default_tracer()
+        t0 = time.perf_counter() if tracer.enabled else 0.0
+        if self.injector is not None:
+            res = self._read_pages_faulty(ids, out)
+        elif out is None:
+            res = self._data[ids]
+        else:
+            # mode="clip" (the ids are checked above): with the default
+            # "raise" numpy takes into a fresh copy of ``out`` and copies
+            # it back
+            np.take(self._data, ids, axis=0, out=out, mode="clip")
+            res = out
+        if tracer.enabled and ids.size:
+            # the trace's NAND track: this batch's analytical array time
+            # beside its host wall time
+            counts = np.bincount(ids % self.n_planes,
+                                 minlength=self.n_planes)
+            tracer.complete("nand.read_pages", t0,
+                            time.perf_counter() - t0, tid=TID_NAND,
+                            args={"pages": int(ids.size),
+                                  "planes_hit": int((counts > 0).sum()),
+                                  "nand_s": float(
+                                      nand.nand_read_seconds(counts))})
+        return res
+
+    # --- fault plane --------------------------------------------------------
+
+    def attach_injector(self, injector, max_read_retries: int = 3) -> None:
+        """Arm read-time fault injection and the ECC read-retry /
+        relocation path. Call after programming: the protected-page maps
+        (per-page parity slices, page -> entry ownership, each page's
+        baseline uncorrectable count) are built here from the page table.
+        ``attach_injector(None)`` disarms."""
+        self.injector = injector
+        self.max_read_retries = int(max_read_retries)
+        if injector is not None:
+            self._rebuild_fault_maps()
+
+    def _rebuild_fault_maps(self, chunk: int = 4096) -> None:
+        """Per-q-page parity slices and ownership, and each page's BASELINE
+        uncorrectable-codeword count: program-time rber can bake in dirty
+        or even uncorrectable codewords, and only damage ABOVE that
+        baseline is read-induced and worth retrying."""
+        self._page_owner.clear()
+        pids, pars = [], []
+        for name, e in self.table.items():
+            comp = e["q"]
+            pages = np.asarray(comp.pages, np.int64)
+            pars.append(page_parities(self._get_flat_raw(e["parity"]),
+                                      comp.grid, TILE))
+            pids.append(pages)
+            for idx, pid in enumerate(comp.pages):
+                self._page_owner[int(pid)] = (name, idx)
+        pids = np.concatenate(pids) if pids else np.zeros((0,), np.int64)
+        self._fparity = (np.concatenate(pars) if pars else
+                         np.zeros((0, TILE // 8, TILE), np.uint8))
+        self._prow = np.full((self.n_pages,), -1, np.int64)
+        self._prow[pids] = np.arange(pids.size)
+        self._fbase = np.zeros((pids.size,), np.int64)
+        for i in range(0, pids.size, chunk):
+            raw = np.array(self._data[pids[i:i + chunk]], np.uint8)
+            _, self._fbase[i:i + chunk] = ecc.correct_pages_(
+                raw.reshape(-1, TILE, TILE), self._fparity[i:i + chunk])
+        self._degraded.clear()
+
+    def _get_flat_raw(self, comp: _Component) -> np.ndarray:
+        """A flat component straight off the die: no counters, no fault
+        plane (the fault maps are built from it)."""
+        raw = np.asarray(self._data[np.asarray(comp.pages, np.int64)]
+                         ).reshape(-1)
+        n = int(np.prod(comp.shape)) * np.dtype(comp.dtype).itemsize
+        return raw[:n].view(comp.dtype).reshape(comp.shape).copy()
+
+    def _verify(self, rows: np.ndarray, pages: np.ndarray):
+        """Batched SEC-DED over ``pages`` (n, page_bytes), corrected in
+        place against parity rows ``rows``: (dirty (n,), uecc (n,))."""
+        t0 = time.perf_counter()
+        dirty, uecc = ecc.correct_pages_(pages.reshape(-1, TILE, TILE),
+                                         self._fparity[rows])
+        with self._read_lock:
+            self.pages_verified += len(rows)
+            self.verify_s += time.perf_counter() - t0
+        return dirty, uecc
+
+    def _read_pages_faulty(self, ids: np.ndarray,
+                           out: np.ndarray | None) -> np.ndarray:
+        """The armed read path: inject -> verify -> retry -> escalate.
+
+        Only ECC-protected q pages are perturbed and verified (parity and
+        scale runs model the controller's stronger metadata code). A page
+        that verifies clean or correctable ships its corrected bytes, so
+        readers see exactly the fault-free bytes. Detected-uncorrectable
+        pages are re-read up to ``max_read_retries`` times (transients
+        clear, stuck pages don't), then relocated (writable store) or
+        degraded to the DRAM-tier good copy (read-only die image). Every
+        page is injected first, in read order, then the read's pages are
+        verified at once, then the failures retried in read order: the
+        injector's state is per page, so this is the reference's
+        page-at-a-time sequence, unless a read names a page twice (then
+        it runs page at a time)."""
+        inj = self.injector
+        inj.pre_read(int(ids.size))
         if out is None:
-            return self._data[ids]
-        # mode="clip" (the ids are checked above): with the default "raise"
-        # numpy takes into a fresh copy of ``out`` and copies it back
-        np.take(self._data, ids, axis=0, out=out, mode="clip")
-        return out
+            buf = np.array(self._data[ids], np.uint8)   # owned, writable
+        else:
+            np.take(self._data, ids, axis=0, out=out, mode="clip")
+            buf = out
+        if self._prow.size < self.n_pages:   # pages programmed after attach
+            self._grow_prow(self.n_pages)
+        rows = self._prow[ids]
+        prot = np.flatnonzero(rows >= 0)
+        if self._degraded and prot.size:
+            # degraded pages are served from the DRAM-tier good copy: the
+            # raw (pristine) bytes, never injected nor verified
+            deg = np.isin(ids[prot], np.fromiter(self._degraded, np.int64))
+            if deg.any():
+                with self._read_lock:
+                    self.dram_fallback_reads += int(deg.sum())
+                prot = prot[~deg]
+        if not prot.size:
+            return buf
+        if np.unique(ids[prot]).size != prot.size:
+            for i in prot.tolist():          # a page read twice
+                self._read_one(int(ids[i]), buf[i])
+            return buf
+        for i in prot.tolist():
+            inj.corrupt_page(int(ids[i]), buf[i])
+        # verified in place, a run of consecutive protected rows at a time
+        # (a window's entries: q pages, then parity and scale runs)
+        dirty = np.empty((prot.size,), bool)
+        uecc = np.empty((prot.size,), np.int64)
+        for run in np.split(np.arange(prot.size),
+                            np.flatnonzero(np.diff(prot) != 1) + 1):
+            a, b = prot[run[0]], prot[run[-1]] + 1
+            dirty[run], uecc[run] = self._verify(rows[a:b], buf[a:b])
+        base = self._fbase[rows[prot]]
+        ok = uecc <= base
+        with self._read_lock:
+            self.ecc_corrected_pages += int((ok & dirty).sum())
+        for j in np.flatnonzero(~ok).tolist():
+            i = int(prot[j])
+            self._retry_page(int(ids[i]), buf[i])
+        return buf
+
+    def _read_one(self, pid: int, row: np.ndarray) -> None:
+        """One protected page of an armed read, page at a time."""
+        if pid in self._degraded:
+            with self._read_lock:
+                self.dram_fallback_reads += 1
+            return
+        self.injector.corrupt_page(pid, row)
+        r = self._prow[[pid]]
+        dirty, uecc = self._verify(r, row[None])
+        if uecc[0] <= self._fbase[r[0]]:
+            if dirty[0]:
+                with self._read_lock:
+                    self.ecc_corrected_pages += 1
+            return
+        self._retry_page(pid, row)
+
+    def _retry_page(self, pid: int, row: np.ndarray) -> None:
+        """Read-retry state machine for ONE detected-uncorrectable page:
+        re-read (a fresh transient draw) up to N times; on success ship the
+        corrected re-read, on exhaustion escalate (relocate / degrade) and
+        ship the DRAM-tier good copy for THIS read either way."""
+        inj = self.injector
+        plane = pid % self.n_planes
+        r = self._prow[[pid]]
+        base = self._fbase[r[0]]
+        with self._read_lock:
+            self.uecc_detected += 1
+            self.plane_uecc[plane] += 1
+        for _ in range(self.max_read_retries):
+            with self._read_lock:
+                self.read_retries += 1
+                self.plane_retries[plane] += 1
+                self.plane_reads[plane] += 1      # a retry is a real read
+                self.pages_read += 1
+                self.bytes_read += self.page_bytes
+            fresh = np.array(self._data[pid], np.uint8)
+            inj.corrupt_page(pid, fresh)
+            _, uecc = self._verify(r, fresh[None])
+            if uecc[0] <= base:
+                row[:] = fresh
+                with self._read_lock:
+                    self.retry_corrected += 1
+                return
+        # persistent (stuck page): serve the good copy now, then make sure
+        # no future read hits this physical page again
+        row[:] = self._data[pid]
+        if isinstance(self._data, np.memmap):
+            with self._read_lock:
+                self._degraded.add(pid)
+                self.dram_fallback_reads += 1
+        else:
+            self._relocate(pid)
+
+    def _relocate(self, pid: int) -> None:
+        """Re-program a stuck page's tile into a fresh page from the
+        DRAM-tier good copy (the pristine programmed bytes: the injector
+        only perturbs the read path) and patch the page table, so every
+        later fetch reads the new page. Writable stores only; die images
+        degrade instead. ``_alloc_pages`` doubles a full array (a copy of
+        the whole store, once)."""
+        with self._read_lock:
+            name, idx = self._page_owner.pop(pid)
+            new = int(self._alloc_pages(1)[0])
+            self.injector.mark_good(new)      # validated spare block
+            self._data[new] = self._data[pid]
+            self.table[name]["q"].pages[idx] = new
+            self._page_owner[new] = (name, idx)
+            if new >= self._prow.size:
+                self._grow_prow(max(2 * self._prow.size, new + 1))
+            self._prow[new] = self._prow[pid]
+            self._prow[pid] = -1
+            self.relocations += 1
+            self.plane_relocations[pid % self.n_planes] += 1
+
+    def _grow_prow(self, n: int) -> None:
+        """Extend the pid -> parity-row map to ``n`` pages; pages with no
+        row read unprotected."""
+        grown = np.full((n,), -1, np.int64)
+        grown[:self._prow.size] = self._prow
+        self._prow = grown
+
+    @property
+    def degraded_pages(self) -> int:
+        return len(self._degraded)
 
     def _get_flat(self, comp: _Component) -> np.ndarray:
         raw = self.read_pages(comp.pages).reshape(-1)
@@ -314,12 +575,58 @@ class PageStore:
         return nand.nand_read_seconds(self.plane_reads)
 
     def stats(self) -> dict[str, Any]:
-        return {"entries": len(self.table), "pages": self.n_pages,
-                "planes": self.n_planes, "image_bytes": self.image_bytes,
-                "payload_bytes": self.total_bytes,
-                "pages_read": int(self.pages_read),
-                "bytes_read": int(self.bytes_read),
-                "nand_seconds": self.nand_seconds()}
+        out = {"entries": len(self.table), "pages": self.n_pages,
+               "planes": self.n_planes, "image_bytes": self.image_bytes,
+               "payload_bytes": self.total_bytes,
+               "pages_read": int(self.pages_read),
+               "bytes_read": int(self.bytes_read),
+               "nand_seconds": self.nand_seconds(),
+               # fault-plane counters (zero while no injector is armed)
+               "uecc_detected": int(self.uecc_detected),
+               "read_retries": int(self.read_retries),
+               "retry_corrected": int(self.retry_corrected),
+               "ecc_corrected_pages": int(self.ecc_corrected_pages),
+               "relocations": int(self.relocations),
+               "degraded_pages": len(self._degraded),
+               "dram_fallback_reads": int(self.dram_fallback_reads),
+               "plane_uecc": self.plane_uecc.tolist(),
+               "plane_retries": self.plane_retries.tolist(),
+               "plane_relocations": self.plane_relocations.tolist()}
+        if self.injector is not None:
+            out.update(self.injector.stats())
+        return out
+
+    def obs_samples(self):
+        """ObsPlane scrape samples: the counters ``stats()`` reports, as
+        Prometheus families, per-plane reads and damage labeled by plane.
+        Lock-free reads: a scrape never waits behind a read."""
+        yield Sample("nand_pages_read_total", "counter",
+                     float(self.pages_read))
+        yield Sample("nand_bytes_read_total", "counter",
+                     float(self.bytes_read))
+        yield Sample("nand_read_seconds_total", "counter",
+                     float(self.nand_seconds()))
+        yield Sample("nand_uecc_detected_total", "counter",
+                     float(self.uecc_detected))
+        yield Sample("nand_read_retries_total", "counter",
+                     float(self.read_retries))
+        yield Sample("nand_retry_corrected_total", "counter",
+                     float(self.retry_corrected))
+        yield Sample("nand_relocations_total", "counter",
+                     float(self.relocations))
+        yield Sample("nand_degraded_pages", "gauge",
+                     float(len(self._degraded)))
+        yield Sample("nand_dram_fallback_reads_total", "counter",
+                     float(self.dram_fallback_reads))
+        for plane in range(self.n_planes):
+            lbl = (("plane", str(plane)),)
+            yield Sample("nand_plane_reads_total", "counter",
+                         float(self.plane_reads[plane]), lbl)
+            if self.plane_uecc[plane]:
+                yield Sample("nand_plane_uecc_total", "counter",
+                             float(self.plane_uecc[plane]), lbl)
+        if self.injector is not None:
+            yield from self.injector.obs_samples()
 
     # --- NAND die image (mmap backing) --------------------------------------
 

@@ -26,6 +26,8 @@ import threading
 import time
 from typing import Any, Callable, Iterator
 
+from repro_torch.obs.registry import Sample
+from repro_torch.obs.trace import TID_STREAM, default_tracer
 from repro_torch.store.faults import StoreFault
 
 
@@ -183,6 +185,16 @@ class ResidencyCache:
                     "hits": self.hits, "misses": self.misses,
                     "evictions": self.evictions, "rejects": self.rejects}
 
+    def obs_samples(self, prefix: str = "stream_cache"):
+        """ObsPlane scrape samples (lock-free counter reads)."""
+        yield Sample(f"{prefix}_entries", "gauge", float(len(self._entries)))
+        yield Sample(f"{prefix}_hits_total", "counter", float(self.hits))
+        yield Sample(f"{prefix}_misses_total", "counter", float(self.misses))
+        yield Sample(f"{prefix}_evictions_total", "counter",
+                     float(self.evictions))
+        yield Sample(f"{prefix}_rejects_total", "counter",
+                     float(self.rejects))
+
 
 class LayerStreamer:
     """Double-buffered streaming of layer-group windows from a PageStore.
@@ -236,7 +248,13 @@ class LayerStreamer:
             return win, True, True
         t0 = time.perf_counter()
         win, nbytes = self._fetch(g)
-        self.stream_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        # the trace's stream track: one span per fetched window, so the
+        # compute-vs-stream overlap is visible per group
+        default_tracer().complete(f"stream.group{g}", t0, dt,
+                                  tid=TID_STREAM, cat="stream",
+                                  args={"group": g, "bytes": int(nbytes)})
+        self.stream_s += dt
         self.bytes_streamed += nbytes
         self.groups_streamed += 1
         kept = self.cache.insert(g, win, nbytes, hold=True)
@@ -342,3 +360,22 @@ class LayerStreamer:
                 "fetch_retries": self.fetch_retries,
                 "fetch_faults": self.fetch_faults,
                 **{f"cache_{k}": v for k, v in self.cache.stats().items()}}
+
+    def obs_samples(self):
+        """ObsPlane scrape samples (lock-free): the overlap accounting —
+        stall vs stream seconds — plus fetch traffic and fault counters."""
+        yield Sample("stream_stall_seconds_total", "counter",
+                     float(self.stall_s))
+        yield Sample("stream_seconds_total", "counter",
+                     float(self.stream_s))
+        yield Sample("stream_bytes_total", "counter",
+                     float(self.bytes_streamed))
+        yield Sample("stream_groups_total", "counter",
+                     float(self.groups_streamed))
+        yield Sample("stream_fetch_retries_total", "counter",
+                     float(self.fetch_retries))
+        yield Sample("stream_fetch_faults_total", "counter",
+                     float(self.fetch_faults))
+        yield Sample("stream_prefetch_depth", "gauge",
+                     float(self.prefetch_depth))
+        yield from self.cache.obs_samples()

@@ -490,6 +490,92 @@ def test_streamed_engine_logits_equal_resident_on_the_card(cuda):
         steps * OPT_TINY.n_layers * 4
 
 
+def test_armed_streamed_engine_serves_the_disarmed_tokens(cuda):
+    """OPT_TINY streamed under a budget that re-reads windows every step,
+    from a store armed with transient flips and stuck pages: the card
+    engine's tokens and logits equal the disarmed engine's at every step,
+    with corrected, retried and relocated pages counted."""
+    from repro_torch.configs import OPT_TINY
+    from repro_torch.core.scheduler import AdmissionConfig
+    from repro_torch.models import dense
+    from repro_torch.serving.engine import Engine
+    from repro_torch.store import StreamConfig
+    from repro_torch.store.faults import FaultConfig, FaultInjector
+
+    params = dense.init(OPT_TINY, torch.Generator(device=cuda).manual_seed(2),
+                        device=cuda)
+    kw = dict(max_slots=2, max_seq=96, rber=1e-4, seed=1, device=cuda,
+              admission_cfg=AdmissionConfig(token_budget=512))
+    probe = PageStore()
+    Engine(OPT_TINY, params, weight_store=probe, **kw)
+    scfg = StreamConfig(device_budget_bytes=int(probe.total_bytes * 0.6),
+                        group_size=1, prefetch_depth=2)
+    engines = []
+    for armed in (False, True):
+        store = PageStore(n_planes=8)
+        eng = Engine(OPT_TINY, params, weight_store=store, stream_cfg=scfg,
+                     **kw)
+        if armed:
+            store.attach_injector(FaultInjector(FaultConfig(
+                seed=3, read_rber=2e-5, stuck_page_rate=0.2)))
+        eng.submit(list(range(3, 60)), max_new=10)
+        eng.submit([7, 1, 5], max_new=10)
+        engines.append(eng)
+    clean, armed = engines
+    steps = 0
+    while clean.step():
+        armed.step()
+        assert torch.equal(clean.last_logits, armed.last_logits), steps
+        steps += 1
+    assert armed.step() == 0
+    assert [r.out for r in clean.requests.values()] == \
+        [r.out for r in armed.requests.values()]
+    s = armed.stream_stats()
+    for k in ("ecc_corrected_pages", "uecc_detected", "read_retries",
+              "relocations"):
+        assert s[k] > 0, (k, s)
+    assert armed.wpool.used_pages == sum(
+        armed.store.entry_pages(n) for g in range(armed.n_groups)
+        if g in armed.cache for n in armed._group_entries(g))
+
+
+def test_batched_verify_matches_the_per_page_form_on_many_pages(cuda):
+    """The store's batched host verify on a few thousand random pages with
+    planted 1-, 2- and 3-bit codewords (on the card machine's host and
+    threads) against the per-page ``check_and_correct_np``; and a single
+    flip in every planted-1 codeword is repaired."""
+    rng = np.random.default_rng(7)
+    n, t = 3000, 128
+    pages = rng.integers(0, 256, (n, t, t), dtype=np.uint8)
+    # the error bytes against an all-zero parity plane are the encoding
+    pars = ecc.page_errors(pages, np.zeros((n, t // 8, t), np.uint8))
+    clean = pages.copy()
+    single = []
+    for i in range(n):                    # plant 1-, 2-, 3-bit codewords
+        hit = []
+        for nbits in (1, 2, 3):
+            g, col = int(rng.integers(0, t // 8)), int(rng.integers(0, t))
+            hit.append((g, col))
+            for b in rng.choice(64, size=nbits, replace=False):
+                pages[i, 8 * g + b // 8, col] ^= np.uint8(1 << (b % 8))
+        if hit[0] not in hit[1:]:
+            single.append((i,) + hit[0])
+    c, d, u = ecc.check_and_correct_pages(pages, pars)
+    inplace = pages.copy()
+    dirty, uecc = ecc.correct_pages_(inplace, pars)
+    np.testing.assert_array_equal(inplace, c)
+    np.testing.assert_array_equal(dirty, d.any(axis=(1, 2)))
+    np.testing.assert_array_equal(uecc, u.sum(axis=(1, 2)))
+    for i in range(0, n, 97):
+        want = ecc.check_and_correct_np(pages[i], pars[i])
+        for got, w in zip((c[i], d[i], u[i]), want):
+            np.testing.assert_array_equal(got, w)
+    assert u.sum() >= n                   # every 2-bit codeword flagged
+    for i, g, col in single:              # every lone 1-bit one repaired
+        np.testing.assert_array_equal(c[i, 8 * g:8 * g + 8, col],
+                                      clean[i, 8 * g:8 * g + 8, col])
+
+
 # --- decode attention --------------------------------------------------------
 
 # (B, S_max, KV, rep, Dh, lengths): chip_smoke.py phase 8(a)'s shapes (the
