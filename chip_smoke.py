@@ -141,9 +141,47 @@ Phases (any failure exits non-zero; nothing is caught):
                 the margin exceeds twice that, one capture; the counters
                 hold the warm-up and the capture (2 x 129 ECDP, 2 x 32
                 paged attention).
+  10. spec    — speculative serving (serving/spec.py); 4 periodic
+                prompts of 8 tokens, 48 new each, handed over in one
+                batch. (a) full-depth OPT-6.7B (phase 4's seeded weights), 4
+                slots, max_seq 2048, chunk 16, compiled; first with
+                kv_aware off, as the reference's spec tests run: the
+                vanilla engine (its per-token margins recorded), then the
+                n-gram spec engine (k=4): one capture; after every step the
+                device lengths equal the host mirror and no request is past
+                max_new; accepted > 0; tokens equal vanilla's up to each
+                request's first token whose vanilla top-2 margin is under
+                2 x 2^-6 of the row's largest |logit| (phase 5's rule; the
+                prefix lengths are printed); the counters zeroed before the
+                run hold the warm-up and the capture, 2 x 66 ECDP (32 x 2
+                FFN calls, lm_head and the verify lanes' lm_head: the Q/O
+                flash copies are read only with Algorithm 2 on) and 2 x 32
+                paged attention. Then the same with kv_aware on (the main
+                path's Algorithm 2; no token gate, the two engines' bitmaps
+                move at different steps): 2 x 130 ECDP. A second wave of
+                each engine is timed (ms per decode / verify step,
+                generated tokens/s); with kv_aware on, 4 + 4 spec verify
+                steps are traced (device time by kernel group, idle share;
+                the profile must hold 130 ECDP and 32 paged-attention
+                kernels a step). (b) the model drafter, the reference
+                build_engine's draft model (8 layers, d_model 2048, 16
+                heads, d_ff 8192), k=3, window 16, kv_aware off: tokens
+                equal vanilla's under the same rule, >= 1 token a verify
+                step. (d) temperature 0.8, top-k 40, compiled, kv_aware off:
+                every request emits exactly 48 tokens, all in the
+                vocabulary, one capture. (c) OPT-6.7B width cut to 2
+                layers, kv_aware off, streamed from PageStore(n_planes=32)
+                under a budget of lm_head + 2 windows (both re-read each
+                step), k=4: launch counters zeroed just before and read
+                after (paged ECDP 4, ECDP 2, paged attention 2 a step);
+                every step's logits and verify-lane logits bit-equal to the
+                resident spec engine's (compiled) at 2 layers; as many
+                windows a step as the vanilla streamed engine; fewer verify
+                steps than tokens. Its figures are the ``spec`` JSON line.
 
-The second-to-last line is the ``kernels`` JSON; the last line is
-``{"ok": true, "device": {...}}``. Times are CUDA-event medians with the
+The ``spec`` line comes before the card's name; the second-to-last line
+is the ``kernels`` JSON; the last line is ``{"ok": true, "device":
+{...}}``. Times are CUDA-event medians with the
 L2 cache flushed before each timed call (the serving step streams more
 weight bytes than L2 holds) and the card held while the call is enqueued
 (``Timer``). bound_ms is the larger of the bytes a call
@@ -1853,6 +1891,387 @@ def phase_prefix(torch):
                 compared=compared, bit_equal=bit_equal)
 
 
+
+# --- phase 10: speculative serving ------------------------------------------------
+
+SPEC_K, SPEC_NEW = 4, 48
+# four periodic prompts: the n-gram drafter finds their patterns at once
+SPEC_PROMPTS = ([13] * 8, [7, 9] * 4, [101, 102, 103, 104] * 2,
+                [5, 11, 5, 11, 5, 11, 5, 2])
+SPEC_PROFILE_STEPS = 4
+SPEC_STREAM_LAYERS = 2
+
+
+def _spec_engine(torch, cfg, seed=0, kv_aware=False, **kw):
+    """Engine(cfg) on the card from the seeded init (phase 4's weights at
+    seed 0), RBER 1e-4, 4 slots, max_seq 2048, chunk 16; kv_aware off by
+    default, as the reference's spec tests run (spec and vanilla engines
+    take different step trajectories, and Algorithm 2 moves per step)."""
+    from repro_torch.core.scheduler import AdmissionConfig
+    from repro_torch.models import dense
+    from repro_torch.serving.engine import Engine
+
+    params = dense.init(cfg, torch.Generator(device="cuda").manual_seed(seed),
+                        device="cuda")
+    kw.setdefault("admission_cfg", AdmissionConfig(chunk_tokens=16,
+                                                   token_budget=64))
+    eng = Engine(cfg, params, max_slots=4, max_seq=2048, rber=1e-4, seed=0,
+                 kv_aware=kv_aware, device="cuda", **kw)
+    del params
+    gc.collect()
+    return eng
+
+
+def _margin_ok(torch, rows):
+    """Per logits row: is its top-2 margin at least twice phase 5's bound
+    (2 x 2^-6 of the row's largest |logit|)?"""
+    top2 = torch.topk(rows, 2, dim=-1).values
+    tol = PARITY_REL_TOL * rows.abs().amax(dim=-1)
+    return ((top2[:, 0] - top2[:, 1]) > 2 * tol).cpu().tolist()
+
+
+def spec_wave(torch, eng, check=False, margins=False):
+    """SPEC_PROMPTS (SPEC_NEW new tokens each) handed to the engine under
+    its lock, so its first step admits and prefills them all, then served
+    to completion. ``check``: after every step the device lengths equal
+    the host mirror and no request is past max_new. ``margins``: per
+    request, whether each emitted token's logits row passes the margin
+    rule (one token a step: a vanilla engine). Returns the tokens, the
+    steps, and the decode steps' wall time (after the prefill step) and
+    their generated tokens."""
+    with eng._cv:
+        rids = [eng.submit(list(p), max_new=SPEC_NEW) for p in SPEC_PROMPTS]
+    ok = {rid: [] for rid in rids}
+    steps, t_dec0 = 0, None
+    torch.cuda.synchronize()
+    while True:
+        before = {rid: len(eng.requests[rid].out) for rid in rids}
+        if not eng.step():
+            break
+        steps += 1
+        if margins:
+            emitted = [r for r in rids if len(eng.requests[r].out)
+                       > before[r]]
+            flags = _margin_ok(torch, eng.last_logits[
+                [eng.requests[r].slot for r in emitted]])
+            for r, f in zip(emitted, flags):
+                ok[r].append(f)
+        if check:
+            dev = eng.pool.lengths_dev.cpu().numpy()
+            assert (dev == eng.pool.lengths).all(), (dev, eng.pool.lengths)
+            assert all(len(eng.requests[r].out) <= SPEC_NEW for r in rids)
+        if steps == 1:
+            torch.cuda.synchronize()
+            t_dec0, n_dec0 = time.perf_counter(), sum(
+                len(eng.requests[r].out) for r in rids)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_dec0
+    out = [list(eng.requests[r].out) for r in rids]
+    assert all(len(o) == SPEC_NEW for o in out), [len(o) for o in out]
+    return dict(out=out, steps=steps, decode_steps=steps - 1,
+                decode_wall=wall, decode_tokens=SPEC_NEW * len(rids) - n_dec0,
+                ok=[ok[r] for r in rids])
+
+
+def _prefix_equal(out, ref, ok):
+    """Per request, the length of the vanilla prefix before its first
+    token that fails the margin rule; fails unless ``out`` equals the
+    vanilla tokens there."""
+    lens = []
+    for o, r, flags in zip(out, ref, ok):
+        n = next((i for i, f in enumerate(flags) if not f), len(flags))
+        assert o[:n] == r[:n], (o[:n], r[:n])
+        lens.append(n)
+    return lens
+
+
+def time_verify_head(torch, eng) -> dict:
+    """The verify lanes' lm_head call, M = slots x (k + 1), on the engine's
+    own lm_head: the kernel against its plain version (phase 2's bound),
+    timed beside the plain version, torch.matmul on the dequantised bf16
+    weights, and the bound."""
+    from repro_torch.core.quant import dequantize_int8
+    from repro_torch.kernels.ecdp import ecdp_matmul, ecdp_matmul_plain
+
+    fw = eng.params["lm_head"]
+    k, n = fw.q.shape
+    m = eng.pool.n_slots * (eng.spec_cfg.k + 1)
+    a = torch.randn((m, k), generator=torch.Generator(
+        device="cuda").manual_seed(20), device="cuda").to(torch.bfloat16)
+    got = ecdp_matmul(a, fw.q, fw.parity, fw.scale, True)
+    want = ecdp_matmul_plain(a, fw.q, fw.parity, fw.scale, True)
+    mag = (a.float().abs() @ fw.q.float().abs()) * fw.scale
+    err = (got - want).abs()
+    assert bool((err <= 1e-4 + 4 * math.sqrt(k) * EPS32 * mag).all()), \
+        float(err.max())
+    del mag
+    timer = Timer(torch)
+    t_kernel = timer(lambda: ecdp_matmul(a, fw.q, fw.parity, fw.scale, True))
+    t_plain = timer(lambda: ecdp_matmul_plain(a, fw.q, fw.parity, fw.scale,
+                                              True), reps=3)
+    w_deq = dequantize_int8(fw.q, fw.scale)
+    t_lib = timer(lambda: torch.matmul(a, w_deq))
+    del timer, w_deq
+    b_ms, b_by = bound_ms(k * n * 9 / 8 + 4 * n + 2 * m * k + 4 * m * n,
+                          2.0 * m * k * n)
+    log(f"  ecdp at the verify lanes' lm_head M={m} K={k} N={n}: kernel "
+        f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, torch.matmul bf16 "
+        f"{t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}); max abs err "
+        f"{float(err.max()):.3e}")
+    return dict(m=m, k=k, n=n, ms=t_kernel, plain_ms=t_plain,
+                library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
+                max_abs_err=float(err.max()))
+
+
+def phase_spec(torch):
+    """10(a) resident, compiled: vanilla then the n-gram spec engine on
+    the same weights; (b) the model drafter; (d) temperature 0.8, top-k
+    40; (c) the streamed plane at 2 layers against the resident spec
+    engine and the vanilla streamed engine."""
+    from repro_torch.configs import OPT_6_7B
+    from repro_torch.core.scheduler import AdmissionConfig
+    from repro_torch.models import dense
+    from repro_torch.serving.sampler import SampleConfig
+    from repro_torch.serving.spec import SpecConfig
+    from repro_torch.store import PageStore, StreamConfig
+
+    cfg = OPT_6_7B
+    res = {}
+    # --- (a) resident, compiled: vanilla, then spec -------------------------
+    # kv_aware off (the gates: one trajectory of numerics for both engines;
+    # the Q/O projections stay on the DRAM side, so L x 2 + 2 ECDP calls a
+    # spec step), then on (the main path's Algorithm 2: L x 4 + 2, timed
+    # and profiled)
+    base = None
+    for kv in (False, True):
+        what = f"kv_aware {'on' if kv else 'off'}"
+        t0 = time.perf_counter()
+        van = _spec_engine(torch, cfg, kv_aware=kv)
+        first = spec_wave(torch, van, margins=not kv)
+        timed = spec_wave(torch, van)
+        assert van.step_traces == 1
+        if not kv:
+            base = first
+            assert timed["out"] == first["out"]
+        van_ms = timed["decode_wall"] / timed["decode_steps"] * 1e3
+        van_tps = timed["decode_tokens"] / timed["decode_wall"]
+        log(f"  vanilla {cfg.name} (compiled, {what}): {first['steps']} "
+            f"steps a wave; decode {van_ms:.2f} ms/step, {van_tps:.1f} "
+            f"generated tokens/s (built and served in "
+            f"{time.perf_counter() - t0:.1f} s)")
+        del van
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        eng = _spec_engine(torch, cfg, kv_aware=kv,
+                           spec_cfg=SpecConfig(k=SPEC_K))
+        _zero_counts()
+        run = spec_wave(torch, eng, check=True)
+        launches = _stream_counts()
+        per_step = {"ecdp": cfg.n_layers * (4 if kv else 2) + 2,
+                    "paged_attn": cfg.n_layers}
+        # the warm-up and the capture (the replays tick no counter)
+        assert launches == {"ecdp": 2 * per_step["ecdp"], "paged_ecdp": 0,
+                            "paged_attn": 2 * per_step["paged_attn"]}, \
+            launches
+        st = eng.spec_stats()
+        assert st["spec_accepted"] > 0, st
+        # the token gate where both engines take one bitmap: kv_aware off
+        prefix = (None if kv else
+                  _prefix_equal(run["out"], base["out"], base["ok"]))
+        timed = spec_wave(torch, eng)
+        if not kv:
+            assert timed["out"] == run["out"]
+        spec_ms = timed["decode_wall"] / timed["decode_steps"] * 1e3
+        spec_tps = timed["decode_tokens"] / timed["decode_wall"]
+        st = eng.spec_stats()
+        prof = None
+        if kv:
+            # a third wave's prefill, then SPEC_PROFILE_STEPS untraced and
+            # as many traced verify steps (at most 5 tokens a slot a step,
+            # so every request still owes tokens)
+            with eng._cv:
+                for p in SPEC_PROMPTS:
+                    eng.submit(list(p), max_new=SPEC_NEW)
+            eng.step()
+            prof = trace_steps(torch, eng.step, SPEC_PROFILE_STEPS, per_step,
+                               captured=eng.captured)
+            prof = {k: prof[k] for k in ("ms_per_step", "device_ms_per_step",
+                                         "idle_share", "replay_ms",
+                                         "groups_ms", "records")}
+            eng.run()
+            prof["verify_head"] = time_verify_head(torch, eng)
+        assert eng.step_traces == 1
+        log(f"  spec k={SPEC_K} (n-gram, compiled, {what}): {run['steps']} "
+            f"steps a wave against {first['steps']}; decode {spec_ms:.2f} ms"
+            f" per verify step against vanilla {van_ms:.2f}; "
+            f"{st['spec_tokens_per_step']:.3f} tokens per verify step, "
+            f"acceptance {st['spec_acceptance_rate']:.3f}; {spec_tps:.1f} "
+            f"generated tokens/s against {van_tps:.1f}; step_traces "
+            f"{eng.step_traces}; launches {launches} (warm-up + capture, "
+            f"{per_step['ecdp']} ECDP calls a step)")
+        if not kv:
+            log(f"  spec tokens equal vanilla's before each request's first "
+                f"token under the margin rule: prefixes {prefix} of "
+                f"{SPEC_NEW}")
+        res["resident_kv_aware" if kv else "resident"] = dict(
+            steps=run["steps"], vanilla_steps=first["steps"],
+            ms_per_verify_step=spec_ms, vanilla_ms_per_step=van_ms,
+            tokens_per_verify_step=st["spec_tokens_per_step"],
+            acceptance=st["spec_acceptance_rate"], tokens_per_s=spec_tps,
+            vanilla_tokens_per_s=van_tps, prefix_equal=prefix,
+            launches=launches, ecdp_per_step=per_step["ecdp"], profile=prof)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # --- (b) the model drafter -----------------------------------------------
+    dcfg = dataclasses.replace(cfg, name=f"{cfg.name}-draft",
+                               n_layers=max(cfg.n_layers // 4, 1),
+                               d_model=max(cfg.d_model // 2, 64),
+                               n_heads=max(cfg.n_heads // 2, 1),
+                               n_kv_heads=max(cfg.n_kv_heads // 2, 1),
+                               d_ff=max(cfg.d_ff // 2, 128))
+    dparams = dense.init(dcfg, torch.Generator(device="cuda").manual_seed(1),
+                         device="cuda")
+    eng = _spec_engine(torch, cfg, spec_cfg=SpecConfig(
+        k=3, drafter="model", draft_window=16), draft_cfg=dcfg,
+        draft_params=dparams)
+    del dparams
+    run = spec_wave(torch, eng, check=True)
+    st = eng.spec_stats()
+    assert st["spec_tokens_per_step"] >= 1.0 and eng.step_traces == 1, st
+    prefix_m = _prefix_equal(run["out"], base["out"], base["ok"])
+    ms_m = run["decode_wall"] / run["decode_steps"] * 1e3
+    log(f"  model drafter ({dcfg.n_layers} layers, d_model {dcfg.d_model}, "
+        f"{dcfg.n_heads} heads, d_ff {dcfg.d_ff}, k=3, window 16): "
+        f"{run['steps']} steps, {ms_m:.2f} ms per verify step (first wave), "
+        f"{st['spec_tokens_per_step']:.3f} tokens per verify step, "
+        f"{st['spec_accepted']} of {st['spec_drafted']} drafts accepted; "
+        f"prefixes equal to vanilla {prefix_m}")
+    res["model_drafter"] = dict(
+        steps=run["steps"], ms_per_verify_step=ms_m,
+        tokens_per_verify_step=st["spec_tokens_per_step"],
+        acceptance=st["spec_acceptance_rate"], drafted=st["spec_drafted"],
+        prefix_equal=prefix_m)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- (d) temperature 0.8, top-k 40, compiled ------------------------------
+    eng = _spec_engine(torch, cfg, spec_cfg=SpecConfig(k=SPEC_K),
+                       sample_cfg=SampleConfig(temperature=0.8, top_k=40))
+    run = spec_wave(torch, eng, check=True)
+    assert all(0 <= t < cfg.vocab_size for o in run["out"] for t in o)
+    assert eng.step_traces == 1
+    st = eng.spec_stats()
+    log(f"  temperature 0.8, top-k 40: {len(run['out'])} x {SPEC_NEW} tokens"
+        f" in {run['steps']} steps, all in the vocabulary; "
+        f"{st['spec_tokens_per_step']:.3f} tokens per verify step, "
+        f"{st['spec_accepted']} of {st['spec_drafted']} drafts accepted; "
+        f"step_traces {eng.step_traces}")
+    res["temperature"] = dict(steps=run["steps"],
+                              tokens_per_verify_step=st[
+                                  "spec_tokens_per_step"],
+                              acceptance=st["spec_acceptance_rate"],
+                              drafted=st["spec_drafted"])
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # --- (c) streamed, 2 layers -------------------------------------------------
+    cfg2 = dataclasses.replace(cfg, n_layers=SPEC_STREAM_LAYERS,
+                               name=f"{cfg.name}-{SPEC_STREAM_LAYERS}l")
+    d, f, v = cfg2.d_model, cfg2.d_ff, cfg2.vocab_size
+    group = _payload(d, f) + _payload(f, d) + 4 * _payload(d, d)
+    stream_cfg = StreamConfig(group_size=1, prefetch_depth=2,
+                              device_budget_bytes=_payload(d, v) + 2 * group)
+    # token_budget 1024: the stall's contraction never binds, so the
+    # streamed and the resident engine plan the same steps
+    kw = dict(admission_cfg=AdmissionConfig(chunk_tokens=16,
+                                            token_budget=1024))
+    stm = _spec_engine(torch, cfg2, seed=9, spec_cfg=SpecConfig(k=SPEC_K),
+                       weight_store=PageStore(n_planes=32),
+                       stream_cfg=stream_cfg, **kw)
+    with stm._cv:
+        for p in SPEC_PROMPTS:
+            stm.submit(list(p), max_new=SPEC_NEW)
+    rows, step_s = [], []
+    _zero_counts()
+    while True:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if not stm.step():
+            break
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        rows.append((stm.last_logits.cpu(), stm.last_lane_logits.cpu()))
+    launches = _stream_counts()
+    steps = len(rows)
+    # kv_aware off: the FFN's two paged calls a layer (the Q/O flash copies
+    # stay unread), lm_head and the verify lanes' lm_head
+    assert launches == {"ecdp": 2 * steps,
+                        "paged_ecdp": 2 * SPEC_STREAM_LAYERS * steps,
+                        "paged_attn": SPEC_STREAM_LAYERS * steps}, launches
+    out = [list(r.out) for r in stm.requests.values()]
+    assert all(len(o) == SPEC_NEW for o in out)
+    resid = _spec_engine(torch, cfg2, seed=9, spec_cfg=SpecConfig(k=SPEC_K),
+                         **kw)
+    with resid._cv:
+        for p in SPEC_PROMPTS:
+            resid.submit(list(p), max_new=SPEC_NEW)
+    for i, want in enumerate(rows):
+        assert resid.step() > 0
+        for what, b in zip(("last_logits", "last_lane_logits"), want):
+            a = getattr(resid, what).cpu()
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"step {i}: the resident spec engine's {what} differ "
+                    f"from the streamed one's by {float((a - b).abs().max())}")
+    assert resid.step() == 0
+    assert [list(r.out) for r in resid.requests.values()] == out
+    sst = stm.stream_stats()
+    win_spec = sst["groups_streamed"] / len(stm.stats)
+    assert sst["spec_verify_steps"] < sst["spec_emitted"], sst
+    assert resid.step_traces == 1 and stm.step_traces == -1
+    del resid, stm
+    gc.collect()
+    torch.cuda.empty_cache()
+    van = _spec_engine(torch, cfg2, seed=9,
+                       weight_store=PageStore(n_planes=32),
+                       stream_cfg=stream_cfg, **kw)
+    with van._cv:
+        for p in SPEC_PROMPTS:
+            van.submit(list(p), max_new=16)
+    t0 = time.perf_counter()
+    van.run()
+    torch.cuda.synchronize()
+    van_wall = time.perf_counter() - t0
+    win_van = van.stream_stats()["groups_streamed"] / len(van.stats)
+    assert win_spec == win_van == SPEC_STREAM_LAYERS, (win_spec, win_van)
+    ms_s = sum(step_s[1:]) / (steps - 1) * 1e3     # the verify steps
+    log(f"  streamed {cfg2.name} (cut: {SPEC_STREAM_LAYERS} of 32 layers), "
+        f"budget lm_head + 2 windows: {steps} steps ({steps - 1} verify), "
+        f"{ms_s:.1f} ms "
+        f"per verify step (vanilla streamed "
+        f"{van_wall / len(van.stats) * 1e3:.1f} ms/step); "
+        f"{sst['spec_tokens_per_step']:.3f} tokens per window rotation, "
+        f"acceptance {sst['spec_acceptance_rate']:.3f}; {win_spec:.0f} "
+        f"windows a step as vanilla's {win_van:.0f}; logits and lane logits "
+        f"bit-equal to the resident spec engine's (compiled) at all {steps}"
+        f" steps; launches {launches}")
+    res["streamed"] = dict(steps=steps, ms_per_verify_step=ms_s,
+                           vanilla_ms_per_step=van_wall / len(van.stats) * 1e3,
+                           tokens_per_window_rotation=sst[
+                               "spec_tokens_per_step"],
+                           acceptance=sst["spec_acceptance_rate"],
+                           windows_per_step=win_spec, launches=launches)
+    del van
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1938,7 +2357,12 @@ def main() -> int:
     phase_chaos(torch)
     phase_prefix(torch)
     log(f"  phase 9 in {time.perf_counter() - t0:.1f} s")
+    log("phase 10: speculative serving")
+    t0 = time.perf_counter()
+    spec = phase_spec(torch)
+    log(f"  phase 10 in {time.perf_counter() - t0:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
+    print(json.dumps({"spec": spec}), flush=True)
 
     step = serve["ecdp_step"]
     kernels = [

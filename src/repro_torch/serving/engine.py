@@ -42,6 +42,13 @@ request level, with the KV-cache-aware scheduler (Algorithm 2) in the loop.
     streamer's stall fraction contracts the step token budget. With a
     ``faults.FaultInjector`` armed on the store, every window read is
     verified on the host before its upload (``store/pagestore.py``).
+  * speculative serving — ``spec_cfg`` (``serving/spec.py``): decoding
+    slots pack ``[last_token, d_1 .. d_k]`` draft proposals (drafted in
+    the step body from each slot's token history) into their chunk lanes;
+    one pass — one window rotation on the streamed plane — verifies all k,
+    the step emits ``n_accept + 1`` tokens and advances the KV length by
+    that count (a rewind over the rejected lanes), on both data planes and
+    inside the captured step.
   * prefix cache — ``prefix_cache=True``: a completed request's full
     prompt blocks stay in the KV pool under a chain hash
     (``serving/prefix.py``), and admission adopts the longest cached
@@ -70,6 +77,7 @@ from repro_torch.core.tiering import (ATTN_FLASH_KEYS, PagedWeight, deploy,
                                       encode_flash, program_attn_flash)
 from repro_torch.models import common as cm
 from repro_torch.models import dense
+from repro_torch.serving import spec as spec_mod
 from repro_torch.serving.kvcache import PagedKVPool
 from repro_torch.serving.prefix import PrefixIndex, block_hashes
 from repro_torch.serving.sampler import SampleConfig, last_valid_hidden, sample
@@ -175,13 +183,26 @@ def _embed_chunk(cfg, params, lengths, tokens, q_lens):
 
 def _finish_step(cfg, sched_cfg, sample_cfg, kv_aware, final_norm, lm_head,
                  state, x, k_new, v_new, q_lens, admitted, positions,
-                 block_tables, generator):
+                 block_tables, generator, spec=None):
     """Everything after the layer stack: final norm, last-lane lm_head and
     sampling, ONE paged KV write per pool, Algorithm 2. Writes the state IN
     PLACE (the pools, lengths, bitmap and prev_cycles keep their tensors,
     so a captured step replays over them). Returns (tokens (slots,) int32,
     logits (slots, V) f32, stats (3,) f32: kv_len, delta_cycles,
-    npu_fraction)."""
+    npu_fraction).
+
+    ``spec`` = (k, drafts, n_draft, is_decode) switches on the verify tail:
+    lm_head is also evaluated on every slot's first k + 1 lanes (a second
+    ECDP call), ``spec.verify_lanes`` accepts or rejects the decoding
+    slots' drafts, a prefill completion samples at its last lane, and a
+    decoding slot's length advances by ``n_emit = n_accept + 1`` instead
+    of by the lanes written (the in-graph half of the KV rewind; the
+    scatter still writes every lane). Returns (tokens (slots, k+1) int32,
+    n_emit (slots,) int32, logits, lane_logits (slots, k+1, V) f32, stats
+    (6 + 2 slots,) f32: the three above, then drafted, accepted and
+    emitted over the decoding slots, then drafted and accepted per slot).
+    Draws, when sampling: verify_lanes' (its docstring), then the last
+    lane's."""
     lengths = state["lengths"]
     if cfg.norm_type == "rms":
         x = cm.rms_norm(x, final_norm)
@@ -190,7 +211,20 @@ def _finish_step(cfg, sched_cfg, sample_cfg, kv_aware, final_norm, lm_head,
     # lm_head only at each slot's last valid lane
     x_last = last_valid_hidden(x, q_lens)
     logits = flash_matmul(x_last, lm_head, out_dtype=torch.float32)
-    toks = sample(logits, generator, sample_cfg)
+    if spec is None:
+        toks = sample(logits, generator, sample_cfg)
+        adv = q_lens
+    else:
+        spec_k, drafts, n_draft, is_decode = spec
+        # the verify lanes: a decoding slot's last valid lane is among them
+        lane_logits = flash_matmul(x[:, :spec_k + 1], lm_head,
+                                   out_dtype=torch.float32)
+        toks_v, n_accept = spec_mod.verify_lanes(
+            lane_logits, drafts, n_draft, generator, sample_cfg)
+        tok_last = sample(logits, generator, sample_cfg)  # prefill completions
+        toks = torch.where(is_decode[:, None], toks_v, tok_last[:, None])
+        n_emit = torch.where(is_decode, n_accept + 1, 1).to(torch.int32)
+        adv = torch.where(is_decode, n_emit, q_lens)      # length REWIND
 
     # --- paged KV write: all layers/slots/lanes, in place -------------------
     k_pool, v_pool = state["k"], state["v"]
@@ -205,11 +239,12 @@ def _finish_step(cfg, sched_cfg, sample_cfg, kv_aware, final_norm, lm_head,
     off = torch.where(valid, positions % block_size, 0).long()
     k_pool[:, blk, off] = k_new.to(k_pool.dtype)
     v_pool[:, blk, off] = v_new.to(v_pool.dtype)
-    new_lengths = lengths + q_lens
+    new_lengths = lengths + adv
 
     # --- Algorithm 2: KV-cache-aware rebalance ------------------------------
     # admitted (not only worked) slots: a budget-starved prefill slot's
     # cached KV still sets the attention picture Algorithm 2 reacts to.
+    # Speculative lengths count accepted rows only (the rewound length).
     kv_len = torch.where(admitted, new_lengths, 0).max()
     new_bitmap, new_prev, delta = sched.kv_aware_step(
         state["bitmap"], state["prev_cycles"], kv_len, cfg.d_model,
@@ -219,12 +254,61 @@ def _finish_step(cfg, sched_cfg, sample_cfg, kv_aware, final_norm, lm_head,
     state["prev_cycles"].copy_(new_prev)
     stats = torch.stack([kv_len.float(), delta.float(),
                          sched.npu_fraction(new_bitmap)])
-    return toks, logits, stats
+    if spec is None:
+        return toks, logits, stats
+    # per-slot drafted/accepted: the adaptive-k acceptance EMA's signal
+    draft_slots = torch.where(is_decode, n_draft, 0)
+    accept_slots = torch.where(is_decode, n_accept, 0)
+    emit = torch.where(is_decode, n_emit, 0).sum()
+    stats = torch.cat([stats, torch.stack([draft_slots.sum(),
+                                           accept_slots.sum(), emit]).float(),
+                       draft_slots.float(), accept_slots.float()])
+    return toks, n_emit, logits, lane_logits, stats
+
+
+def _embed_spec(cfg, proposer, spec_k, params, lengths, tokens, q_lens,
+                hist, hist_lens, draft_cap):
+    """Speculative head of the step: drafting + embedding. The drafter
+    proposes up to ``spec_k`` tokens per slot from its history; lanes
+    1..n_draft of decoding slots (``draft_cap > 0`` only there) take the
+    proposals and the slot's lane count grows to ``1 + n_draft``: the
+    verify pass treats them as any other chunk lanes. Returns
+    ``_embed_chunk``'s tuple plus (q_lens, drafts, n_draft)."""
+    drafts, n_avail = proposer.propose(hist, hist_lens)
+    n_draft = torch.minimum(n_avail, draft_cap).to(torch.int32)
+    b, t_chunk = tokens.shape
+    lane = torch.arange(t_chunk, device=tokens.device)[None, :]
+    dpad = torch.cat([torch.zeros((b, 1), dtype=tokens.dtype,
+                                  device=tokens.device),
+                      drafts.to(tokens.dtype),
+                      torch.zeros((b, t_chunk - 1 - spec_k),
+                                  dtype=tokens.dtype, device=tokens.device)],
+                     dim=1)
+    use = (lane >= 1) & (lane <= n_draft[:, None])
+    tokens = torch.where(use, dpad, tokens)
+    q_lens = q_lens + n_draft            # draft_cap == 0 off the decode path
+    x, positions, ctx_lens = _embed_chunk(cfg, params, lengths, tokens, q_lens)
+    return x, positions, ctx_lens, q_lens, drafts, n_draft
+
+
+def _embed_step(cfg, params, lengths, tokens, q_lens, spec):
+    """The step's head, shared by both planes: ``_embed_chunk``, or with
+    ``spec`` (``_step_impl``'s) ``_embed_spec``. Returns (x, positions,
+    ctx_lens, q_lens, fin), ``fin`` being ``_finish_step``'s ``spec``."""
+    if spec is None:
+        return (*_embed_chunk(cfg, params, lengths, tokens, q_lens), q_lens,
+                None)
+    proposer, spec_k, hist, hist_lens, draft_cap, is_decode = spec
+    x, positions, ctx_lens, q_lens, drafts, n_draft = _embed_spec(
+        cfg, proposer, spec_k, params, lengths, tokens, q_lens, hist,
+        hist_lens, draft_cap)
+    return x, positions, ctx_lens, q_lens, (spec_k, drafts, n_draft,
+                                            is_decode)
 
 
 def _step_impl(cfg, sched_cfg, sample_cfg, kv_aware, params, layers,
                attn_flash, state, tokens, q_lens, admitted, block_tables,
-               generator):
+               generator, spec=None):
     """One mixed prefill/decode step for ALL pool slots — the data plane.
 
     state  : {"k","v": (L, n_blocks, block_size, KV, Dh), "lengths":
@@ -239,10 +323,15 @@ def _step_impl(cfg, sched_cfg, sample_cfg, kv_aware, params, layers,
     dump block 0 and leaves lengths and bitmap as they are; Algorithm 2
     sees kv_len 0, so under ``kv_aware`` prev_cycles stays too (without
     it prev_cycles always takes the step's cycles, here 0).
+
+    ``spec`` = (proposer, k, hist (slots, H) int32, hist_lens (slots,),
+    draft_cap (slots,), is_decode (slots,) bool) runs the speculative step
+    (``_embed_spec``, ``_finish_step``'s verify tail) and returns what
+    ``_finish_step`` returns with ``spec``.
     """
     bitmap = state["bitmap"] if kv_aware else None
-    x, positions, ctx_lens = _embed_chunk(cfg, params, state["lengths"],
-                                          tokens, q_lens)
+    x, positions, ctx_lens, q_lens, fin = _embed_step(
+        cfg, params, state["lengths"], tokens, q_lens, spec)
     ks, vs = [], []
     for li in range(cfg.n_layers):          # the layer loop (no scan)
         x, (kl, vl) = _chunk_layer(
@@ -253,7 +342,7 @@ def _step_impl(cfg, sched_cfg, sample_cfg, kv_aware, params, layers,
     return _finish_step(cfg, sched_cfg, sample_cfg, kv_aware,
                         params["final_norm"], params["lm_head"], state, x,
                         torch.stack(ks), torch.stack(vs), q_lens, admitted,
-                        positions, block_tables, generator)
+                        positions, block_tables, generator, spec=fin)
 
 
 def _paged(pool_buf, tbl, kn):
@@ -337,6 +426,16 @@ class Engine:
     bf16, within its device budget. On the card every kernel of a step
     runs on the stream current at construction.
 
+    ``spec_cfg`` (``spec.SpecConfig``) turns on SPECULATIVE serving on
+    either plane: decoding slots pack ``[last_token, d_1 .. d_k]`` into
+    their chunk lanes, one forward pass verifies all k, and each verify
+    step emits ``n_accept + 1`` tokens (``last_lane_logits`` holds the
+    step's (slots, k+1, V) verify-lane logits). ``drafter='model'`` also
+    takes a small resident draft model (``draft_cfg``/``draft_params``,
+    dense family, a raw param tree moved to ``device``). As in the
+    reference it needs the compiled data plane: ``compiled=False`` is
+    refused (a streamed engine, eager by construction, is accepted).
+
     ``prefix_cache`` turns on hash-based prefix caching; ``registry`` is
     the ``obs.MetricsRegistry`` the step histogram and token counter live
     in (default: the process-wide one).
@@ -351,6 +450,8 @@ class Engine:
                  max_waiting: int | None = None, weight_store=None,
                  stream_cfg: StreamConfig | None = None, device="cuda",
                  compiled: bool = True, prefix_cache: bool = False,
+                 spec_cfg: spec_mod.SpecConfig | None = None,
+                 draft_cfg=None, draft_params=None,
                  registry: "obs.MetricsRegistry | None" = None):
         if cfg.family != "dense":
             raise ValueError(f"engine serves dense-family archs (got "
@@ -362,6 +463,24 @@ class Engine:
         self.sample_cfg = sample_cfg
         self.kv_aware = kv_aware
         self.admission_cfg = admission_cfg or sched.AdmissionConfig()
+        self.spec_cfg = spec_cfg
+        self.proposer = None
+        if spec_cfg is not None:
+            # the caller's argument: the streamed plane runs eagerly by
+            # construction and still takes speculative lanes
+            if not compiled:
+                raise ValueError("speculative decoding runs through the "
+                                 "compiled data plane (compiled=False has "
+                                 "no verify lanes)")
+            if spec_cfg.k + 1 > self.admission_cfg.chunk_tokens:
+                raise ValueError(
+                    f"spec k={spec_cfg.k} needs k+1 <= chunk_tokens="
+                    f"{self.admission_cfg.chunk_tokens} verify lanes")
+            if draft_params is not None:
+                draft_params = _map_tree(lambda t: t.to(self.device),
+                                         draft_params)
+            self.proposer = spec_mod.DraftProposer(spec_cfg, draft_cfg,
+                                                   draft_params)
         self.store = weight_store
         self.streamed = weight_store is not None
         self.compiled = compiled and not self.streamed
@@ -436,6 +555,13 @@ class Engine:
                   "q_lens": ((n,), torch.int32),
                   "admitted": ((n,), torch.bool),
                   "block_tables": ((n, self.pool.max_blocks), torch.int32)}
+        if spec_cfg is not None:
+            # per-slot token histories feeding the drafter (kept across
+            # steps, as the reference's), and the verify-lane inputs
+            shapes.update(hist=((n, max_seq + 1), torch.int32),
+                          hist_lens=((n,), torch.int32),
+                          draft_cap=((n,), torch.int32),
+                          is_decode=((n,), torch.bool))
         pin = self.device.type == "cuda"
         self._host_in = {k: torch.zeros(shape, dtype=dt, pin_memory=pin)
                          for k, (shape, dt) in shapes.items()}
@@ -464,6 +590,15 @@ class Engine:
         self._auto_depth_done = False
         self.stats: list[dict] = []
         self.last_logits: torch.Tensor | None = None
+        self.last_lane_logits: torch.Tensor | None = None
+        if spec_cfg is not None:
+            self._hist = self._host_in["hist"].numpy()
+            self._hist_lens = self._host_in["hist_lens"].numpy()
+            self._spec_totals = {"verify_steps": 0, "drafted": 0,
+                                 "accepted": 0, "emitted": 0}
+            # per-slot acceptance-rate EMA driving the adaptive verify-lane
+            # count; reset to optimistic full depth at re-admission
+            self._accept_ema = np.ones((n,), np.float64)
         # hash-based prefix caching: completed requests retain their full
         # prompt blocks under a chain hash; admission adopts the longest
         # cached chain copy-free (ref bump only)
@@ -644,7 +779,15 @@ class Engine:
                           self.kv_aware, self.params, self._layers,
                           self.attn_flash, self._state(), d["tokens"],
                           d["q_lens"], d["admitted"], d["block_tables"],
-                          self._generator)
+                          self._generator, spec=self._spec_inputs())
+
+    def _spec_inputs(self):
+        """The speculative step's drafter and static inputs, or None."""
+        if self.spec_cfg is None:
+            return None
+        d = self._dev_in
+        return (self.proposer, self.spec_cfg.k, d["hist"], d["hist_lens"],
+                d["draft_cap"], d["is_decode"])
 
     def _load_inputs(self):
         """The host arrays into the static device buffers, on the current
@@ -668,9 +811,12 @@ class Engine:
                     else None))
             self._traces += 1
         self._load_inputs()
-        toks, logits, stats = self._captured.replay()
-        # the next replay overwrites the graph's output
-        return toks, logits.clone(), stats
+        out = list(self._captured.replay())
+        # the next replay overwrites the graph's outputs: the logits outlive
+        # it (``last_logits``), the rest is read on the host before it
+        for i in ((1,) if self.spec_cfg is None else (2, 3)):
+            out[i] = out[i].clone()
+        return tuple(out)
 
     @property
     def captured(self):
@@ -697,8 +843,11 @@ class Engine:
         tokens, q_lens, admitted, block_tables = (
             d["tokens"], d["q_lens"], d["admitted"], d["block_tables"])
         bitmap = state["bitmap"] if self.kv_aware else None
-        x, positions, ctx_lens = _embed_chunk(cfg, self._dram_params,
-                                              state["lengths"], tokens, q_lens)
+        # speculative: the verify lanes share the groups' pass, one window
+        # rotation a step whatever the slots accept
+        x, positions, ctx_lens, q_lens, fin = _embed_step(
+            cfg, self._dram_params, state["lengths"], tokens, q_lens,
+            self._spec_inputs())
         t = self._phase("embed", t)
         ks, vs = [], []
         # closed explicitly: a group whose compute raises leaves the
@@ -724,7 +873,7 @@ class Engine:
                            self.kv_aware, self._dram_params["final_norm"],
                            self._lm_head, state, x, torch.stack(ks),
                            torch.stack(vs), q_lens, admitted, positions,
-                           block_tables, self._generator)
+                           block_tables, self._generator, spec=fin)
         self._phase("finish", t)
         return out
 
@@ -792,19 +941,39 @@ class Engine:
             if not strict:
                 return {}
             raise ValueError("stream_stats: engine is not in streamed mode")
-        return {**self.streamer.stats(), **self.store.stats(),
-                **self.wpool.stats(),
-                "pool_reserve_bytes":
-                    self._pool_reserve_pages * self.store.page_bytes,
-                "prefetch_depth": self.streamer.prefetch_depth}
+        out = {**self.streamer.stats(), **self.store.stats(),
+               **self.wpool.stats(),
+               "pool_reserve_bytes":
+                   self._pool_reserve_pages * self.store.page_bytes,
+               "prefetch_depth": self.streamer.prefetch_depth}
+        if self.spec_cfg is not None:
+            out.update(self.spec_stats())
+        return out
 
     def spec_stats(self, *, strict: bool = True) -> dict:
-        """Speculative-decode telemetry. The port serves no speculative
-        mode: ``strict=False`` returns ``{}``, ``strict=True`` raises, as
-        the reference does for an engine not in that mode."""
-        if not strict:
-            return {}
-        raise ValueError("spec_stats: engine is not in speculative mode")
+        """Speculative-decode telemetry: how much one weight pass
+        amortizes. ``spec_tokens_per_step`` is emitted tokens per VERIFY
+        step (a step with >= 1 decoding slot) — streamed, tokens per window
+        rotation; ``spec_acceptance_rate`` is accepted / drafted.
+        ``strict=False`` returns ``{}`` on a non-speculative engine."""
+        if self.spec_cfg is None:
+            if not strict:
+                return {}
+            raise ValueError("spec_stats: engine is not in speculative mode")
+        t = self._spec_totals
+        out = {"spec_verify_steps": t["verify_steps"],
+               "spec_drafted": t["drafted"],
+               "spec_accepted": t["accepted"],
+               "spec_emitted": t["emitted"],
+               "spec_acceptance_rate": t["accepted"] / max(t["drafted"], 1),
+               "spec_tokens_per_step": t["emitted"]
+               / max(t["verify_steps"], 1)}
+        if self.spec_cfg.adaptive_k:
+            k = self.spec_cfg.k
+            out["spec_accept_ema"] = [float(v) for v in self._accept_ema]
+            out["spec_adaptive_k"] = [max(1, int(round(float(v) * k)))
+                                      for v in self._accept_ema]
+        return out
 
     def expert_stats(self, *, strict: bool = True) -> dict:
         """Expert-cache telemetry. The port serves no MoE model:
@@ -859,6 +1028,8 @@ class Engine:
             yield from self.store.obs_samples()
             yield from self.wpool.obs_samples()
             yield from self.streamer.obs_samples()
+        if self.spec_cfg is not None:
+            yield from spec_mod.spec_obs_samples(self._spec_totals)
         if self.prefix is not None:
             yield from self.prefix.obs_samples()
 
@@ -969,6 +1140,10 @@ class Engine:
                 req.cached_len = len(shared) * self.pool.block_size
                 req.pos = req.cached_len
                 self._prefix_tokens_saved += req.cached_len
+            if self.spec_cfg is not None:
+                # a recycled slot must not inherit the previous request's
+                # acceptance history; start optimistic (full draft depth)
+                self._accept_ema[slot] = 1.0
             self.waiting.popleft()
             self._cv.notify_all()
 
@@ -999,11 +1174,27 @@ class Engine:
 
     # --- the serving step ---------------------------------------------------
 
+    def _draft_cap(self, req: Request) -> int:
+        """Verify lanes this decoding request can use: bounded by spec k
+        (per slot with ``adaptive_k``: scaled by the slot's acceptance EMA,
+        keeping one probe lane), by the tokens it still owes (capping by
+        ``remaining - 1`` keeps every speculative KV write inside the
+        admission reservation), by the pool/table row cap, and by the chunk
+        width."""
+        k_want = self.spec_cfg.k
+        if self.spec_cfg.adaptive_k:
+            k_want = max(1, int(round(self._accept_ema[req.slot] * k_want)))
+        remaining = req.max_new - len(req.out)
+        room = self._kv_cap - int(self.pool.lengths[req.slot]) - 1
+        return max(0, min(k_want, remaining - 1, room,
+                          self.admission_cfg.chunk_tokens - 1))
+
     def step(self) -> int:
         """One continuous-batching step over all running slots: decoding
-        slots advance one token, prefilling slots consume a prompt chunk
-        under the token budget. Returns tokens processed. Thread-safe;
-        cancelled requests are swept first."""
+        slots advance one token (speculative: ``n_accept + 1`` tokens
+        through one pass), prefilling slots consume a prompt chunk under the
+        token budget. Returns tokens processed. Thread-safe; cancelled
+        requests are swept first."""
         with self._cv:
             self._sweep_cancelled()
             n = self._step_locked()
@@ -1014,6 +1205,7 @@ class Engine:
         t_plan0 = time.perf_counter()
         self._phases = {}                # this step's ObsPlane breakdown
         self._admit()
+        spec = self.spec_cfg is not None
         decode_slots, prefill_slots = [], []
         # ARRIVAL order (rid), not slot order: plan_chunks funds prefill
         # FCFS as given.
@@ -1023,6 +1215,8 @@ class Engine:
                 continue
             if req.prefilling:
                 prefill_slots.append((slot, len(req.prompt) - req.pos))
+            elif spec:
+                decode_slots.append((slot, 1 + self._draft_cap(req)))
             else:
                 decode_slots.append(slot)
         budget = sched.step_token_budget(self.admission_cfg, self._npu_frac,
@@ -1045,7 +1239,13 @@ class Engine:
         admitted.fill(False)
         for slot, _ in prefill_slots:
             admitted[slot] = True
-        admitted[decode_slots] = True
+        admitted[[s if isinstance(s, int) else s[0]
+                  for s in decode_slots]] = True
+        if spec:
+            draft_cap = self._host_in["draft_cap"].numpy()
+            is_decode = self._host_in["is_decode"].numpy()
+            draft_cap.fill(0)
+            is_decode.fill(False)
         for slot, cnt in plan.items():
             req = self.requests[self.pool.active[slot]]
             if req.prefilling:
@@ -1054,9 +1254,16 @@ class Engine:
                 q_lens[slot] = len(chunk)
             else:
                 tokens[slot, 0] = req.out[-1]
-                q_lens[slot] = 1
-            # map physical blocks for this step's writes (draws on the
-            # admission reservation, so it cannot fail)
+                q_lens[slot] = 1          # + n_draft lanes added in the step
+                if spec:
+                    is_decode[slot] = True
+                    draft_cap[slot] = cnt - 1   # budget-clamped verify lanes
+                    seq = req.prompt + req.out
+                    hl = min(len(seq), self._hist.shape[1])
+                    self._hist[slot, :hl] = seq[-hl:]
+                    self._hist_lens[slot] = hl
+            # map physical blocks for this step's writes, draft lanes
+            # included (draws on the admission reservation: cannot fail)
             self.pool.ensure(slot, int(self.pool.lengths[slot]) + cnt)
         np.copyto(tables, self.pool.block_tables)
         t_step0 = self._phase("plan", t_plan0)
@@ -1065,17 +1272,30 @@ class Engine:
                else contextlib.nullcontext())
         with torch.no_grad(), ctx:
             if self.streamed:
-                toks, logits, stats = self._streamed_step()
+                out = self._streamed_step()
                 t_sync0 = time.perf_counter()
             else:
-                toks, logits, stats = self._run_resident()
+                out = self._run_resident()
                 # the resident plane is one dispatch (the streamed one
                 # timed its embed / groups / finish itself)
                 t_sync0 = self._phase("dispatch", t_step0)
+            if spec:
+                toks, n_emit, logits, self.last_lane_logits, stats = out
+                parts = [toks.reshape(-1), n_emit, stats]
+            else:
+                toks, logits, stats = out
+                parts = [toks, stats]
             self.last_logits = logits
-            # the step's device->host reads: sampled tokens + stat scalars
-            toks_host = toks.cpu().numpy()
-            st = stats.cpu().tolist()
+            # the step's one device->host read: tokens (exact in f32) and
+            # stat scalars, packed
+            host = torch.cat([t.float() for t in parts]).cpu().numpy()
+        n, n_tok = self.pool.n_slots, toks.numel()
+        toks_host = host[:n_tok].astype(np.int64).reshape(toks.shape)
+        if spec:
+            n_emit_host = host[n_tok:n_tok + n].astype(np.int64)
+            st = host[n_tok + n:].tolist()
+        else:
+            st = host[n_tok:].tolist()
         n_processed = n_prefill = 0
         for slot in plan:
             req = self.requests[self.pool.active[slot]]
@@ -1087,7 +1307,18 @@ class Engine:
                 req.pos += cnt
                 if not req.prefilling:
                     # a just-completed prefill sampled at its last lane
-                    req.out.append(int(toks_host[slot]))
+                    req.out.append(int(toks_host[slot, 0] if spec
+                                       else toks_host[slot]))
+            elif spec:
+                # verify step: n_accept + 1 tokens; the pool length REWINDS
+                # to the accepted rows (host mirror here; the step advanced
+                # the device lengths by the same count)
+                ne = int(n_emit_host[slot])
+                new_len = int(self.pool.lengths[slot]) + ne
+                take = min(ne, req.max_new - len(req.out))
+                req.out.extend(int(t) for t in toks_host[slot, :take])
+                self.pool.rewind(slot, new_len)
+                n_processed += ne
             else:
                 self.pool.bump(slot, cnt)
                 req.out.append(int(toks_host[slot]))
@@ -1107,6 +1338,23 @@ class Engine:
             "prefill_tokens": n_prefill,
             "decode_tokens": n_processed - n_prefill,
         }
+        if spec:
+            entry["spec_drafted"] = int(st[3])
+            entry["spec_accepted"] = int(st[4])
+            if bool(is_decode.any()):
+                t = self._spec_totals
+                t["verify_steps"] += 1
+                t["drafted"] += int(st[3])
+                t["accepted"] += int(st[4])
+                t["emitted"] += int(st[5])
+                if self.spec_cfg.adaptive_k:
+                    nd = np.asarray(st[6:6 + n])
+                    na = np.asarray(st[6 + n:6 + 2 * n])
+                    a = self.spec_cfg.ema_alpha
+                    for slot in np.nonzero(is_decode & (nd > 0))[0]:
+                        rate = float(na[slot]) / float(nd[slot])
+                        self._accept_ema[slot] = \
+                            (1.0 - a) * self._accept_ema[slot] + a * rate
         stall_s = 0.0
         if self.streamed:
             # stall fraction of step wall time (EMA): the residency signal

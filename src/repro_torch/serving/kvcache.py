@@ -178,3 +178,19 @@ class PagedKVPool:
         """Advance the HOST mirror after a step (the step advanced the
         device lengths already)."""
         self.lengths[slot] += n
+
+    def rewind(self, slot: int, new_len: int):
+        """Speculative-decode KV rollback: set the slot's accepted length.
+
+        A verify step writes K/V for ALL its lanes (last token + k drafts)
+        but only ``n_accept + 1`` of those rows join the sequence; the
+        rollback is a LENGTH rewind only — the host mirror here, the device
+        lengths in the verify step itself — because the rejected rows are
+        unreachable (every read is bounded by the length) and later steps
+        overwrite them before they become valid. Blocks mapped for the
+        rejected lanes STAY mapped and ref-counted: the slot's length grows
+        back through them."""
+        assert slot in self.active, "rewind of an inactive slot"
+        assert 0 <= new_len <= self.capacity(slot), \
+            f"rewind to {new_len} outside mapped capacity {self.capacity(slot)}"
+        self.lengths[slot] = new_len

@@ -7,6 +7,14 @@ touches it, and no sampler reads a tensor on the host, so a captured step
 (``repro_torch.graphs``) samples inside its graph. Torch and JAX draw
 different numbers from the same seed, so only greedy sampling is
 comparable token for token.
+
+Per-lane draws: where the reference splits its key into one key per lane
+(``lane_keys``, the speculative verify path), the port has one generator
+and no key splitting. ``categorical`` (like ``torch.rand``) gives every
+element its own variates, drawn from the generator in row-major order, so
+the lanes of a (B, T, V) draw are independent; a caller that draws
+several times documents the order of its calls
+(``serving/spec.verify_lanes``).
 """
 from __future__ import annotations
 
@@ -50,14 +58,21 @@ def filter_logits(logits: torch.Tensor, cfg: SampleConfig) -> torch.Tensor:
     return logits
 
 
-def sample(logits: torch.Tensor, generator: torch.Generator | None,
-           cfg: SampleConfig) -> torch.Tensor:
-    """logits (..., V) -> (...) int32."""
-    if cfg.temperature <= 0.0:
-        return logits.argmax(dim=-1).to(torch.int32)
-    probs = torch.softmax(filter_logits(logits, cfg), dim=-1)
+def categorical(logits: torch.Tensor,
+                generator: torch.Generator | None) -> torch.Tensor:
+    """One draw from softmax(logits) along the last axis of (..., V) ->
+    (...) int32, each row (each lane) from its own V variates."""
+    probs = torch.softmax(logits, dim=-1)
     # torch.multinomial's one-sample draw, argmax(p / q) with q ~ Exp(1),
     # written out: the same numbers from the same generator, without its
     # host-side checks of p (device reads a captured step cannot make)
     q = torch.empty_like(probs).exponential_(1.0, generator=generator)
     return torch.argmax(probs / q, dim=-1).to(torch.int32)
+
+
+def sample(logits: torch.Tensor, generator: torch.Generator | None,
+           cfg: SampleConfig) -> torch.Tensor:
+    """logits (..., V) -> (...) int32."""
+    if cfg.temperature <= 0.0:
+        return logits.argmax(dim=-1).to(torch.int32)
+    return categorical(filter_logits(logits, cfg), generator)

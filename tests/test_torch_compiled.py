@@ -10,6 +10,7 @@ tests/test_engine_jit.py."""
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import pytest
@@ -208,3 +209,40 @@ def test_streamed_engine_stays_eager_with_bf16_weights(params):
                  weight_store=PageStore(), device="cpu")
     assert not eng.compiled and eng.step_traces == -1
     assert eng._layers[0]["attn"]["wq"].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("drafter", ["ngram", "model"])
+@pytest.mark.parametrize("temperature", [0.0, 0.8], ids=["greedy", "t0.8"])
+def test_spec_step_body_reads_no_tensor_on_the_host(params, monkeypatch,
+                                                    drafter, temperature):
+    """The speculative step body (drafter, verify lanes, rejection
+    sampling, the length rewind) makes no host read either, so the card
+    captures it; its static inputs keep their addresses through a run."""
+    from repro_torch.serving.sampler import SampleConfig
+    from repro_torch.serving.spec import SpecConfig
+
+    kw = {}
+    if drafter == "model":
+        dcfg = dataclasses.replace(OPT_TINY, name="draft", n_layers=1,
+                                   d_model=64, n_heads=2, n_kv_heads=2,
+                                   head_dim=32, d_ff=128)
+        kw = dict(draft_cfg=dcfg, draft_params=dense.init(
+            dcfg, torch.Generator().manual_seed(5), device="cpu"))
+    eng = _engine(params, spec_cfg=SpecConfig(k=3, drafter=drafter),
+                  sample_cfg=SampleConfig(temperature=temperature, top_k=40),
+                  **kw)
+    ptrs = {k: t.data_ptr() for k, t in eng._dev_in.items()}
+    assert {"hist", "hist_lens", "draft_cap", "is_decode"} <= set(ptrs)
+    eng.submit([7, 7, 7, 7, 7, 7], max_new=12)
+    eng.submit([5, 6], max_new=12)
+    eng.step()                                   # prefills
+    eng.step()                                   # a verify step
+    eng._load_inputs()
+    assert eng._dev_in["is_decode"].all()
+    with torch.no_grad(), _no_host_reads(monkeypatch):
+        toks, n_emit, logits, lane_logits, stats = eng._resident_body()
+    assert toks.shape == (2, 4) and lane_logits.shape[:2] == (2, 4)
+    assert stats.shape == (6 + 2 * 2,)
+    eng.run()
+    assert [len(r.out) for r in eng.requests.values()] == [12, 12]
+    assert {k: t.data_ptr() for k, t in eng._dev_in.items()} == ptrs

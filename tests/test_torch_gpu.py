@@ -12,6 +12,7 @@ Every test skips where ``torch.cuda.is_available()`` is false.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 import subprocess
 import threading
@@ -1019,3 +1020,98 @@ def test_compiled_decode_captures_once_per_cache(cuda):
     assert bool(torch.isfinite(lg2).all())
     with pytest.raises(ValueError, match="outside"):
         comp(p, c2, {"token": tok, "kv_len": 32})
+
+
+# --- speculative serving -------------------------------------------------------
+
+def test_ecdp_at_the_verify_lm_head_matches_plain(cuda):
+    """The verify lanes' lm_head: M = 4 slots x (k + 1) = 20 rows (a 16-row
+    MMA tile and a partial one) over OPT-6.7B's lm_head (4096 x 50272, N
+    not a multiple of 128) at RBER 1e-4, within the ECDP bound."""
+    rng = np.random.default_rng(20)
+    m, k, n = 20, 4096, 50272
+    wq, parity, scale = _flash(rng, k, n, 1e-4, seed=11)
+    a = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)
+                         ).to(torch.bfloat16)
+    want = ecdp.ecdp_matmul_plain(a, wq, parity, scale, True)
+    before = ecdp.ecdp_matmul.launches
+    got = ecdp.ecdp_matmul(a.to(cuda), wq.to(cuda), parity.to(cuda),
+                           scale.to(cuda))
+    torch.cuda.synchronize()
+    assert ecdp.ecdp_matmul.launches == before + 1
+    mag = (a.float().abs() @ wq.float().abs()) * scale
+    bound = 1e-4 + 4 * math.sqrt(k) * EPS32 * mag
+    err = (got.cpu() - want).abs()
+    assert bool((err <= bound).all()), float((err - bound).max())
+
+
+@pytest.mark.parametrize("drafter", ["ngram", "model"])
+def test_captured_spec_step_replays_bit_equal_to_the_eager_body(cuda,
+                                                                drafter):
+    """OPT_TINY spec engine on the card (k=4): every replay of the
+    captured step, run again as the eager step body from the same state
+    and inputs, gives the same tokens, n_emit, logits, verify-lane logits
+    and state bit for bit; one capture through slot churn and a second
+    wave; the drafts land (accepted > 0 with the n-gram drafter)."""
+    from repro_torch.configs import OPT_TINY
+    from repro_torch.models import dense
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.spec import SpecConfig
+
+    params = dense.init(OPT_TINY, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    kw = {}
+    if drafter == "model":
+        dcfg = dataclasses.replace(OPT_TINY, name="draft", n_layers=2,
+                                   d_model=64, n_heads=2, n_kv_heads=2,
+                                   head_dim=32, d_ff=128)
+        kw = dict(draft_cfg=dcfg, draft_params=dense.init(
+            dcfg, torch.Generator(device=cuda).manual_seed(7), device=cuda))
+    eng = Engine(OPT_TINY, params, max_slots=2, max_seq=96, rber=1e-4,
+                 seed=1, kv_aware=False, device=cuda,
+                 spec_cfg=SpecConfig(k=4, drafter=drafter), **kw)
+    checked = []
+
+    def check(replay):
+        def run():
+            state = {k: t.clone() for k, t in eng._state().items()}
+            out = [t.clone() for t in replay()]
+            after = {k: t.clone() for k, t in eng._state().items()}
+            for k, t in eng._state().items():
+                t.copy_(state[k])
+            again = eng._resident_body()
+            for i, (a, b) in enumerate(zip(out, again)):
+                assert torch.equal(a, b), (len(checked), i)
+            for k, t in eng._state().items():
+                if k in ("k", "v"):
+                    # padding lanes all write the dump block 0, in no order
+                    t, after[k] = t[:, 1:], after[k][:, 1:]
+                assert torch.equal(after[k], t), (len(checked), k)
+            checked.append(int(eng._dev_in["is_decode"].sum()))
+            return again
+        return run
+
+    def serve():
+        r1 = eng.submit([7, 7, 7, 7, 7], max_new=3)
+        r2 = eng.submit(list(range(1, 14)), max_new=16)
+        while not eng.requests[r1].done:
+            eng.step()
+        r3 = eng.submit([2, 2, 2], max_new=12)     # into r1's released slot
+        eng.run()
+        return [eng.requests[r].out for r in (r1, r2, r3)]
+
+    eng.step()                               # nothing queued: no capture
+    eng.submit([1, 2, 1, 2], max_new=2)
+    eng.step()                               # the capture
+    assert eng.step_traces == 1
+    eng._captured.replay = check(eng._captured.replay)
+    outs = serve() + serve()
+    assert eng.step_traces == 1
+    assert [len(o) for o in outs] == [3, 16, 12] * 2
+    assert sum(checked) > 0                  # verify steps were replayed
+    st = eng.spec_stats()
+    assert st["spec_verify_steps"] > 0
+    if drafter == "ngram":
+        assert st["spec_accepted"] > 0
+    np.testing.assert_array_equal(eng.pool.lengths_dev.cpu().numpy(),
+                                  eng.pool.lengths)

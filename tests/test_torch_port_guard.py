@@ -34,7 +34,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "bad = sorted(k for k in sys.modules if k == 'jax' "
         "or k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 38, names\n"
+        "assert len(names) >= 39, names\n"
         "assert {'repro_torch.store.' + m for m in ('faults', 'nand', "
         "'page_pool', 'pagestore', 'streamer')} <= set(names), names\n"
         "assert {'repro_torch.kernels.decode_attn', 'repro_torch.launch', "
@@ -43,7 +43,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "assert {'repro_torch.obs', 'repro_torch.obs.registry', "
         "'repro_torch.obs.trace', 'repro_torch.obs.timeline', "
         "'repro_torch.runtime.fault', 'repro_torch.serving.prefix', "
-        "'repro_torch.serving.server'} <= set(names), names\n"
+        "'repro_torch.serving.server', 'repro_torch.serving.spec'} "
+        "<= set(names), names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
