@@ -7,7 +7,8 @@ store under a device budget of half the flash tier — and runs its offline
 prefill / decode path; checks the card's engine against the CPU engine, the
 streamed engine against the resident one, and the card's prefill / decode
 against the CPU's; then serves through the ServeFront under injected NAND
-faults and with the prefix cache.
+faults and with the prefix cache, speculatively, and through the command
+line's entry points on granite-8b at full width.
 
     python3 chip_smoke.py
 
@@ -178,6 +179,35 @@ Phases (any failure exits non-zero; nothing is caught):
                 resident spec engine's (compiled) at 2 layers; as many
                 windows a step as the vanilla streamed engine; fewer verify
                 steps than tokens. Its figures are the ``spec`` JSON line.
+  11. granite — the command line's path on granite-8b (RMSNorm, RoPE,
+                SwiGLU, 32 heads over 8 KV heads). (a) the ECDP against
+                its plain version at its flash shapes (wq/wo 4096x4096,
+                w_gate/w_up 4096x14336, w_down 14336x4096, lm_head
+                4096x49152), M 4 and 64, RBER 0 and 2e-3, ECC on and
+                off; paged attention at B=4, KV=8, TR=16x4=64, Dh=128,
+                block 16, phase 3's ragged contexts; each timed at its
+                serving M beside its plain version and the library. (b)
+                build_engine("granite-8b", smoke=False, rber=1e-4,
+                greedy) at full width and depth, compiled: 6 requests of
+                16 new tokens, one capture, the counters holding the
+                warm-up and the capture; 12 steps profiled (a record
+                the profiler loses is printed, not gated: the replays
+                are held by their logits); one step's
+                181 flash matmuls back to back; then an eager engine on
+                the same seed: logits bit-equal at every step, 36 x 5 + 1
+                ECDP and 36 paged-attention launches a step; then
+                serve("granite-8b", smoke=False) at temperature 0.8: 96
+                tokens, one capture. (c) phase 5's check at granite-8b
+                width cut to 2 layers. (d) granite-8b width cut to 2
+                layers deployed into a PageStore, the die image and the
+                DRAM-tier checkpoint written (build/chip_smoke_phase11/)
+                and read back as build_engine(store_image=, ckpt=) does:
+                tokens and every step's logits bit-equal to a streamed
+                engine programmed in process; 10 paged ECDP, 1 ECDP and 2
+                paged attention a step. (e) python -m
+                repro_torch.launch.deploy --store, then python -m
+                repro_torch.launch.serve --store-image --ckpt, at
+                granite-8b-smoke, as subprocesses: exit 0, 32 tokens.
 
 The ``spec`` line comes before the card's name; the second-to-last line
 is the ``kernels`` JSON; the last line is ``{"ok": true, "device":
@@ -297,6 +327,25 @@ ECDP_M = {"wq/wo": 64, "w_up": 64, "w_down": 64, "lm_head": 4}
 PREFILL_M = 512
 
 
+def ecdp_case(torch, a, fw, ecc_on: bool, what: str) -> tuple[float, float]:
+    """The ECDP kernel against its plain version on one activation and
+    flash weight: the same integer weights with f32 sums in another order,
+    so each output within 4 sqrt(K) f32 roundoffs of its magnitude.
+    Returns the max abs and relative errors."""
+    from repro_torch.kernels.ecdp import ecdp_matmul, ecdp_matmul_plain
+
+    got = ecdp_matmul(a, fw.q, fw.parity, fw.scale, ecc_on)
+    want = ecdp_matmul_plain(a, fw.q, fw.parity, fw.scale, ecc_on)
+    torch.cuda.synchronize()
+    mag = (a.float().abs() @ fw.q.float().abs()) * fw.scale
+    tol = 1e-4 + 4 * math.sqrt(a.shape[1]) * EPS32 * mag
+    err = (got - want).abs()
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"ecdp {what} ecc={ecc_on}: max err "
+                             f"{float(err.max())}")
+    return float(err.max()), float((err / want.abs().clamp_min(1e-3)).max())
+
+
 def phase_ecdp(torch, timer):
     from repro_torch.core.quant import dequantize_int8
     from repro_torch.core.tiering import encode_flash
@@ -315,21 +364,10 @@ def phase_ecdp(torch, timer):
                             ).to(torch.bfloat16)
             for rber, fw in flash.items():
                 for ecc_on in (True, False):
-                    got = ecdp_matmul(a, fw.q, fw.parity, fw.scale, ecc_on)
-                    want = ecdp_matmul_plain(a, fw.q, fw.parity, fw.scale,
-                                             ecc_on)
-                    torch.cuda.synchronize()
-                    # same integer weights, f32 sums in another order
-                    mag = (a.float().abs() @ fw.q.float().abs()) * fw.scale
-                    tol = 1e-4 + 4 * math.sqrt(k) * EPS32 * mag
-                    err = (got - want).abs()
-                    if not bool((err <= tol).all()):
-                        raise AssertionError(
-                            f"ecdp {name} M={m} rber={rber} ecc={ecc_on}: "
-                            f"max err {float(err.max())}")
-                    worst_abs = max(worst_abs, float(err.max()))
-                    worst_rel = max(worst_rel, float(
-                        (err / want.abs().clamp_min(1e-3)).max()))
+                    e_abs, e_rel = ecdp_case(torch, a, fw, ecc_on,
+                                             f"{name} M={m} rber={rber}")
+                    worst_abs = max(worst_abs, e_abs)
+                    worst_rel = max(worst_rel, e_rel)
             if m != ECDP_M[name] and not (m == PREFILL_M
                                           and name != "wq/wo"):
                 continue
@@ -387,6 +425,21 @@ def paged_resources(build) -> list[dict]:
                                       r.get("k16_tiles", 0)))
 
 
+def scrambled_tables(torch, gen, ctx, bs: int, max_blocks: int):
+    """(B, max_blocks) int32 block tables over a pool of 1 + B x
+    max_blocks blocks (block 0 the dump block), each slot's ceil(ctx / bs)
+    blocks drawn from a shuffled free list."""
+    b = len(ctx)
+    perm = torch.randperm(b * max_blocks, generator=gen, device="cuda") + 1
+    tables = torch.zeros((b, max_blocks), dtype=torch.int32, device="cuda")
+    pi = 0
+    for i, c in enumerate(ctx):
+        nb = -(-c // bs)
+        tables[i, :nb] = perm[pi:pi + nb].int()
+        pi += nb
+    return tables
+
+
 def phase_paged(torch, timer):
     """The kernel against its plain versions at PAGED_SHAPE with PAGED_CTX
     and PAGED_SERVING_CTX over scrambled tables; each timed beside its
@@ -400,15 +453,7 @@ def phase_paged(torch, timer):
     n_blocks = 1 + b * max_blocks
 
     def table(ctx):
-        perm = torch.randperm(n_blocks - 1, generator=gen, device="cuda") + 1
-        tables = torch.zeros((b, max_blocks), dtype=torch.int32,
-                             device="cuda")
-        pi = 0
-        for i, c in enumerate(ctx):
-            nb = -(-c // bs)
-            tables[i, :nb] = perm[pi:pi + nb].int()
-            pi += nb
-        return tables
+        return scrambled_tables(torch, gen, ctx, bs, max_blocks)
 
     def bf(*shape):
         return torch.randn(shape, generator=gen, device="cuda"
@@ -782,7 +827,8 @@ MAIN_KERNELS = {"ecdp": ("ecdp_mma_kernel<", "ecdp_kernel<"),
                                 "decode_attn_split_kernel<")}
 
 
-def profile_steps(torch, eng, prompts, per_step: dict) -> dict:
+def profile_steps(torch, eng, prompts, per_step: dict,
+                  require_records: bool = True) -> dict:
     """The same requests again: PROFILE_WARMUP steps, then trace_steps over
     PROFILE_STEPS engine steps (the replays timed with CUDA events where
     the engine is compiled)."""
@@ -791,11 +837,12 @@ def profile_steps(torch, eng, prompts, per_step: dict) -> dict:
     for _ in range(PROFILE_WARMUP):
         eng.step()
     return trace_steps(torch, eng.step, PROFILE_STEPS, per_step,
-                       captured=eng.captured)
+                       captured=eng.captured,
+                       require_records=require_records)
 
 
 def trace_steps(torch, step, n_steps: int, per_step: dict,
-                captured=None) -> dict:
+                captured=None, require_records: bool = True) -> dict:
     """``n_steps`` calls of ``step`` timed on the host clock, then
     ``n_steps`` more traced with torch.profiler. Prints the device time per
     kernel group and the idle share, 1 - device time / wall time, against
@@ -810,7 +857,12 @@ def trace_steps(torch, step, n_steps: int, per_step: dict,
     span over the untraced steps, from CUDA events around each launch, is
     printed apart (it holds the gaps between the graph's kernels). Returns
     the untraced ms/step, device ms/step, the groups' and the main
-    kernels' records."""
+    kernels' records. ``require_records=False`` (phase 11(b), whose
+    replays are held by other exact means) prints a profile still short
+    after the retake instead of failing: at granite-8b's 5,900 kernels a
+    replay the profiler lost one or two kernel records in about half the
+    profiles (all 181 x 12 ECDP records came back in a retake of the same
+    engine)."""
     from torch.profiler import ProfilerActivity, profile
 
     spans = []
@@ -871,18 +923,29 @@ def trace_steps(torch, step, n_steps: int, per_step: dict,
                     records[name] += evt.count
         if {name: records[name] for name in want} == want:
             break
+        seen = sorted((evt.key[:100], str(evt.device_type), evt.count,
+                       round(getattr(evt, "self_device_time_total", 0.0), 1))
+                      for evt in prof.key_averages()
+                      if any(k in evt.key for ks in MAIN_KERNELS.values()
+                             for k in ks))
         miss = (f"the profile of {n_steps} steps ({graph_launches} "
                 f"cudaGraphLaunch calls) holds {records} kernel records, "
-                f"want {want}: it does not see every kernel of the steps")
+                f"want {want}: it does not see every kernel of the steps "
+                f"(records by name, device, count, device us: {seen})")
         if attempt == 2:
-            raise AssertionError(miss)
+            if require_records:
+                raise AssertionError(miss)
+            log(f"  {miss}; the profiler lost those records (not a gate "
+                "here)")
+            break
         log(f"  {miss}; tracing {n_steps} more steps")
     busy = sum(groups.values()) / 1e6 / n_steps
     log(f"  profile: {n_steps} untraced steps {wall * 1e3:.2f} ms/step;"
         f" {n_steps} traced steps {wall_traced * 1e3:.2f} ms/step, "
         f"device {busy * 1e3:.2f} ms/step; idle share {1 - busy / wall:.3f} "
         f"(untraced wall), {1 - busy / wall_traced:.3f} (traced wall); "
-        f"kernel records {want} as launched")
+        f"kernel records {({n: records[n] for n in want})}, launched "
+        f"{want}")
     if replay_ms is not None:
         log(f"  replay span {replay_ms:.3f} ms/step (CUDA events around each"
             " graph launch, untraced steps)")
@@ -900,14 +963,15 @@ def trace_steps(torch, step, n_steps: int, per_step: dict,
 
 def ecdp_step_calls(eng):
     """One serving step's flash matmuls as (M, FlashWeight), in the step's
-    order: per layer wq, wo, w_up, w_down at M = slots x chunk; lm_head at
-    M = slots."""
+    order: per layer wq, wo, then the FFN's (w_gate,) w_up, w_down at M =
+    slots x chunk; lm_head at M = slots."""
     m = eng.pool.n_slots * eng.admission_cfg.chunk_tokens
     calls = []
     for li, lp in enumerate(eng._layers):
         fl = eng.attn_flash[li]
-        calls += [(m, fl["wq"]), (m, fl["wo"]), (m, lp["ffn"]["w_up"]),
-                  (m, lp["ffn"]["w_down"])]
+        calls += [(m, fl["wq"]), (m, fl["wo"])]
+        calls += [(m, lp["ffn"][k]) for k in ("w_gate", "w_up", "w_down")
+                  if k in lp["ffn"]]
     return calls + [(eng.pool.n_slots, eng.params["lm_head"])]
 
 
@@ -1088,7 +1152,9 @@ def phase_serving(torch, timer):
 PARITY_REL_TOL = 2.0 ** -6
 
 
-def phase_parity(torch):
+def phase_parity(torch, cfg=None):
+    """The card engine against the CPU engine on ``cfg`` (default:
+    OPT-6.7B width cut to 2 layers)."""
     import numpy as np
 
     from repro_torch.configs import OPT_6_7B
@@ -1096,7 +1162,8 @@ def phase_parity(torch):
     from repro_torch.models import dense
     from repro_torch.serving.engine import Engine
 
-    cfg = dataclasses.replace(OPT_6_7B, n_layers=2, name="opt-6.7b-2l")
+    if cfg is None:
+        cfg = dataclasses.replace(OPT_6_7B, n_layers=2, name="opt-6.7b-2l")
     t0 = time.perf_counter()
     params = dense.init(cfg, torch.Generator().manual_seed(3), device="cpu")
     kw = dict(max_slots=2, max_seq=64, rber=1e-4, seed=1)
@@ -1104,7 +1171,7 @@ def phase_parity(torch):
     eng_gpu = Engine(cfg, params, device="cuda", **kw)
     del params
     log(f"  {cfg.name}: built both engines in {time.perf_counter() - t0:.1f}"
-        " s (cut: 2 of 32 layers; widths as OPT-6.7B)")
+        f" s (cut to {cfg.n_layers} layers, full width)")
     # the flash tier is integer work: byte-identical on both devices
     pairs = list(zip(dict(_walk(eng_gpu.params)).values(),
                      dict(_walk(eng_cpu.params)).values()))
@@ -2272,6 +2339,397 @@ def phase_spec(torch):
     return res
 
 
+# --- phase 11: the command line and granite-8b ------------------------------
+
+# granite-8b's flash matmuls (wq/wo the Q/O flash copies, 32 x 128 = 4096
+# columns; the SwiGLU FFN; lm_head over the 49152-token vocabulary) at a
+# serving step's M (slots x chunk = 64; lm_head at M = slots = 4) and at 4
+GRANITE_ECDP = {"wq/wo": (4096, 4096), "w_gate/w_up": (4096, 14336),
+                "w_down": (14336, 4096), "lm_head": (4096, 49152)}
+GRANITE_ECDP_M = {"wq/wo": 64, "w_gate/w_up": 64, "w_down": 64, "lm_head": 4}
+# one granite layer's paged attention: 4 slots, 8 KV heads, 16 chunk lanes
+# x rep 4 = 64 query rows a head, Dh 128, block 16, phase 3's table width
+GRANITE_PAGED = (4, 8, 64, 128, 16, 128)
+GRANITE_PROMPTS, GRANITE_NEW = (7, 64, 200, 33, 130, 96), 16
+GRANITE_WORK = ROOT / "build" / "chip_smoke_phase11"
+
+
+def granite_kernels(torch, timer) -> dict:
+    """11(a): the ECDP and paged attention against their plain versions at
+    granite-8b's shapes, each timed beside its plain version and the
+    library."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.quant import dequantize_int8
+    from repro_torch.core.tiering import encode_flash
+    from repro_torch.kernels.ecdp import ecdp_matmul, ecdp_matmul_plain
+    from repro_torch.kernels.paged_attn import (kernel_errors, paged_attn,
+                                                paged_attn_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    worst, per_launch = 0.0, {}
+    for name, (k, n) in GRANITE_ECDP.items():
+        w = torch.randn((k, n), generator=gen, device="cuda")
+        flash = {r: encode_flash(w, rber=r, seed=k + n) for r in (0.0, 2e-3)}
+        del w
+        for m in (4, 64):
+            a = torch.randn((m, k), generator=gen, device="cuda"
+                            ).to(torch.bfloat16)
+            for rber, fw in flash.items():
+                for ecc_on in (True, False):
+                    worst = max(worst, ecdp_case(
+                        torch, a, fw, ecc_on, f"{name} M={m} rber={rber}")[0])
+            if m != GRANITE_ECDP_M[name]:
+                continue
+            fw = flash[2e-3]
+            w_deq = dequantize_int8(fw.q, fw.scale)
+            t_kernel = timer(lambda: ecdp_matmul(a, fw.q, fw.parity,
+                                                 fw.scale, True))
+            t_plain = timer(lambda: ecdp_matmul_plain(a, fw.q, fw.parity,
+                                                      fw.scale, True), reps=3)
+            t_lib = timer(lambda: torch.matmul(a, w_deq))
+            del w_deq
+            b_ms, b_by = bound_ms(k * n * 9 / 8 + 4 * n + 2 * m * k
+                                  + 4 * m * n, 2.0 * m * k * n)
+            per_launch[name] = dict(m=m, k=k, n=n, ms=t_kernel,
+                                    plain_ms=t_plain, library_ms=t_lib,
+                                    bound_ms=b_ms, bound_by=b_by)
+            log(f"  ecdp {name:12s} M={m:3d} K={k:5d} N={n:5d}: kernel "
+                f"{t_kernel:.4f} ms, plain {t_plain:.4f} ms, torch.matmul "
+                f"bf16 {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        del flash
+    log(f"  ecdp at granite-8b's shapes vs plain: max abs err {worst:.3e} "
+        "(32 cases)")
+
+    b, n_kv, tr, dh, bs, max_blocks = GRANITE_PAGED
+    lens = torch.tensor(PAGED_CTX, dtype=torch.int32, device="cuda")
+    tables = scrambled_tables(torch, gen, PAGED_CTX, bs, max_blocks)
+    n_blocks = 1 + b * max_blocks
+
+    def bf(*shape):
+        return torch.randn(shape, generator=gen, device="cuda"
+                           ).to(torch.bfloat16)
+    q = (bf(b, n_kv, tr, dh).float() * dh ** -0.5).to(torch.bfloat16)
+    k_pool, v_pool = bf(n_blocks, bs, n_kv, dh), bf(n_blocks, bs, n_kv, dh)
+    acc, m, l = paged_attn(q, k_pool, v_pool, tables, lens)
+    torch.cuda.synchronize()
+    errs = kernel_errors(q, k_pool, v_pool, tables, lens, acc, m, l)
+    max_abs = errs.pop("max_abs_err")
+    if not all(v <= 1 for v in errs.values()):
+        raise AssertionError(f"paged attention at granite-8b's shape: error "
+                             f"/ bound {errs}")
+    t_kernel = timer(lambda: paged_attn(q, k_pool, v_pool, tables, lens))
+    t_plain = timer(lambda: paged_attn_plain(q, k_pool, v_pool, tables,
+                                             lens), reps=3)
+    s_pad = max_blocks * bs
+    kg = k_pool[tables.long()].reshape(b, s_pad, n_kv, dh).transpose(
+        1, 2).contiguous()
+    vg = v_pool[tables.long()].reshape(b, s_pad, n_kv, dh).transpose(
+        1, 2).contiguous()
+    mask = (torch.arange(s_pad, device="cuda")[None, :] < lens[:, None]
+            )[:, None, None, :]
+    t_lib = timer(lambda: F.scaled_dot_product_attention(
+        q, kg, vg, attn_mask=mask, scale=1.0))
+    live = sum(PAGED_CTX)
+    b_ms, b_by = bound_ms(live * n_kv * dh * 2 * 2 + q.numel() * 2
+                          + acc.numel() * 4 + 2 * m.numel() * 4
+                          + tables.numel() * 4 + b * 4,
+                          4.0 * tr * dh * n_kv * live)
+    log(f"  paged_attn B={b} KV={n_kv} TR={tr} Dh={dh} ctx={PAGED_CTX}: "
+        "error / bound " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, SDPA "
+        f"{t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(ecdp=dict(max_abs_err=worst, per_launch=per_launch),
+                paged_attn=dict(ctx=PAGED_CTX, b=b, kv=n_kv, tr=tr, dh=dh,
+                                max_abs_err=max_abs, ms=t_kernel,
+                                plain_ms=t_plain, library_ms=t_lib,
+                                bound_ms=b_ms, bound_by=b_by))
+
+
+def granite_run(torch, eng, prompts) -> dict:
+    """``prompts`` (GRANITE_NEW new each) served to completion with the
+    launch counters zeroed just before and read just after; every step's
+    logits kept on the host."""
+    from repro_torch.kernels import ecdp, paged_attn
+
+    rids = [eng.submit(p, max_new=GRANITE_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ecdp.ecdp_matmul.launches = 0
+    paged_attn.paged_attn.launches = 0
+    logits = []
+    t0 = time.perf_counter()
+    while eng.step():
+        logits.append(eng.last_logits.cpu())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = [list(eng.requests[r].out) for r in rids]
+    assert all(len(o) == GRANITE_NEW for o in out), out
+    assert all(0 <= t < eng.cfg.vocab_size for o in out for t in o)
+    assert all(bool(torch.isfinite(lg).all()) for lg in logits)
+    return dict(out=out, logits=logits, steps=len(logits), wall_s=wall,
+                launches={"ecdp": ecdp.ecdp_matmul.launches,
+                          "paged_attn": paged_attn.paged_attn.launches},
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                stats=list(eng.stats))
+
+
+def granite_full(torch, timer) -> dict:
+    """11(b): granite-8b at full width and depth through build_engine,
+    compiled, then an eager engine on the same seed (bit-equal logits;
+    its counters give 36 x 5 + 1 ECDP and 36 paged-attention launches a
+    step), then serve() at the default temperature 0.8."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_engine, serve
+    from repro_torch.models import dense
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.sampler import SampleConfig
+
+    cfg = get_config("granite-8b")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in GRANITE_PROMPTS]
+    per_step = {"ecdp": cfg.n_layers * 5 + 1, "paged_attn": cfg.n_layers}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = build_engine("granite-8b", smoke=False, device="cuda", rber=1e-4,
+                       sample_cfg=SampleConfig())
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    resident = torch.cuda.memory_allocated()
+    log(f"  build_engine granite-8b ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}): {build_s:.1f} s, peak "
+        f"{build_peak / 2**30:.2f} GiB while deploying, "
+        f"{resident / 2**30:.2f} GiB resident")
+    comp = granite_run(torch, eng, prompts)
+    assert eng.step_traces == 1, eng.step_traces
+    # warm-up and capture
+    assert comp["launches"] == {k: 2 * n for k, n in per_step.items()}, \
+        comp["launches"]
+    # the replays are held by the capture's counters above and by their
+    # logits, equal to the eager engine's at every step below
+    prof = profile_steps(torch, eng, prompts, per_step,
+                         require_records=False)
+    assert eng.step_traces == 1, eng.step_traces
+    calls = ecdp_step_calls(eng)
+    assert len(calls) == per_step["ecdp"], len(calls)
+    step = time_ecdp_step(torch, timer, calls)
+    del calls, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params = dense.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        device="cuda")
+    eng = Engine(cfg, params, max_slots=4, max_seq=256, rber=1e-4,
+                 sample_cfg=SampleConfig(), seed=0, device="cuda",
+                 compiled=False)
+    del params
+    gc.collect()
+    eager = granite_run(torch, eng, prompts)
+    assert eng.step_traces == -1
+    steps = eager["steps"]
+    assert eager["launches"] == {k: steps * n for k, n in per_step.items()}, \
+        (eager["launches"], steps)
+    assert eager["out"] == comp["out"] and eager["stats"] == comp["stats"]
+    assert len(comp["logits"]) == steps
+    for i, (a, b) in enumerate(zip(comp["logits"], eager["logits"])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"granite step {i}: replayed logits differ "
+                                 f"from the eager step's by "
+                                 f"{float((a - b).abs().max())}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    generated = GRANITE_NEW * len(prompts)
+    log(f"  compiled: {steps} steps, {comp['wall_s'] / steps * 1e3:.2f} "
+        f"ms/step, {generated / comp['wall_s']:.1f} generated tokens/s, "
+        f"peak {comp['peak_bytes'] / 2**30:.2f} GiB serving; eager "
+        f"{eager['wall_s'] / steps * 1e3:.2f} ms/step; logits bit-equal at "
+        f"every step; launches (eager) {eager['launches']} = {steps} x "
+        f"{per_step}")
+    t0 = time.perf_counter()
+    out = serve("granite-8b", smoke=False, device="cuda",
+                n_requests=len(prompts), max_new=GRANITE_NEW)
+    assert out["tokens"] == generated and out["traces"] == 1, \
+        (out["tokens"], out["traces"])
+    assert all(0 <= t < cfg.vocab_size for o in out["outputs"].values()
+               for t in o)
+    log(f"  serve(granite-8b, temperature 0.8, top-k 40): {out['tokens']} "
+        f"tokens, {out['tps']:.1f} generated tokens/s, step traces "
+        f"{out['traces']}, {time.perf_counter() - t0:.1f} s with the build")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(steps=steps, ms_per_step=comp["wall_s"] / steps * 1e3,
+                eager_ms_per_step=eager["wall_s"] / steps * 1e3,
+                tokens_per_s=generated / comp["wall_s"],
+                serve_tokens_per_s=out["tps"], build_s=build_s,
+                build_peak_bytes=build_peak, resident_bytes=resident,
+                peak_bytes=comp["peak_bytes"], launches=eager["launches"],
+                per_step=per_step, profile=prof, ecdp_step=step)
+
+
+def granite_image(torch) -> dict:
+    """11(d): granite-8b width cut to 2 layers deployed with a store, the
+    image and the DRAM-tier checkpoint written and read back as
+    ``build_engine(store_image=, ckpt=)`` does, served against a streamed
+    engine programmed from the same params in process: greedy tokens and
+    every step's logits bit-equal; 10 paged ECDP, 1 ECDP and 2 paged
+    attention launches a step."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import AdmissionConfig
+    from repro_torch.core.tiering import deploy, dram_tier, program_attn_flash
+    from repro_torch.kernels import ecdp, paged_attn, paged_ecdp
+    from repro_torch.models import dense
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.sampler import SampleConfig
+    from repro_torch.store import PageStore, drop_store_refs
+
+    cfg = dataclasses.replace(get_config("granite-8b"), n_layers=2,
+                              name="granite-8b-2l")
+    rber, seed = 1e-4, 0
+    # token_budget 1024, as phase 7: the streamer's stall never contracts
+    # the budget below what the slots use, so both engines plan alike
+    kw = dict(max_slots=4, max_seq=256, seed=seed,
+              sample_cfg=SampleConfig(), device="cuda",
+              admission_cfg=AdmissionConfig(token_budget=1024))
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in (9, 40, 17, 120)]
+
+    def params():
+        return dense.init(cfg, torch.Generator(device="cuda").manual_seed(12),
+                          device="cuda")
+    shutil.rmtree(GRANITE_WORK, ignore_errors=True)
+    GRANITE_WORK.mkdir(parents=True)
+    image = str(GRANITE_WORK / "nand.img")
+    t0 = time.perf_counter()
+    p = params()
+    store = PageStore()
+    tiered, _ = deploy(p, rber=rber, seed=seed, store=store)
+    program_attn_flash(store, p["layers"]["attn"], cfg.n_layers, rber=rber,
+                       seed=seed)
+    store.save(image)
+    CheckpointManager(GRANITE_WORK, keep=1).save(0, drop_store_refs(tiered),
+                                                {"arch": cfg.name})
+    template = dram_tier(p)
+    del p, tiered, store
+    t_deploy = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    opened = PageStore.open(image)
+    dram, _ = CheckpointManager(GRANITE_WORK).restore(template, device="cuda")
+    del template
+    img_eng = Engine(cfg, dram, weight_store=opened, **kw)
+    assert img_eng.store_preprogrammed
+    del dram
+    t_open = time.perf_counter() - t0
+
+    def run(eng):
+        rids = [eng.submit(pr, max_new=8) for pr in prompts]
+        logits = []
+        while eng.step():
+            logits.append(eng.last_logits.cpu())
+        return [eng.requests[r].out for r in rids], logits
+
+    ecdp.ecdp_matmul.launches = 0
+    paged_ecdp.paged_ecdp_matmul.launches = 0
+    paged_attn.paged_attn.launches = 0
+    got, got_logits = run(img_eng)
+    torch.cuda.synchronize()
+    steps = len(got_logits)
+    launches = {"paged_ecdp": paged_ecdp.paged_ecdp_matmul.launches,
+                "ecdp": ecdp.ecdp_matmul.launches,
+                "paged_attn": paged_attn.paged_attn.launches}
+    assert launches == {"paged_ecdp": steps * cfg.n_layers * 5,
+                        "ecdp": steps, "paged_attn": steps * cfg.n_layers}, \
+        (launches, steps)
+    img_bytes = opened.image_bytes
+    img_eng.close()
+    del img_eng, opened
+    gc.collect()
+    ref_eng = Engine(cfg, params(), weight_store=PageStore(), rber=rber,
+                     **kw)
+    want, want_logits = run(ref_eng)
+    ref_eng.close()
+    del ref_eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(GRANITE_WORK, ignore_errors=True)
+    assert got == want, (got, want)
+    assert len(want_logits) == steps
+    for i, (a, b) in enumerate(zip(got_logits, want_logits)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"die image step {i}: logits differ from "
+                                 f"the in-process store's by "
+                                 f"{float((a - b).abs().max())}")
+    log(f"  {cfg.name}: deploy + image ({img_bytes / 2**30:.2f} GiB) + "
+        f"checkpoint {t_deploy:.1f} s, open + restore + engine "
+        f"{t_open:.1f} s; {steps} steps, tokens and logits bit-equal to the "
+        f"in-process store's; launches {launches}")
+    return dict(steps=steps, launches=launches)
+
+
+def granite_cli(torch) -> None:
+    """11(e): ``python -m repro_torch.launch.deploy --store`` then ``python
+    -m repro_torch.launch.serve --store-image --ckpt`` on the card, at
+    granite-8b-smoke, as a user runs them."""
+    import os
+    import shutil
+
+    d = GRANITE_WORK / "cli"
+    shutil.rmtree(GRANITE_WORK, ignore_errors=True)
+    d.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmds = (["-m", "repro_torch.launch.deploy", "--arch", "granite-8b",
+             "--out", str(d), "--store", str(d / "nand.img")],
+            ["-m", "repro_torch.launch.serve", "--arch", "granite-8b",
+             "--store-image", str(d / "nand.img"), "--ckpt", str(d),
+             "--requests", "4", "--max-new", "8"])
+    for cmd in cmds:
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, *cmd], cwd=ROOT, env=env,
+                             capture_output=True, text=True, timeout=300)
+        if run.returncode != 0:
+            raise AssertionError(f"{' '.join(cmd[:2])} exited "
+                                 f"{run.returncode}: {run.stderr[-2000:]}")
+        log(f"  python {' '.join(cmd[:2])}: exit 0 in "
+            f"{time.perf_counter() - t0:.1f} s")
+    served = next(ln for ln in run.stdout.splitlines()
+                  if ln.startswith("served "))
+    log(f"  {served}")
+    assert "32 generated tokens" in served and "on cuda" in served, served
+    assert "step traces=" in served, served
+    shutil.rmtree(GRANITE_WORK, ignore_errors=True)
+
+
+def phase_granite(torch) -> dict:
+    from repro_torch.configs import get_config
+
+    timer = Timer(torch)
+    kernels = granite_kernels(torch, timer)
+    torch.cuda.empty_cache()
+    full = granite_full(torch, timer)
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("  (c) card vs CPU at granite-8b width, 2 layers")
+    phase_parity(torch, dataclasses.replace(
+        get_config("granite-8b"), n_layers=2, name="granite-8b-2l"))
+    log("  (d) die image round trip at granite-8b width, 2 layers")
+    image = granite_image(torch)
+    log("  (e) the command line at granite-8b-smoke")
+    granite_cli(torch)
+    return dict(kernels=kernels, full=full, image=image)
+
+
 def main() -> int:
     import torch
 
@@ -2361,6 +2819,10 @@ def main() -> int:
     t0 = time.perf_counter()
     spec = phase_spec(torch)
     log(f"  phase 10 in {time.perf_counter() - t0:.1f} s")
+    log("phase 11: the command line and granite-8b")
+    t0 = time.perf_counter()
+    granite = phase_granite(torch)
+    log(f"  phase 11 in {time.perf_counter() - t0:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"spec": spec}), flush=True)
 
@@ -2379,6 +2841,13 @@ def main() -> int:
          "at": "one OPT-6.7B serving step's 129 calls back to back: 32 x "
                "(wq, wo, w_up, w_down) at M=64, lm_head at M=4",
          "per_launch": ecdp_res["per_launch"],
+         "at_granite": dict(granite["full"]["ecdp_step"],
+                            launches=granite["full"]["launches"]["ecdp"],
+                            per_step=granite["full"]["per_step"]["ecdp"],
+                            max_abs_err=granite["kernels"]["ecdp"][
+                                "max_abs_err"],
+                            per_launch=granite["kernels"]["ecdp"][
+                                "per_launch"]),
          "bf16_instances": mma_res["ecdp"]},
         {"name": "paged_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
@@ -2395,6 +2864,9 @@ def main() -> int:
          "at": "B=4 KV=32 TR=16 Dh=128 block 16, ctx %s" % PAGED_CTX,
          "at_serving_ctx": pa_res["serving"],
          "at_dh80": pa_res["dh80"],
+         "at_granite": dict(granite["kernels"]["paged_attn"],
+                            launches=granite["full"]["launches"][
+                                "paged_attn"]),
          "instances": pa_inst},
         {"name": "paged_ecdp_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_ecdp.cu",

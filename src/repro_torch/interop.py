@@ -17,11 +17,11 @@ from repro_torch.core.tiering import FlashWeight
 
 def tensor_from_numpy(a, device="cuda") -> torch.Tensor:
     """One numpy array (bf16 included) -> a tensor on ``device``."""
-    a = np.asarray(a)
+    a = np.array(a, order="C")          # a copy; a 0-d array stays 0-d
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
-        return t.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def params_from_numpy(tree, device="cuda"):

@@ -1,0 +1,116 @@
+"""Deployment: convert a bf16 checkpoint into the tiered NVLLM form — the
+port of ``repro/launch/deploy.py``.
+
+    PYTHONPATH=src python -m repro_torch.launch.deploy --arch granite-8b \
+        --smoke --ckpt /tmp/ckpt --out /tmp/deployed --rber 1e-4
+
+This is the paper's "flash programming" step (§3.5: Q/K/V/O copied once to
+DRAM at init; FFN weights quantized INT8, ECC-encoded, page-laid-out in
+NAND). ``--rber`` injects raw-NAND bit errors into the stored codewords so
+the serving path exercises the ERDPE correction machinery end to end.
+
+``--store nand.img`` programs the flash tier into a page-granular die
+image (16 KiB plane-interleaved pages + JSON page table; ``PageStore.open``
+mmaps it back bit-exactly) and checkpoints only the DRAM tier next to it;
+``python -m repro_torch.launch.serve --store-image nand.img --ckpt OUT``
+serves it. The image, its page table and the checkpoint are the JAX
+package's formats: given the same params, the two packages write the same
+bytes.
+
+Params come from ``--ckpt`` (a params checkpoint in the JAX package's
+format) or, without it, from the family's ``init`` seeded by ``seed``
+(random: the two packages draw different numbers). Encoding runs on
+``--device`` (``cuda`` unless ``--device cpu``).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs import get_config
+from repro_torch.core.tiering import deploy, flash_bytes
+from repro_torch.models import family_module
+
+
+def run_deploy(arch: str, smoke: bool, ckpt_dir: str | None, out_dir: str,
+               rber: float = 0.0, seed: int = 0,
+               store_path: str | None = None, device="cuda") -> dict:
+    cfg = get_config(arch, smoke=smoke)
+    mod = family_module(cfg.family)
+    params = mod.init(cfg, torch.Generator(device=device).manual_seed(seed),
+                      device=device)
+    if ckpt_dir:
+        try:
+            params, _ = CheckpointManager(ckpt_dir).restore(params,
+                                                            device=device)
+        except ValueError as e:
+            # the reference first tries a (params, AdamW state) training
+            # checkpoint; the port has no optimizer yet
+            raise ValueError(
+                f"{ckpt_dir} does not hold a {arch} params tree; a (params, "
+                f"optimizer state) training checkpoint needs the optimizer "
+                f"port (ROADMAP §A.6)") from e
+    store = None
+    if store_path is not None:
+        from repro_torch.store import PageStore
+        store = PageStore()
+    tiered, tier_map = deploy(params, rber=rber, seed=seed, store=store)
+    if store is not None and cfg.family == "dense":
+        # the streamed engine also needs per-layer flash Q/K/V/O copies
+        # (Alg. 2's in-flash projection targets); program them into the
+        # image so it is SELF-CONTAINED — ``serve --store-image`` opens it
+        # read-only and has nothing left to program.
+        from repro_torch.core.tiering import program_attn_flash
+        program_attn_flash(store, params["layers"]["attn"], cfg.n_layers,
+                           rber=rber, seed=seed)
+    fb, db = flash_bytes(tiered)
+    out = CheckpointManager(out_dir, keep=1)
+    if store is not None:
+        # flash tier -> the page-granular NAND die image (mmap'able at
+        # serve time); the checkpoint keeps only the DRAM tier.
+        from repro_torch.store import drop_store_refs
+        store.save(store_path)
+        out.save(0, drop_store_refs(tiered),
+                 {"arch": arch, "rber": rber, "flash_bytes": fb,
+                  "dram_bytes": db, "store": store_path})
+    else:
+        out.save(0, tiered, {"arch": arch, "rber": rber,
+                             "flash_bytes": fb, "dram_bytes": db})
+    n_flash = sum(1 for t in tier_map.values() if t == "flash")
+    stats = {
+        "arch": arch,
+        "flash_gib": fb / 2**30,
+        "dram_gib": db / 2**30,
+        "flash_leaves": n_flash,
+        "dram_leaves": len(tier_map) - n_flash,
+        "flash_fraction": fb / max(fb + db, 1),
+    }
+    if store is not None:
+        stats["store"] = {"path": store_path, **store.stats()}
+    print(json.dumps(stats, indent=1))
+    return stats
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="granite-8b")
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--rber", type=float, default=0.0)
+    ap.add_argument("--store", default=None, metavar="IMAGE",
+                    help="serialize the flash tier into a page-granular "
+                         "NAND die image (+ .meta.json page table) instead "
+                         "of checkpointing it as device arrays")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where params are made and encoded")
+    args = ap.parse_args()
+    run_deploy(args.arch, args.smoke, args.ckpt, args.out, args.rber,
+               store_path=args.store, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

@@ -2,7 +2,7 @@
 ``repro/launch/steps.py``: the prefill and decode functions of an arch,
 through its family module, and the decode step compiled as a captured CUDA
 graph (the counterpart of the reference's jitted step). Train and eval
-steps wait for the training slice (ROADMAP A18).
+steps wait for the training slice (ROADMAP §A.6).
 """
 from __future__ import annotations
 

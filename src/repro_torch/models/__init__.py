@@ -12,9 +12,9 @@ import importlib
 _FAMILIES = {"dense": "repro_torch.models.dense"}
 # families of the reference the port does not hold yet, and where ROADMAP.md
 # queues them
-_NOT_PORTED = {"moe": "ROADMAP A12",
-               "rglru": "ROADMAP A17", "rwkv6": "ROADMAP A17",
-               "encdec": "ROADMAP A17"}
+_NOT_PORTED = {"moe": "ROADMAP §A.3",
+               "rglru": "ROADMAP §A.5", "rwkv6": "ROADMAP §A.5",
+               "encdec": "ROADMAP §A.5"}
 
 
 def family_module(family: str):

@@ -176,9 +176,9 @@ def cache_shape(cfg, batch: int, max_seq: int) -> dict:
 def init(cfg, generator: torch.Generator, device="cuda") -> dict:
     """Random params with the shapes, distributions and scales of the JAX
     ``dense.init`` (bf16; dense_init / embed_init scales; LayerNorm gains 1
-    and biases 0, RMSNorm gammas 0). Numbers are drawn on the generator's
-    device and placed on ``device`` one (K, N) matrix at a time, so no
-    full-model f32 temporary exists."""
+    and biases 0, RMSNorm gammas 0, qk-norm gammas 0 too). Numbers are
+    drawn on the generator's device and placed on ``device`` one (K, N)
+    matrix at a time, so no full-model f32 temporary exists."""
     bf = torch.bfloat16
     d, h, kv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
@@ -197,6 +197,10 @@ def init(cfg, generator: torch.Generator, device="cuda") -> dict:
             for li in range(n_l):
                 w[li] = cm.dense_init(generator, k, n, bf, device)
             layers[group][name] = w
+    if cfg.qk_norm:                      # per-head RMSNorm gammas, zeros
+        for name in ("q_norm", "k_norm"):
+            layers["attn"][name] = torch.zeros((n_l, dh), dtype=bf,
+                                               device=device)
     for name in ("ln1", "ln2"):
         if cfg.norm_type == "layer":
             layers[f"{name}_g"] = torch.ones((n_l, d), dtype=bf, device=device)

@@ -75,6 +75,7 @@ from repro_torch.core import scheduler as sched
 from repro_torch.core.erdpe import flash_matmul
 from repro_torch.core.tiering import (ATTN_FLASH_KEYS, PagedWeight, deploy,
                                       encode_flash, program_attn_flash)
+from repro_torch.kernels.paged_attn import _HEAD_DIMS, takes_head_dim
 from repro_torch.models import common as cm
 from repro_torch.models import dense
 from repro_torch.serving import spec as spec_mod
@@ -458,6 +459,13 @@ class Engine:
                              f"{cfg.family!r})")
         self.cfg = cfg
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not takes_head_dim(cfg.head_dim):
+            # no plain fallback on the card: every layer's attention
+            # would leave the kernel path
+            raise ValueError(
+                f"{cfg.name}: head_dim {cfg.head_dim} is not one the "
+                f"paged-attention kernel takes ({_HEAD_DIMS}); serve it with "
+                f"device='cpu'")
         self._stream = (torch.cuda.current_stream(self.device)
                         if self.device.type == "cuda" else None)
         self.sample_cfg = sample_cfg

@@ -43,7 +43,10 @@ def filter_logits(logits: torch.Tensor, cfg: SampleConfig) -> torch.Tensor:
     with temperature > 0."""
     logits = logits.float() / cfg.temperature
     if cfg.top_k > 0:
-        kth = torch.sort(logits, dim=-1).values[..., -cfg.top_k][..., None]
+        # past the vocabulary the kth value is the smallest logit and
+        # nothing is masked, as the reference's clamped index gives
+        k = min(cfg.top_k, logits.shape[-1])
+        kth = torch.sort(logits, dim=-1).values[..., -k][..., None]
         logits = torch.where(logits < kth, float("-inf"), logits)
     if cfg.top_p < 1.0:
         sorted_l = torch.sort(logits, dim=-1, descending=True).values

@@ -233,6 +233,23 @@ def test_padding_lanes_never_poison_the_pool():
     assert not torch.isnan(eng.pool.v[:, 1:].float()).any()
 
 
+def test_top_k_past_the_vocabulary_serves(port_params, jax_params):
+    """top_k 600 over OPT_TINY's 512-token vocabulary masks nothing: the
+    JAX engine emits its 4 tokens, and so must the port's (sampled, so
+    only the counts and ranges compare)."""
+    from repro.serving.sampler import SampleConfig as JSample
+    from repro_torch.serving.sampler import SampleConfig as TSample
+    outs = []
+    for eng in (JEngine(J_OPT_TINY, jax_params, max_slots=2, max_seq=96,
+                        sample_cfg=JSample(temperature=0.8, top_k=600)),
+                _port_maker(port_params, sample_cfg=TSample(
+                    temperature=0.8, top_k=600))()):
+        rid = eng.submit([1, 2, 3], max_new=4)
+        outs.append(eng.run()[rid])
+    assert [len(o) for o in outs] == [4, 4]
+    assert all(0 <= t < OPT_TINY.vocab_size for t in outs[1])
+
+
 def test_submit_rejects_what_the_pool_cannot_hold(port_params):
     mk = _port_maker(port_params)
     eng = mk()

@@ -1115,3 +1115,85 @@ def test_captured_spec_step_replays_bit_equal_to_the_eager_body(cuda,
         assert st["spec_accepted"] > 0
     np.testing.assert_array_equal(eng.pool.lengths_dev.cpu().numpy(),
                                   eng.pool.lengths)
+
+
+def test_build_engine_serves_granite_smoke_on_the_card(cuda, tmp_path):
+    """``build_engine`` at granite-8b-smoke on the card (RMSNorm, RoPE,
+    SwiGLU, GQA: the paged kernel at TR = 16 x 2): one capture, every
+    token in the vocabulary. Then ``run_deploy --store`` on the card and
+    ``build_engine(store_image=, ckpt=)``: the same greedy tokens and
+    logits, bit for bit, as a streamed engine programmed from the same
+    params in process."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.scheduler import AdmissionConfig
+    from repro_torch.launch.deploy import run_deploy
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.models import dense
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.sampler import SampleConfig
+    from repro_torch.store import PageStore
+
+    prompts = [[5, 9, 2, 7], [11, 3, 3, 8, 1, 6], [200, 17, 42]]
+    cfg = get_config("granite-8b", smoke=True)
+
+    def run(eng):
+        rids = [eng.submit(p, max_new=6) for p in prompts]
+        logits = []
+        while eng.step():
+            logits.append(eng.last_logits.cpu())
+        return [eng.requests[r].out for r in rids], logits
+
+    eng = build_engine("granite-8b", device="cuda", sample_cfg=SampleConfig())
+    out, _ = run(eng)
+    assert eng.step_traces == 1
+    assert all(len(o) == 6 and all(0 <= t < cfg.vocab_size for t in o)
+               for o in out)
+    run_deploy("granite-8b", True, None, str(tmp_path), rber=1e-3,
+               store_path=str(tmp_path / "nand.img"), device="cuda")
+    # the streamer's stall must not contract the budget: both engines
+    # plan the same steps
+    adm = AdmissionConfig(token_budget=1024)
+    img = build_engine("granite-8b", store_image=str(tmp_path / "nand.img"),
+                       ckpt=str(tmp_path), sample_cfg=SampleConfig(),
+                       device="cuda")
+    img.admission_cfg = adm
+    got, got_logits = run(img)
+    params = dense.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    ref = Engine(cfg, params, max_slots=4, max_seq=256, rber=1e-3,
+                 sample_cfg=SampleConfig(), weight_store=PageStore(),
+                 admission_cfg=adm, device=cuda)
+    want, want_logits = run(ref)
+    assert got == want
+    assert len(got_logits) == len(want_logits)
+    for a, b in zip(got_logits, want_logits):
+        assert torch.equal(a, b)
+
+
+def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    """A deployed tree (FlashWeights, bf16) saved and restored with
+    ``device="cuda"``: every leaf on the card, equal to what was saved,
+    parity uint8 again."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.tiering import _walk, deploy
+    from repro_torch.models import dense
+
+    cfg = get_config("granite-8b", smoke=True)
+    params = dense.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                        device=cuda)
+    tiered, _ = deploy(params, rber=1e-3, seed=1)
+    mgr = CheckpointManager(tmp_path)
+    mgr.save(0, tiered, {"arch": cfg.name})
+    got, extras = mgr.restore(tiered, device="cuda")
+    assert extras == {"arch": cfg.name}
+    pairs = list(zip(dict(_walk(got)).values(), dict(_walk(tiered)).values()))
+    assert len(pairs) == 12
+    for g, w in pairs:
+        if isinstance(w, FlashWeight):
+            assert g.parity.dtype == torch.uint8
+            g, w = (g.q, g.parity, g.scale), (w.q, w.parity, w.scale)
+        else:
+            g, w = (g,), (w,)
+        for a, b in zip(g, w):
+            assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)

@@ -269,6 +269,19 @@ def test_sampler_matches_reference():
         want = jsamp.filter_logits(logits, jsamp.SampleConfig(
             temperature=0.8, top_k=top_k, top_p=top_p))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    # top-k at or past the vocabulary masks nothing: the reference's index
+    # clamps, eager and jitted alike
+    v = logits.shape[-1]
+    for top_k in (v, v + 1, 10 * v):
+        got = tsamp.filter_logits(_t(logits), tsamp.SampleConfig(
+            temperature=0.8, top_k=top_k))
+        jcfg = jsamp.SampleConfig(temperature=0.8, top_k=top_k)
+        for want in (jsamp.filter_logits(logits, jcfg),
+                     jax.jit(lambda x, c=jcfg: jsamp.filter_logits(x, c))(
+                         logits)):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       rtol=1e-6)
+        assert torch.isfinite(got).all()
     # top-p that the f32 cumulative softmax never reaches keeps the whole
     # vocabulary (the reference's take past the end masks nothing)
     flat = rng.normal(0.0, 0.01, (10, 50272)).astype(np.float32)

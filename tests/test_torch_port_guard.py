@@ -34,7 +34,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "bad = sorted(k for k in sys.modules if k == 'jax' "
         "or k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 39, names\n"
+        "assert len(names) >= 55, names\n"
         "assert {'repro_torch.store.' + m for m in ('faults', 'nand', "
         "'page_pool', 'pagestore', 'streamer')} <= set(names), names\n"
         "assert {'repro_torch.kernels.decode_attn', 'repro_torch.launch', "
@@ -44,6 +44,14 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "'repro_torch.obs.trace', 'repro_torch.obs.timeline', "
         "'repro_torch.runtime.fault', 'repro_torch.serving.prefix', "
         "'repro_torch.serving.server', 'repro_torch.serving.spec'} "
+        "<= set(names), names\n"
+        "assert {'repro_torch.configs.' + m for m in ('base', "
+        "'paper_models', 'qwen3_32b', 'granite_8b', 'mistral_nemo_12b', "
+        "'llama3_405b', 'qwen3_moe_30b_a3b', 'phi35_moe_42b', "
+        "'recurrentgemma_9b', 'llava_next_34b', 'seamless_m4t_medium', "
+        "'rwkv6_3b')} <= set(names), names\n"
+        "assert {'repro_torch.configs', 'repro_torch.checkpoint.manager', "
+        "'repro_torch.launch.serve', 'repro_torch.launch.deploy'} "
         "<= set(names), names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
