@@ -7,8 +7,10 @@ store under a device budget of half the flash tier — and runs its offline
 prefill / decode path; checks the card's engine against the CPU engine, the
 streamed engine against the resident one, and the card's prefill / decode
 against the CPU's; then serves through the ServeFront under injected NAND
-faults and with the prefix cache, speculatively, and through the command
-line's entry points on granite-8b at full width.
+faults and with the prefix cache, speculatively, through the command
+line's entry points on granite-8b at full width, and serves MoE on the
+resident plane at qwen3-moe-30b-a3b's width through the expert-grouped
+ECDP.
 
     python3 chip_smoke.py
 
@@ -208,6 +210,37 @@ Phases (any failure exits non-zero; nothing is caught):
                 repro_torch.launch.deploy --store, then python -m
                 repro_torch.launch.serve --store-image --ckpt, at
                 granite-8b-smoke, as subprocesses: exit 0, 32 tokens.
+  12. moe     — MoE on the resident plane, qwen3-moe-30b-a3b (128
+                experts, top 8; d_model 2048, d_ff 768, 32 heads over 4
+                KV heads, vocab 151936). (a) the expert-grouped ECDP at
+                w_gate/w_up 2048x768 and w_down 768x2048, E = 128, over
+                the rows of a real serve_route of 64 tokens at k = 8,
+                against its plain version (ECC on and off, RBER 0 and
+                2e-3), timed beside one torch.bmm over the capacity-
+                padded (E, 64, K) rows, its byte bound (the routed
+                experts' INT8) and the reference's shape (128 per-expert
+                ECDP launches at M = 512); the same kernel at (d)'s
+                capacity layouts (128 experts x 2 rows: the 16-row M
+                tile; x 21 rows) against its plain version; lm_head
+                2048x151936 at M = 4; paged attention at B=4, KV=4,
+                TR=128, Dh=128. (b) build_engine at full width, cut to
+                24 of 48 layers, RBER 1e-4, greedy: 6 requests x 16
+                tokens, compiled (one capture, the counters twice 24 x 3
+                grouped ECDP + 1 ECDP and 24 paged attention), 12 steps
+                profiled, the step's 72 grouped calls timed back to back
+                (and with lm_head); then an eager engine on the same
+                seed, logits bit-equal at every step, those counts a
+                step. (c) phase 5's check at qwen3 width, 2 layers, with
+                a row witness: an eager card engine beside the compiled
+                one (bit-equal) and the CPU engine record every layer's
+                routes; a request leaves the comparison only from the
+                step its own route differs between the devices; the CPU
+                router's near-ties (k-th vs (k+1)-th logit < 1e-3)
+                printed. (d) the offline path at 2 layers: prefill 4 x
+                64, 8 decode steps captured and eager (bit-equal, one
+                capture, counters gated) and on the CPU (phase 8(c)'s
+                rule), under the same row witness (a row's experts and
+                which of its assignments the capacity kept).
 
 The ``spec`` line comes before the card's name; the second-to-last line
 is the ``kernels`` JSON; the last line is ``{"ok": true, "device":
@@ -252,6 +285,21 @@ def resources_row(res: dict, smem_dynamic: int, **key) -> dict:
                 spill_stores=res["spill_stores"],
                 spill_loads=res["spill_loads"], smem_static=res["smem"],
                 smem_dynamic=smem_dynamic, smem=res["smem"] + smem_dynamic)
+
+
+def grouped_resources(build) -> list[dict]:
+    """Registers, spills and shared memory per block of each instantiation
+    of the grouped ECDP (grouped_ecdp_mma_kernel<M tile, wide, Bank>)."""
+    import re
+    smem_fn = build.load("grouped_ecdp").grouped_ecdp_smem_bytes
+    out = []
+    for fn, res in build.resources("grouped_ecdp").items():
+        m = re.search(r"grouped_ecdp_mma_kernelILi(\d+)ELb([01])E", fn)
+        if m:
+            m_tile = int(m.group(1))
+            out.append(resources_row(res, smem_fn(m_tile), m_tile=m_tile,
+                                     wide=m.group(2) == "1"))
+    return sorted(out, key=lambda r: (r["m_tile"], r["wide"]))
 
 
 def mma_resources(build, name: str) -> list[dict]:
@@ -800,11 +848,14 @@ def phase_streamed(torch):
 
 PROFILE_WARMUP, PROFILE_STEPS = 8, 12
 PROFILE_GROUPS = (  # (group, substrings of the kernel name), first match wins
+    ("grouped ecdp kernel", ("grouped_ecdp_",)),
     ("ecdp kernel", ("ecdp_",)),
     ("paged attention kernel", ("paged_attn_",)),
     ("decode attention kernel", ("decode_attn_",)),
     ("GEMM (DRAM projections)", ("gemm", "cutlass", "sm90_", "ampere_",
                                  "cublas", "nvjet")),
+    ("sort / top-k / scan (MoE routing)", ("sort", "topk", "radix",
+                                           "scan", "bitonic")),
     ("elementwise / reduction / copy", ("elementwise", "reduce", "copy",
                                         "index", "cat", "gather", "scatter",
                                         "fill", "softmax", "norm")),
@@ -820,11 +871,22 @@ def _group(name: str) -> str:
 
 
 # the kernel one wrapper call launches once (beside its merge or split-K
-# reduce), by the start of its name; the paged ECDP shares the ECDP's
-MAIN_KERNELS = {"ecdp": ("ecdp_mma_kernel<", "ecdp_kernel<"),
+# reduce), by the start of its name; the paged ECDP shares the ECDP's. The
+# first entry whose name matches takes a kernel (the grouped ECDP's name
+# holds the ECDP's)
+MAIN_KERNELS = {"grouped_ecdp": ("grouped_ecdp_mma_kernel<",),
+                "ecdp": ("ecdp_mma_kernel<", "ecdp_kernel<"),
                 "paged_attn": ("paged_attn_split_kernel<",),
                 "decode_attn": ("decode_attn_mma_kernel<",
                                 "decode_attn_split_kernel<")}
+
+
+def _main_kernel(key: str):
+    """The MAIN_KERNELS entry a profiled kernel name belongs to, or None."""
+    for name, starts in MAIN_KERNELS.items():
+        if any(k in key for k in starts):
+            return name
+    return None
 
 
 def profile_steps(torch, eng, prompts, per_step: dict,
@@ -918,9 +980,9 @@ def trace_steps(torch, step, n_steps: int, per_step: dict,
             groups[group] = groups.get(group, 0.0) + dev_us
             counts[group] = counts.get(group, 0) + evt.count
             kernels[evt.key] = kernels.get(evt.key, 0.0) + dev_us
-            for name, starts in MAIN_KERNELS.items():
-                if any(k in evt.key for k in starts):
-                    records[name] += evt.count
+            name = _main_kernel(evt.key)
+            if name is not None:
+                records[name] += evt.count
         if {name: records[name] for name in want} == want:
             break
         seen = sorted((evt.key[:100], str(evt.device_type), evt.count,
@@ -1152,69 +1214,197 @@ def phase_serving(torch, timer):
 PARITY_REL_TOL = 2.0 ** -6
 
 
+ROUTE_TIE = 1e-3      # router logits this close at the k-th place: a near-tie
+
+
+class RouteWitness:
+    """Hands the card's routes to the CPU run of the same step. A router
+    near-tie moves a whole expert, and the devices' router logits drift
+    further apart than the k-th and (k+1)-th logits of many tokens, so the
+    CPU takes the card's top-k experts (with its own gates over them) and
+    every row is compared. Each route handed over is checked as phase 5
+    checks logits and greedy tokens: the router logits within
+    PARITY_REL_TOL of the token's largest, and every expert the card chose
+    within twice that below the CPU's own k-th logit (so the top-k sets
+    are equal wherever the CPU's k-th / (k+1)-th margin exceeds twice
+    that). The card's routes come from eager calls (a replay runs no
+    Python)."""
+
+    def __init__(self, torch, k: int):
+        self.torch, self.k = torch, k
+        self.queue = []          # the card's (idx, router logits), in order
+        self.where = None        # the caller's label of the step
+        self.layer = 0
+        self.taken = []          # (where, layer, token, CPU gap, drift)
+        self.ties = 0            # CPU margins under ROUTE_TIE
+        self.max_rel = 0.0       # router logits' drift / the token's largest
+
+    def step(self, where):
+        assert not self.queue, f"{len(self.queue)} card routes left over"
+        self.where, self.layer = where, 0
+
+    def record(self, logits, idx):
+        self.queue.append((idx.cpu(), logits.cpu()))
+
+    def hand_over(self, logits, valid=None):
+        """The CPU's route: (gates, idx) with the card's idx."""
+        torch = self.torch
+        idx, lg = self.queue.pop(0)
+        e = logits.shape[-1]
+        lc, lg = logits.reshape(-1, e), lg.reshape(-1, e)
+        ok = (torch.ones(lc.shape[0], dtype=torch.bool) if valid is None
+              else valid.reshape(-1))
+        big = lc.abs().amax(-1)
+        drift = (lc - lg).abs().amax(-1)
+        if bool(ok.any()):
+            self.max_rel = max(self.max_rel, float((drift / big)[ok].max()))
+        bad = ok & (drift > PARITY_REL_TOL * big)
+        if bool(bad.any()):
+            t = int(bad.nonzero()[0])
+            raise AssertionError(
+                f"{self.where}, layer {self.layer}, token {t}: router logits "
+                f"differ by {float(drift[t] / big[t]):.3e} of the largest")
+        top = torch.topk(lc, self.k + 1)
+        margin = top.values[:, -2] - top.values[:, -1]
+        self.ties += int((ok & (margin < ROUTE_TIE)).sum())
+        own = top.indices[:, :self.k].sort(-1).values
+        card = idx.reshape(-1, self.k).long().sort(-1).values
+        # how far below the CPU's own k-th logit the card's lowest pick is
+        gap = top.values[:, self.k - 1] - lc.gather(-1, card).amin(-1)
+        for t in (ok & (own != card).any(-1)).nonzero().flatten().tolist():
+            if float(gap[t]) > 2 * PARITY_REL_TOL * float(big[t]):
+                raise AssertionError(
+                    f"{self.where}, layer {self.layer}, token {t}: the card "
+                    f"chose an expert {float(gap[t]):.3e} below the CPU's "
+                    f"k-th logit (largest {float(big[t]):.3e})")
+            self.taken.append((self.where, self.layer, t,
+                               round(float(gap[t]), 6),
+                               round(float(drift[t]), 6)))
+        self.layer += 1
+        idx = idx.to(logits.device).long()
+        return torch.softmax(logits.gather(-1, idx), dim=-1), idx
+
+    def summary(self) -> str:
+        return (f"router logits' drift {self.max_rel:.3e} of the token's "
+                f"largest; {len(self.taken)} routes where the CPU's own "
+                f"top-k differed (where, layer, token, the card's lowest pick "
+                f"below the CPU's k-th logit, |router logit diff|): "
+                f"{self.taken[:8]}; CPU k-th / (k+1)-th margins < "
+                f"{ROUTE_TIE:g}: {self.ties}")
+
+
 def phase_parity(torch, cfg=None):
     """The card engine against the CPU engine on ``cfg`` (default:
-    OPT-6.7B width cut to 2 layers)."""
+    OPT-6.7B width cut to 2 layers). A MoE ``cfg``: an eager card engine
+    steps beside the compiled one (its logits held bit-equal to the
+    replay's) and hands its routes to the CPU engine (RouteWitness), so
+    every request is compared."""
     import numpy as np
 
     from repro_torch.configs import OPT_6_7B
     from repro_torch.core.tiering import FlashWeight, _walk
-    from repro_torch.models import dense
+    from repro_torch.models import family_module
+    from repro_torch.models import moe as moe_mod
     from repro_torch.serving.engine import Engine
 
     if cfg is None:
         cfg = dataclasses.replace(OPT_6_7B, n_layers=2, name="opt-6.7b-2l")
+    is_moe = cfg.family == "moe"
     t0 = time.perf_counter()
-    params = dense.init(cfg, torch.Generator().manual_seed(3), device="cpu")
+    params = family_module(cfg.family).init(
+        cfg, torch.Generator().manual_seed(3), device="cpu")
     kw = dict(max_slots=2, max_seq=64, rber=1e-4, seed=1)
     eng_cpu = Engine(cfg, params, device="cpu", **kw)
     eng_gpu = Engine(cfg, params, device="cuda", **kw)
+    eng_wit = (Engine(cfg, params, device="cuda", compiled=False, **kw)
+               if is_moe else None)
     del params
-    log(f"  {cfg.name}: built both engines in {time.perf_counter() - t0:.1f}"
+    log(f"  {cfg.name}: built the engines in {time.perf_counter() - t0:.1f}"
         f" s (cut to {cfg.n_layers} layers, full width)")
     # the flash tier is integer work: byte-identical on both devices
     pairs = list(zip(dict(_walk(eng_gpu.params)).values(),
                      dict(_walk(eng_cpu.params)).values()))
-    pairs += [(g[k], c[k]) for g, c in zip(eng_gpu.attn_flash,
-                                           eng_cpu.attn_flash) for k in g]
+    if eng_gpu.attn_flash is not None:
+        pairs += [(g[k], c[k]) for g, c in zip(eng_gpu.attn_flash,
+                                               eng_cpu.attn_flash)
+                  for k in g]
     n_flash = 0
     for g, c in pairs:
         if isinstance(g, FlashWeight):
             n_flash += 1
             for f in ("q", "parity", "scale"):
                 assert torch.equal(getattr(g, f).cpu(), getattr(c, f)), f
+    wit, side, route = RouteWitness(torch, cfg.top_k), [None], \
+        moe_mod.serve_route
+    diverged: set = set()
+
+    def witness_route(router, x, top_k, **kw):
+        if side[0] is None:
+            return route(router, x, top_k, **kw)
+        lg = torch.einsum("std,de->ste", x.float(), router.float())
+        if side[0] == "card":
+            gates, idx = route(router, x, top_k, **kw)
+            wit.record(lg, idx)
+            return gates, idx
+        # the CPU's valid lanes, the slots of diverged requests left out
+        q = eng_cpu._host_in["q_lens"].clone()
+        for rid in diverged:
+            q[eng_cpu.requests[rid].slot] = 0
+        valid = torch.arange(x.shape[1])[None, :] < q[:, None]
+        gates, idx = wit.hand_over(lg, valid)
+        return gates, idx.to(torch.int32)
+
+    def stepped(name, eng):
+        side[0] = name
+        try:
+            return eng.step()
+        finally:
+            side[0] = None
+
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, 9).tolist(),
                rng.integers(0, cfg.vocab_size, 21).tolist()]
-    for e in (eng_cpu, eng_gpu):
+    for e in (eng_cpu, eng_gpu, eng_wit):
         for p in prompts:
-            e.submit(p, max_new=4)
-    max_diff, max_rel, compared, diverged = 0.0, 0.0, 0, set()
+            if e is not None:
+                e.submit(p, max_new=4)
+    max_diff, max_rel, compared = 0.0, 0.0, 0
     t0 = time.perf_counter()
-    while True:
-        n_out = {rid: len(r.out) for rid, r in eng_cpu.requests.items()}
-        n_cpu, n_gpu = eng_cpu.step(), eng_gpu.step()
-        assert n_cpu == n_gpu
-        if n_cpu == 0:
-            break
-        lg_cpu, lg_gpu = eng_cpu.last_logits, eng_gpu.last_logits.cpu()
-        for rid, req in eng_cpu.requests.items():
-            if rid in diverged or len(req.out) == n_out[rid]:
-                continue                     # sampled nothing this step
-            row = req.slot
-            diff = float((lg_cpu[row] - lg_gpu[row]).abs().max())
-            tol = PARITY_REL_TOL * float(lg_cpu[row].abs().max())
-            max_diff = max(max_diff, diff)
-            max_rel = max(max_rel, diff / float(lg_cpu[row].abs().max()))
-            assert diff <= tol, (rid, diff, tol)
-            top2 = torch.topk(lg_cpu[row], 2).values
-            t_cpu = req.out[-1]
-            t_gpu = eng_gpu.requests[rid].out[-1]
-            if float(top2[0] - top2[1]) > 2 * tol:
-                assert t_cpu == t_gpu, (rid, t_cpu, t_gpu)
-                compared += 1
-            elif t_cpu != t_gpu:
-                diverged.add(rid)            # a near-tie broke differently
+    if is_moe:
+        moe_mod.serve_route = witness_route
+    try:
+        while True:
+            n_out = {rid: len(r.out) for rid, r in eng_cpu.requests.items()}
+            slot_of = {rid: r.slot for rid, r in eng_cpu.requests.items()}
+            wit.step(len(eng_cpu.stats))
+            n_wit = stepped("card", eng_wit) if is_moe else None
+            n_cpu = stepped("cpu", eng_cpu)
+            n_gpu = eng_gpu.step()
+            assert n_cpu == n_gpu and n_wit in (None, n_cpu)
+            if n_cpu == 0:
+                break
+            lg_cpu, lg_gpu = eng_cpu.last_logits, eng_gpu.last_logits.cpu()
+            if is_moe:
+                assert torch.equal(eng_wit.last_logits.cpu(), lg_gpu)
+            for rid, req in eng_cpu.requests.items():
+                if rid in diverged or len(req.out) == n_out[rid]:
+                    continue                 # sampled nothing this step
+                row = slot_of[rid]
+                diff = float((lg_cpu[row] - lg_gpu[row]).abs().max())
+                tol = PARITY_REL_TOL * float(lg_cpu[row].abs().max())
+                max_diff = max(max_diff, diff)
+                max_rel = max(max_rel, diff / float(lg_cpu[row].abs().max()))
+                assert diff <= tol, (rid, diff, tol)
+                top2 = torch.topk(lg_cpu[row], 2).values
+                t_cpu = req.out[-1]
+                t_gpu = eng_gpu.requests[rid].out[-1]
+                if float(top2[0] - top2[1]) > 2 * tol:
+                    assert t_cpu == t_gpu, (rid, t_cpu, t_gpu)
+                    compared += 1
+                elif t_cpu != t_gpu:
+                    diverged.add(rid)        # a near-tie broke differently
+    finally:
+        moe_mod.serve_route = route
     # the card engine replays one captured step; the CPU runs its body
     assert (eng_gpu.step_traces, eng_cpu.step_traces) == (1, 0)
     log(f"  parity over {len(eng_cpu.stats)} steps in "
@@ -1224,8 +1414,13 @@ def phase_parity(torch, cfg=None):
         f"the row's max |logit| (tol {PARITY_REL_TOL:.3e}),"
         f" {compared} greedy tokens compared, {len(diverged)} near-tie "
         "divergences")
+    if is_moe:
+        log("  routes handed from the card (its eager engine bit-equal to "
+            "the replay at every step) to the CPU: " + wit.summary())
     return dict(max_logit_diff=max_diff, max_rel=max_rel,
-                tokens_compared=compared)
+                tokens_compared=compared, diverged=len(diverged),
+                route_ties=wit.ties, routes_taken=len(wit.taken),
+                router_rel=wit.max_rel)
 
 
 # --- phase 8: offline prefill / decode ----------------------------------------------
@@ -2730,6 +2925,599 @@ def phase_granite(torch) -> dict:
     return dict(kernels=kernels, full=full, image=image)
 
 
+# --- phase 12: MoE serving on the resident plane, qwen3-moe-30b-a3b ----------
+
+MOE_ARCH = "qwen3-moe-30b-a3b"
+# 24 of 48 layers: the deploy holds the bf16 tree beside its encoded tiers
+# (about 49 GB at 24 layers, 97 GB at 48, past the card's 80 GB)
+MOE_LAYERS = 24
+MOE_ROUTE_TOKENS = 64                  # a serving step's lanes: 4 slots x 16
+# one qwen3 layer's paged attention: 4 slots, 4 KV heads, 16 chunk lanes x
+# rep 8 = 128 query rows a head, Dh 128, block 16, phase 3's table width
+MOE_PAGED = (4, 4, 128, 128, 16, 128)
+MOE_PROMPTS, MOE_NEW = (7, 64, 200, 33, 130, 96), 16
+MOE_OFFLINE = (4, 64, 8)               # prompts, prompt tokens, decode steps
+MOE_OFFLINE_SEED = 12                  # phase 8(c)'s prompt seed
+# the offline path's capacity layouts (moe._expert_matmul: expert e owns the
+# C+1 rows at e (C+1) of the dispatch buffer, C = max(int(T k / E cf), 1)):
+# 12(d)'s prefill, 4 x 64 tokens at capacity factor 1.25 (moe.forward), and
+# its decode, 4 tokens at 2.0 (moe.decode_body)
+MOE_CAPACITY = {"prefill": (MOE_OFFLINE[0] * MOE_OFFLINE[1], 1.25),
+                "decode": (MOE_OFFLINE[0], 2.0)}
+
+
+def moe_cfg(layers: int):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MOE_ARCH), n_layers=layers,
+                               name=f"{MOE_ARCH}-{layers}l")
+
+
+def moe_route(torch, gen, router, k: int, tokens: int = MOE_ROUTE_TOKENS):
+    """A real ``serve_route`` of ``tokens`` random bf16 lanes through
+    ``router``: (order (A,), row_start (E+1,) int32, the experts' row
+    counts on the host)."""
+    from repro_torch.models import moe
+
+    d, e = router.shape
+    x = torch.randn((1, tokens, d), generator=gen, device="cuda"
+                    ).to(torch.bfloat16)
+    _, idx = moe.serve_route(router, x, k)
+    flat = idx.reshape(-1).long()
+    order, row_start = moe._grouped_rows(flat, flat >= 0, e)
+    return order, row_start, (row_start[1:] - row_start[:-1]).tolist()
+
+
+def grouped_case(torch, a, row_start, fw, ecc_on: bool, what: str,
+                 max_rows: int = MOE_ROUTE_TOKENS) -> float:
+    """The grouped ECDP against its plain version on every routed row,
+    within the ECDP bound (the same integer weights, f32 sums in another
+    order: 4 sqrt(K) f32 roundoffs of each output's magnitude). Returns the
+    max abs error."""
+    from repro_torch.kernels.grouped_ecdp import (grouped_ecdp_matmul,
+                                                  grouped_ecdp_plain)
+
+    got = grouped_ecdp_matmul(a, row_start, fw.q, fw.parity, fw.scale,
+                              ecc_on, max_rows=max_rows)
+    want = grouped_ecdp_plain(a, row_start, fw.q, fw.parity, fw.scale, ecc_on)
+    torch.cuda.synchronize()
+    bounds = row_start.tolist()
+    worst = 0.0
+    for e in range(fw.q.shape[0]):
+        r0, r1 = bounds[e], bounds[e + 1]
+        if r1 == r0:
+            continue
+        mag = (a[r0:r1].float().abs() @ fw.q[e].float().abs()) * fw.scale[e]
+        tol = 1e-4 + 4 * math.sqrt(a.shape[1]) * EPS32 * mag
+        err = (got[r0:r1] - want[r0:r1]).abs()
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"grouped ecdp {what} ecc={ecc_on} expert "
+                                 f"{e}: max err {float(err.max())}")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def moe_kernels(torch, timer) -> dict:
+    """12(a): the grouped ECDP at qwen3's bank shapes over a real route of
+    64 tokens at k = 8 (RBER 0 and 2e-3, ECC on and off), timed beside one
+    torch.bmm over the capacity-padded rows and beside one layer's 3 x 128
+    per-expert ECDP launches at the reference's M = 512; lm_head 2048 x
+    151936 at M = 4; paged attention at KV=4, TR=128."""
+    import torch.nn.functional as F
+
+    from repro_torch.core.quant import dequantize_int8
+    from repro_torch.core.tiering import encode_flash
+    from repro_torch.kernels.ecdp import (_n_sms, ecdp_matmul,
+                                          ecdp_matmul_plain)
+    from repro_torch.kernels.grouped_ecdp import (grouped_ecdp_matmul,
+                                                  grouped_ecdp_plain,
+                                                  grouped_plan)
+    from repro_torch.kernels.paged_attn import (kernel_errors, paged_attn,
+                                                paged_attn_plain)
+    from repro_torch.models import common as cm
+
+    cfg = moe_cfg(1)
+    d, f, e, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    router = cm.dense_init(gen, d, e, torch.bfloat16, "cuda")
+    order, row_start, counts = moe_route(torch, gen, router, k)
+    routed = sum(1 for c in counts if c)
+    rows = MOE_ROUTE_TOKENS * k
+    log(f"  route of {MOE_ROUTE_TOKENS} tokens at k={k}: {rows} rows over "
+        f"{routed} of {e} experts, at most {max(counts)} an expert")
+    acts = {d: torch.randn((rows, d), generator=gen, device="cuda"
+                           ).to(torch.bfloat16),
+            f: torch.randn((rows, f), generator=gen, device="cuda"
+                           ).to(torch.bfloat16)}
+    worst, per_launch, capacity = 0.0, {}, {}
+    for name, (kk, n) in (("w_gate/w_up", (d, f)), ("w_down", (f, d))):
+        w = torch.randn((e, kk, n), generator=gen, device="cuda")
+        flash = {r: encode_flash(w, rber=r, seed=kk + n) for r in (0.0, 2e-3)}
+        del w
+        a = acts[kk]
+        for rber, fw in flash.items():
+            for ecc_on in (True, False):
+                worst = max(worst, grouped_case(torch, a, row_start, fw,
+                                                ecc_on, f"{name} rber={rber}"))
+        fw = flash[2e-3]                          # the serving path: ECC off
+        t_kernel = timer(lambda: grouped_ecdp_matmul(
+            a, row_start, fw.q, fw.parity, fw.scale, False,
+            max_rows=MOE_ROUTE_TOKENS))
+        t_plain = timer(lambda: grouped_ecdp_plain(
+            a, row_start, fw.q, fw.parity, fw.scale, False), reps=3)
+        # the library: one bmm over the capacity-padded (E, 64, K) rows
+        w_deq = dequantize_int8(fw.q, fw.scale)
+        padded = torch.zeros((e, MOE_ROUTE_TOKENS, kk), dtype=torch.bfloat16,
+                             device="cuda")
+        t_lib = timer(lambda: torch.bmm(padded, w_deq))
+        del w_deq, padded
+        # the reference's shape: every expert over all M = 512 rows, one
+        # ECDP launch each (3 x 128 a layer: this matrix's share is timed)
+        t_ref = timer(lambda: [ecdp_matmul(a, fw.q[x], fw.parity[x],
+                                           fw.scale[x], False)
+                               for x in range(e)], reps=3,
+                      hold=10_000_000)
+        nbytes = (routed * (kk * n + 4 * n) + 2 * rows * kk + 4 * rows * n
+                  + 4 * (e + 1))
+        b_ms, b_by = bound_ms(nbytes, 2.0 * rows * kk * n)
+        per_launch[name] = dict(rows=rows, routed=routed, k=kk, n=n,
+                                ms=t_kernel, plain_ms=t_plain,
+                                library_ms=t_lib, per_expert_ms=t_ref,
+                                bound_ms=b_ms, bound_by=b_by)
+        log(f"  grouped ecdp {name:12s} R={rows} K={kk:4d} N={n:4d} E={e}: "
+            f"kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, torch.bmm "
+            f"(E, 64, K) bf16 {t_lib:.4f} ms, {e} per-expert ecdp at "
+            f"M={rows} {t_ref:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        # 12(d)'s capacity layouts: every expert's C+1 rows, the M tile and
+        # K splits grouped_plan gives them (decode: the 16-row tile)
+        for layout, (tokens, cf) in MOE_CAPACITY.items():
+            c1 = max(int(tokens * k / e * cf), 1) + 1
+            rs = torch.arange(0, (e + 1) * c1, c1, dtype=torch.int32,
+                              device="cuda")
+            a_cap = torch.randn((e * c1, kk), generator=gen, device="cuda"
+                                ).to(torch.bfloat16)
+            plan = grouped_plan(e * c1, e, kk, n, c1, _n_sms(0))
+            err = max(grouped_case(torch, a_cap, rs, fw_r, ecc_on,
+                                   f"{name} {layout} rber={rber}",
+                                   max_rows=c1)
+                      for rber, fw_r in flash.items()
+                      for ecc_on in (False, True))
+            worst = max(worst, err)
+            t_cap = timer(lambda: grouped_ecdp_matmul(
+                a_cap, rs, fw.q, fw.parity, fw.scale, False, max_rows=c1))
+            capacity[f"{name}@{layout}"] = dict(
+                rows=e * c1, rows_per_expert=c1, m_tile=plan.m_tile,
+                k_splits=plan.splits, max_abs_err=err, ms=t_cap)
+            log(f"  grouped ecdp {name:12s} {layout} capacity layout R="
+                f"{e * c1} ({c1} rows x {e} experts), M tile {plan.m_tile}, "
+                f"{plan.splits} K splits: vs plain max abs err {err:.3e} "
+                f"(ECC off / on, RBER 0 / 2e-3); kernel {t_cap:.4f} ms")
+        del flash
+    log(f"  grouped ecdp vs plain: max abs err {worst:.3e} (8 route cases, "
+        f"{4 * len(capacity)} capacity-layout cases)")
+
+    # lm_head at M = slots = 4
+    n = cfg.vocab_size
+    w = torch.randn((d, n), generator=gen, device="cuda")
+    flash = {r: encode_flash(w, rber=r, seed=d + n) for r in (0.0, 2e-3)}
+    del w
+    a = torch.randn((4, d), generator=gen, device="cuda").to(torch.bfloat16)
+    lm_worst = 0.0
+    for rber, fw in flash.items():
+        for ecc_on in (True, False):
+            lm_worst = max(lm_worst, ecdp_case(torch, a, fw, ecc_on,
+                                               f"lm_head rber={rber}")[0])
+    fw = flash[2e-3]
+    w_deq = dequantize_int8(fw.q, fw.scale)
+    t_kernel = timer(lambda: ecdp_matmul(a, fw.q, fw.parity, fw.scale, True))
+    t_plain = timer(lambda: ecdp_matmul_plain(a, fw.q, fw.parity, fw.scale,
+                                              True), reps=3)
+    t_lib = timer(lambda: torch.matmul(a, w_deq))
+    del w_deq, flash
+    b_ms, b_by = bound_ms(d * n * 9 / 8 + 4 * n + 2 * 4 * d + 4 * 4 * n,
+                          2.0 * 4 * d * n)
+    lm_head = dict(m=4, k=d, n=n, ms=t_kernel, plain_ms=t_plain,
+                   library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
+                   max_abs_err=lm_worst)
+    log(f"  ecdp lm_head M=4 K={d} N={n}: kernel {t_kernel:.4f} ms, plain "
+        f"{t_plain:.4f} ms, torch.matmul bf16 {t_lib:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}); vs plain max abs err {lm_worst:.3e}")
+
+    b, n_kv, tr, dh, bs, max_blocks = MOE_PAGED
+    lens = torch.tensor(PAGED_CTX, dtype=torch.int32, device="cuda")
+    tables = scrambled_tables(torch, gen, PAGED_CTX, bs, max_blocks)
+    n_blocks = 1 + b * max_blocks
+
+    def bf(*shape):
+        return torch.randn(shape, generator=gen, device="cuda"
+                           ).to(torch.bfloat16)
+    q = (bf(b, n_kv, tr, dh).float() * dh ** -0.5).to(torch.bfloat16)
+    k_pool, v_pool = bf(n_blocks, bs, n_kv, dh), bf(n_blocks, bs, n_kv, dh)
+    acc, m, l = paged_attn(q, k_pool, v_pool, tables, lens)
+    torch.cuda.synchronize()
+    errs = kernel_errors(q, k_pool, v_pool, tables, lens, acc, m, l)
+    max_abs = errs.pop("max_abs_err")
+    if not all(v <= 1 for v in errs.values()):
+        raise AssertionError(f"paged attention at qwen3's shape: error / "
+                             f"bound {errs}")
+    t_kernel = timer(lambda: paged_attn(q, k_pool, v_pool, tables, lens))
+    t_plain = timer(lambda: paged_attn_plain(q, k_pool, v_pool, tables,
+                                             lens), reps=3)
+    s_pad = max_blocks * bs
+    kg = k_pool[tables.long()].reshape(b, s_pad, n_kv, dh).transpose(
+        1, 2).contiguous()
+    vg = v_pool[tables.long()].reshape(b, s_pad, n_kv, dh).transpose(
+        1, 2).contiguous()
+    mask = (torch.arange(s_pad, device="cuda")[None, :] < lens[:, None]
+            )[:, None, None, :]
+    t_lib = timer(lambda: F.scaled_dot_product_attention(
+        q, kg, vg, attn_mask=mask, scale=1.0))
+    live = sum(PAGED_CTX)
+    b_ms, b_by = bound_ms(live * n_kv * dh * 2 * 2 + q.numel() * 2
+                          + acc.numel() * 4 + 2 * m.numel() * 4
+                          + tables.numel() * 4 + b * 4,
+                          4.0 * tr * dh * n_kv * live)
+    log(f"  paged_attn B={b} KV={n_kv} TR={tr} Dh={dh} ctx={PAGED_CTX}: "
+        "error / bound " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, SDPA "
+        f"{t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(grouped=dict(max_abs_err=worst, per_launch=per_launch,
+                             capacity_layouts=capacity,
+                             route=dict(rows=rows, routed=routed,
+                                        max_rows=max(counts))),
+                lm_head=lm_head,
+                paged_attn=dict(ctx=PAGED_CTX, b=b, kv=n_kv, tr=tr, dh=dh,
+                                max_abs_err=max_abs, ms=t_kernel,
+                                plain_ms=t_plain, library_ms=t_lib,
+                                bound_ms=b_ms, bound_by=b_by))
+
+
+def moe_counts():
+    from repro_torch.kernels import ecdp, grouped_ecdp, paged_attn
+    return {"grouped_ecdp": grouped_ecdp.grouped_ecdp_matmul.launches,
+            "ecdp": ecdp.ecdp_matmul.launches,
+            "paged_attn": paged_attn.paged_attn.launches}
+
+
+def moe_zero_counts():
+    from repro_torch.kernels import decode_attn, ecdp, grouped_ecdp, paged_attn
+    for c in (grouped_ecdp.grouped_ecdp_matmul, ecdp.ecdp_matmul,
+              paged_attn.paged_attn, decode_attn.decode_attention_state):
+        c.launches = 0
+
+
+def moe_run(torch, eng, prompts) -> dict:
+    """``prompts`` (MOE_NEW new each) served to completion, the launch
+    counters zeroed just before and read just after; every step's logits
+    kept on the host."""
+    rids = [eng.submit(p, max_new=MOE_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    moe_zero_counts()
+    logits = []
+    t0 = time.perf_counter()
+    while eng.step():
+        logits.append(eng.last_logits.cpu())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = moe_counts()
+    out = [list(eng.requests[r].out) for r in rids]
+    assert all(len(o) == MOE_NEW for o in out), out
+    assert all(0 <= t < eng.cfg.vocab_size for o in out for t in o)
+    assert all(bool(torch.isfinite(lg).all()) for lg in logits)
+    return dict(out=out, logits=logits, steps=len(logits), wall_s=wall,
+                launches=launches,
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                stats=list(eng.stats))
+
+
+def time_moe_step(torch, timer, eng) -> dict:
+    """One serving step's 72 grouped ECDP calls back to back on the engine's
+    own banks: per layer w_gate, w_up (the rows of a real 64-token route
+    through the layer's router) and w_down (random bf16 rows on the same
+    route). Kernel, plain version, and the library: torch.bmm over the
+    capacity-padded (E, 64, K) rows on one layer's dequantised banks
+    (reused for every layer: 1.2 GB passes L2 anyway). Then the step's 73
+    flash matmuls (the 72 and lm_head at M = 4) for the log; lm_head's own
+    numbers are 12(a)'s."""
+    from repro_torch.core.quant import dequantize_int8
+    from repro_torch.kernels.ecdp import ecdp_matmul
+    from repro_torch.kernels.grouped_ecdp import (grouped_ecdp_matmul,
+                                                  grouped_ecdp_plain)
+
+    cfg = eng.cfg
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    rows = MOE_ROUTE_TOKENS * cfg.top_k
+    calls, nbytes, flops = [], 0.0, 0.0
+    for lp in eng._layers:
+        _, row_start, counts = moe_route(torch, gen, lp["moe"]["router"],
+                                         cfg.top_k)
+        routed = sum(1 for c in counts if c)
+        for name in ("w_gate", "w_up", "w_down"):
+            fw = lp["moe"]["experts"][name]
+            kk, n = fw.q.shape[1:]
+            a = torch.randn((rows, kk), generator=gen, device="cuda"
+                            ).to(torch.bfloat16)
+            calls.append((a, row_start, fw))
+            nbytes += (routed * (kk * n + 4 * n) + 2 * rows * kk
+                       + 4 * rows * n + 4 * (cfg.n_experts + 1))
+            flops += 2.0 * rows * kk * n
+    lm = eng.params["lm_head"]
+    a_lm = torch.randn((eng.pool.n_slots, cfg.d_model), generator=gen,
+                       device="cuda").to(torch.bfloat16)
+
+    def kernel():
+        for a, rs, fw in calls:
+            grouped_ecdp_matmul(a, rs, fw.q, fw.parity, fw.scale, False,
+                                max_rows=MOE_ROUTE_TOKENS)
+
+    def whole_step():
+        kernel()
+        ecdp_matmul(a_lm, lm.q, lm.parity, lm.scale, True)
+
+    def plain():
+        for a, rs, fw in calls:
+            grouped_ecdp_plain(a, rs, fw.q, fw.parity, fw.scale, False)
+    hold = 20_000_000
+    t_kernel = timer(kernel, reps=5, hold=hold)
+    t_step = timer(whole_step, reps=5, hold=hold)
+    t_plain = timer(plain, reps=1, warmup=0)
+    lp0 = eng._layers[0]["moe"]["experts"]
+    deq = {name: dequantize_int8(fw.q, fw.scale) for name, fw in lp0.items()}
+    padded = {kk: torch.zeros((cfg.n_experts, MOE_ROUTE_TOKENS, kk),
+                              dtype=torch.bfloat16, device="cuda")
+              for kk in (cfg.d_model, cfg.d_ff)}
+
+    def library():
+        for _ in eng._layers:
+            for name in ("w_gate", "w_up", "w_down"):
+                torch.bmm(padded[deq[name].shape[1]], deq[name])
+    t_lib = timer(library, reps=5, hold=hold)
+    del deq, padded
+    b_ms, b_by = bound_ms(nbytes, flops)
+    log(f"  one step's {len(calls)} grouped ECDP calls (ECC off) back to "
+        f"back: kernel {t_kernel:.3f} ms, plain {t_plain:.3f} ms, library "
+        f"(torch.bmm, bf16) {t_lib:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
+        f"with lm_head, the step's {len(calls) + 1} flash matmuls "
+        f"{t_step:.3f} ms")
+    return dict(calls=len(calls), ms=t_kernel, plain_ms=t_plain,
+                library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
+                with_lm_head_ms=t_step)
+
+
+def moe_full(torch, timer) -> dict:
+    """12(b): qwen3-moe-30b-a3b at full width, 24 of 48 layers, through
+    build_engine (RBER 1e-4, greedy), compiled; then an eager engine on the
+    same seed: logits bit-equal at every step, 24 x 3 grouped ECDP + 1 ECDP
+    and 24 paged attention launches a step."""
+    import numpy as np
+
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.sampler import SampleConfig
+
+    cfg = moe_cfg(MOE_LAYERS)
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in MOE_PROMPTS]
+    per_step = {"grouped_ecdp": cfg.n_layers * 3, "ecdp": 1,
+                "paged_attn": cfg.n_layers}
+    get_config = serve_mod.get_config
+    # the registry's arch at full width, its depth cut to MOE_LAYERS
+    serve_mod.get_config = lambda arch, smoke=False: (
+        cfg if arch == MOE_ARCH and not smoke else get_config(arch, smoke))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        eng = serve_mod.build_engine(MOE_ARCH, smoke=False, device="cuda",
+                                     rber=1e-4, sample_cfg=SampleConfig())
+    finally:
+        serve_mod.get_config = get_config
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    resident = torch.cuda.memory_allocated()
+    log(f"  build_engine {MOE_ARCH} ({cfg.n_layers} of 48 layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV, "
+        f"{cfg.n_experts} experts top-{cfg.top_k} of d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}): {build_s:.1f} s, peak "
+        f"{build_peak / 2**30:.2f} GiB while deploying, "
+        f"{resident / 2**30:.2f} GiB resident")
+    comp = moe_run(torch, eng, prompts)
+    assert eng.step_traces == 1, eng.step_traces
+    assert comp["launches"] == {k: 2 * n for k, n in per_step.items()}, \
+        comp["launches"]
+    prof = profile_steps(torch, eng, prompts, per_step,
+                         require_records=False)
+    assert eng.step_traces == 1, eng.step_traces
+    step = time_moe_step(torch, timer, eng)
+    assert step["calls"] == per_step["grouped_ecdp"], step["calls"]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    params = moe.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                      device="cuda")
+    eng = Engine(cfg, params, max_slots=4, max_seq=256, rber=1e-4,
+                 sample_cfg=SampleConfig(), seed=0, device="cuda",
+                 compiled=False)
+    del params
+    gc.collect()
+    eager = moe_run(torch, eng, prompts)
+    assert eng.step_traces == -1
+    steps = eager["steps"]
+    assert eager["launches"] == {k: steps * n for k, n in per_step.items()}, \
+        (eager["launches"], steps)
+    assert eager["out"] == comp["out"] and eager["stats"] == comp["stats"]
+    assert len(comp["logits"]) == steps
+    for i, (a, b) in enumerate(zip(comp["logits"], eager["logits"])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{cfg.name} step {i}: replayed logits "
+                                 f"differ from the eager step's by "
+                                 f"{float((a - b).abs().max())}")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    generated = MOE_NEW * len(prompts)
+    log(f"  compiled: {steps} steps, {comp['wall_s'] / steps * 1e3:.2f} "
+        f"ms/step, {generated / comp['wall_s']:.1f} generated tokens/s, "
+        f"peak {comp['peak_bytes'] / 2**30:.2f} GiB serving; eager "
+        f"{eager['wall_s'] / steps * 1e3:.2f} ms/step; logits bit-equal at "
+        f"every step; launches (eager) {eager['launches']} = {steps} x "
+        f"{per_step}")
+    return dict(steps=steps, ms_per_step=comp["wall_s"] / steps * 1e3,
+                eager_ms_per_step=eager["wall_s"] / steps * 1e3,
+                tokens_per_s=generated / comp["wall_s"], build_s=build_s,
+                build_peak_bytes=build_peak, resident_bytes=resident,
+                peak_bytes=comp["peak_bytes"], launches=eager["launches"],
+                per_step=per_step, profile=prof, step=step)
+
+
+def moe_offline(torch) -> dict:
+    """12(d): qwen3 width cut to 2 layers, offline: prefill of 4 x 64
+    tokens, then 8 greedy decode steps through make_decode_step(compiled=
+    True) and eagerly on the card (bit-equal, one capture; the counters
+    gated), and on the CPU fed the CPU's tokens, taking the card's routes
+    from its eager calls (RouteWitness; the capacity's drops follow from
+    the routes): every row's logits within 2^-6 of the row's largest,
+    greedy tokens equal wherever the top-2 margin exceeds twice that."""
+    import numpy as np
+
+    from repro_torch.core.tiering import FlashWeight, _walk, deploy
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import _map_tree
+
+    cfg = moe_cfg(2)
+    b, s, n_dec = MOE_OFFLINE
+    pad = s + n_dec
+    t0 = time.perf_counter()
+    raw = moe.init(cfg, torch.Generator().manual_seed(11), device="cpu")
+    p_cpu, _ = deploy(raw, rber=1e-4, seed=2)
+    p_gpu, _ = deploy(_map_tree(lambda t: t.cuda(), raw), rber=1e-4, seed=2)
+    del raw
+    n_flash = 0
+    for (_, g), (_, c) in zip(_walk(p_gpu), _walk(p_cpu)):
+        if isinstance(g, FlashWeight):
+            n_flash += 1
+            for f in ("q", "parity", "scale"):
+                assert torch.equal(getattr(g, f).cpu(), getattr(c, f)), f
+    rng = np.random.default_rng(MOE_OFFLINE_SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s))).int()
+    wit, side, route = RouteWitness(torch, cfg.top_k), [None], moe._route
+
+    def witness_route(xt, router, k):
+        if side[0] is None:
+            return route(xt, router, k)
+        lg = xt.float() @ router.float()
+        if side[0] == "card":
+            gates, idx = route(xt, router, k)
+            wit.record(lg, idx)
+            return gates, idx
+        return wit.hand_over(lg)
+
+    def recorded(dev, fn, *args):
+        side[0] = dev
+        try:
+            return fn(*args)
+        finally:
+            side[0] = None
+
+    compared, max_rel = 0, 0.0
+
+    def compare(lg_cpu, lg_gpu, what):
+        nonlocal max_rel, compared
+        lg_gpu = lg_gpu.cpu()
+        row_max = lg_cpu.abs().amax(-1)
+        rel = float(((lg_cpu - lg_gpu).abs().amax(-1) / row_max).max())
+        if rel > PARITY_REL_TOL:
+            raise AssertionError(f"{what}: logits differ by {rel:.3e} of the"
+                                 " row's largest")
+        max_rel = max(max_rel, rel)
+        top2 = torch.topk(lg_cpu, 2).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * PARITY_REL_TOL * row_max
+        assert torch.equal(lg_cpu.argmax(-1)[sure], lg_gpu.argmax(-1)[sure]), \
+            what
+        compared += int(sure.sum())
+
+    moe._route = witness_route
+    try:
+        prefill = make_prefill_step(cfg, pad_to=pad)
+        moe_zero_counts()
+        wit.step("prefill")
+        lg_g, c_gpu = recorded("card", prefill, p_gpu,
+                               {"tokens": toks.cuda()})
+        counts = moe_counts()
+        assert counts == {"grouped_ecdp": 3 * cfg.n_layers, "ecdp": 1,
+                          "paged_attn": 0}, counts
+        _, c_eager = prefill(p_gpu, {"tokens": toks.cuda()})
+        lg_c, c_cpu = recorded("cpu", moe.prefill, cfg, p_cpu,
+                               {"tokens": toks}, pad)
+        compare(lg_c, lg_g, "prefill")
+        comp, eager = make_decode_step(cfg, compiled=True), \
+            make_decode_step(cfg)
+        moe_zero_counts()
+        for i in range(n_dec):
+            what = f"decode step {i}"
+            wit.step(what)
+            tok = lg_c.argmax(-1).int()
+            batch = {"token": tok.cuda(), "kv_len": s + i}
+            lg_g, c_gpu = comp(p_gpu, c_gpu, batch)
+            lg_e, c_eager = recorded("card", eager, p_gpu, c_eager, batch)
+            if not torch.equal(lg_g, lg_e):
+                raise AssertionError(f"decode step {i}: replayed logits "
+                                     "differ from the eager step's by "
+                                     f"{float((lg_g - lg_e).abs().max())}")
+            lg_c, c_cpu = recorded("cpu", moe.decode_step, cfg, p_cpu,
+                                   c_cpu, {"token": tok, "kv_len": s + i})
+            compare(lg_c, lg_g, what)
+        wit.step("end")
+    finally:
+        moe._route = route
+    torch.cuda.synchronize()
+    counts = moe_counts()
+    from repro_torch.kernels import decode_attn
+    counts["decode_attn"] = decode_attn.decode_attention_state.launches
+    # the compiled step's warm-up and capture, and n_dec eager steps
+    bodies = 2 + n_dec
+    assert comp.captures == 1, comp.captures
+    assert counts == {"grouped_ecdp": 3 * cfg.n_layers * bodies,
+                      "ecdp": bodies, "paged_attn": 0,
+                      "decode_attn": cfg.n_layers * bodies}, counts
+    for k in ("k", "v"):
+        assert torch.equal(c_gpu[k], c_eager[k]), k
+    log(f"  {cfg.name} (cut: 2 of 48 layers; widths as qwen3-moe-30b-a3b), "
+        f"prefill {b} x {s}, {n_dec} decode steps, "
+        f"{time.perf_counter() - t0:.1f} s: {n_flash} flash weights "
+        f"byte-identical; captured decode bit-equal to eager (1 capture); "
+        f"card vs CPU max |logit diff| {max_rel:.3e} of the row's max (tol "
+        f"{PARITY_REL_TOL:.3e}), {compared} greedy tokens compared; routes "
+        f"handed from the card to the CPU: {wit.summary()}; launches "
+        f"{counts}")
+    assert compared > 0, "no greedy token compared"
+    return dict(max_rel=max_rel, tokens_compared=compared,
+                route_ties=wit.ties, routes_taken=len(wit.taken),
+                router_rel=wit.max_rel, launches=counts)
+
+
+def phase_moe(torch) -> dict:
+    timer = Timer(torch)
+    kernels = moe_kernels(torch, timer)
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = moe_full(torch, timer)
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (c) card vs CPU at {MOE_ARCH} width, 2 layers")
+    parity = phase_parity(torch, moe_cfg(2))
+    log(f"  (d) offline prefill / decode at {MOE_ARCH} width, 2 layers")
+    offline = moe_offline(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(kernels=kernels, full=full, parity=parity, offline=offline)
+
+
 def main() -> int:
     import torch
 
@@ -2783,6 +3571,14 @@ def main() -> int:
             log(f"  {n} ecdp_mma_kernel m_tile={r['m_tile']} wide="
                 f"{int(r['wide'])}: {r['registers']} registers, {r['smem']} B "
                 f"smem, spills {r['spill_stores']}/{r['spill_loads']} B")
+    ge_inst = grouped_resources(build)
+    if len(ge_inst) != 4:
+        raise AssertionError(f"grouped_ecdp: {len(ge_inst)} tensor-core "
+                             "instances in the build log, want 4")
+    for r in ge_inst:
+        log(f"  grouped_ecdp_mma_kernel m_tile={r['m_tile']} wide="
+            f"{int(r['wide'])}: {r['registers']} registers, {r['smem']} B "
+            f"smem, spills {r['spill_stores']}/{r['spill_loads']} B")
     torch.backends.cuda.matmul.allow_tf32 = False
     timer = Timer(torch)
 
@@ -2823,6 +3619,12 @@ def main() -> int:
     t0 = time.perf_counter()
     granite = phase_granite(torch)
     log(f"  phase 11 in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 12: MoE serving on the resident plane, qwen3-moe-30b-a3b")
+    t0 = time.perf_counter()
+    moe_res = phase_moe(torch)
+    log(f"  phase 12 in {time.perf_counter() - t0:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"spec": spec}), flush=True)
 
@@ -2848,6 +3650,11 @@ def main() -> int:
                                 "max_abs_err"],
                             per_launch=granite["kernels"]["ecdp"][
                                 "per_launch"]),
+         "at_qwen3_moe": dict(moe_res["kernels"]["lm_head"],
+                              launches=moe_res["full"]["launches"]["ecdp"],
+                              per_step=moe_res["full"]["per_step"]["ecdp"],
+                              at="lm_head alone (the MoE step's one ECDP "
+                                 "call)"),
          "bf16_instances": mma_res["ecdp"]},
         {"name": "paged_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
@@ -2867,6 +3674,9 @@ def main() -> int:
          "at_granite": dict(granite["kernels"]["paged_attn"],
                             launches=granite["full"]["launches"][
                                 "paged_attn"]),
+         "at_qwen3_moe": dict(moe_res["kernels"]["paged_attn"],
+                              launches=moe_res["full"]["launches"][
+                                  "paged_attn"]),
          "instances": pa_inst},
         {"name": "paged_ecdp_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_ecdp.cu",
@@ -2898,7 +3708,36 @@ def main() -> int:
                f"lengths {DECODE_MAIN_LEN} (one layer of an OPT-6.7B decode "
                "step)",
          "at_long_ctx": da_res["at_long_ctx"],
+         "at_qwen3_moe_offline": dict(
+             launches=moe_res["offline"]["launches"]["decode_attn"],
+             at="12(d): 2 layers, 8 decode steps (warm-up + capture + 8 "
+                "eager bodies)"),
          "instances": da_inst},
+        {"name": "grouped_ecdp_matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/grouped_ecdp.cu",
+         "replaces": "src/repro/kernels/ecdp.py:72",
+         "launches": moe_res["full"]["launches"]["grouped_ecdp"],
+         "replayed_in_profile": moe_res["full"]["profile"]["records"][
+             "grouped_ecdp"],
+         "max_abs_err": moe_res["kernels"]["grouped"]["max_abs_err"],
+         "ms": moe_res["full"]["step"]["ms"],
+         "kernel_ms": moe_res["full"]["step"]["ms"],
+         "plain_ms": moe_res["full"]["step"]["plain_ms"],
+         "bound_ms": moe_res["full"]["step"]["bound_ms"],
+         "bound_by": moe_res["full"]["step"]["bound_by"],
+         "library_ms": moe_res["full"]["step"]["library_ms"],
+         "at": f"one {MOE_ARCH} serving step's {MOE_LAYERS * 3} grouped "
+               f"calls back to back ({MOE_LAYERS} of 48 layers x (w_gate, "
+               "w_up, w_down) over a real 64-token route at k=8, ECC off); "
+               "the ECDP of the reference's expert banks "
+               "(src/repro/models/moe.py:105, one product per expert over "
+               "the dispatch buffer) with an expert axis",
+         "with_lm_head_ms": moe_res["full"]["step"]["with_lm_head_ms"],
+         "per_launch": moe_res["kernels"]["grouped"]["per_launch"],
+         "capacity_layouts": moe_res["kernels"]["grouped"][
+             "capacity_layouts"],
+         "routed_rows": moe_res["kernels"]["grouped"]["route"],
+         "bf16_instances": ge_inst},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

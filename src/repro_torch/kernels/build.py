@@ -29,7 +29,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("ecdp", "paged_attn", "paged_ecdp", "decode_attn")
+SOURCES = ("ecdp", "paged_attn", "paged_ecdp", "decode_attn",
+           "grouped_ecdp")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

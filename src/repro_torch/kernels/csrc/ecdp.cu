@@ -18,48 +18,11 @@
 // weights, so the same output, and no second pass. bf16 activations run on
 // the tensor cores (mma.sync, 16-byte cp.async loads, two stages), f32
 // activations on CUDA cores; see ecdp_core.cuh, shared with paged_ecdp.cu.
-// This file gives the body the dense addressing (codeword rows N bytes
-// apart). The card has 132 SMs but N/128 blocks can be as few as 32, so K
-// is split over gridDim.y (the wrapper's launch plan) with a fixed-order
-// reduction.
+// This file gives the body the dense addressing (DenseWeight in
+// ecdp_core.cuh: codeword rows N bytes apart). The card has 132 SMs but
+// N/128 blocks can be as few as 32, so K is split over gridDim.y (the
+// wrapper's launch plan) with a fixed-order reduction.
 #include "ecdp_core.cuh"
-
-namespace {
-
-// The weight as a dense (K, N) int8 matrix, (K/8, N) parity, (N,) scales.
-struct DenseWeight {
-  const int8_t* wq;
-  const uint8_t* parity;
-  const float* scale;
-  int N;
-
-  __device__ __forceinline__ unsigned long long word(int k, int n) const {
-    const int8_t* wp = wq + (size_t)k * N + n;
-    unsigned long long w = 0;
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-      w |= (unsigned long long)(uint8_t)__ldg(wp + (size_t)r * N) << (8 * r);
-    return w;
-  }
-  __device__ __forceinline__ int8_t q_byte(int k, int n) const {
-    return __ldg(wq + (size_t)k * N + n);
-  }
-  __device__ __forceinline__ const int8_t* q_rows(int k0, int n0) const {
-    return wq + (size_t)k0 * N + n0;
-  }
-  __device__ __forceinline__ int q_stride() const { return N; }
-  __device__ __forceinline__ unsigned parity_byte(int k, int n) const {
-    return __ldg(parity + (size_t)(k >> 3) * N + n);
-  }
-  __device__ __forceinline__ const uint8_t* p16(int c, int n0) const {
-    return parity + (size_t)c * N + n0;
-  }
-  __device__ __forceinline__ float col_scale(int n) const {
-    return __ldg(scale + n);
-  }
-};
-
-}  // namespace
 
 // a (M,K) bf16 (a_bf16=1) or f32; wq (K,N) int8; parity (K/8,N) u8;
 // scale (N,) f32; out (M,N) f32. k_split, m_tile, wide and partial's size

@@ -1,5 +1,6 @@
-// The ECDP kernel body, shared by ecdp.cu (a dense (K,N) int8 weight) and
-// paged_ecdp.cu (the same weight as 16 KiB pages of the weight page pool).
+// The ECDP kernel body, shared by ecdp.cu (a dense (K,N) int8 weight),
+// paged_ecdp.cu (the same weight as 16 KiB pages of the weight page pool)
+// and grouped_ecdp.cu (an (E,K,N) expert bank, rows grouped by expert).
 //
 // out = (a @ correct(w)) * scale, a (M,K) bf16 or f32, w raw int8 read as
 // stored (possibly with bit errors), Hamming(72,64) SEC-DED parity per
@@ -56,6 +57,11 @@
 //     in runs of 64, one launch each), corrects each codeword in registers
 //     and multiplies in f32 FMAs against activations staged as f32 in
 //     shared memory; K split over gridDim.y as above.
+// Expert-grouped (bf16 only): grouped_ecdp_mma_kernel runs the same tile
+// body (mma_tile) with gridDim.z walking the experts of a bank instead of
+// M tiles: expert e's rows are row_start[e] .. row_start[e+1]-1 of a, read
+// from the device, so a block with no rows exits at once and one launch
+// covers a whole bank. The Bank template parameter maps e to a W above.
 // The wrappers allocate the output and the partials; nothing here
 // allocates, and every launch goes to the caller's stream.
 #pragma once
@@ -206,6 +212,39 @@ ecdp_kernel(const AT* __restrict__ a, const W w, float* __restrict__ out,
       if (m < M) part[(size_t)m * N + n] = acc[m];
   }
 }
+
+// The weight as a dense (K, N) int8 matrix, (K/8, N) parity, (N,) scales.
+struct DenseWeight {
+  const int8_t* wq;
+  const uint8_t* parity;
+  const float* scale;
+  int N;
+
+  __device__ __forceinline__ unsigned long long word(int k, int n) const {
+    const int8_t* wp = wq + (size_t)k * N + n;
+    unsigned long long w = 0;
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+      w |= (unsigned long long)(uint8_t)__ldg(wp + (size_t)r * N) << (8 * r);
+    return w;
+  }
+  __device__ __forceinline__ int8_t q_byte(int k, int n) const {
+    return __ldg(wq + (size_t)k * N + n);
+  }
+  __device__ __forceinline__ const int8_t* q_rows(int k0, int n0) const {
+    return wq + (size_t)k0 * N + n0;
+  }
+  __device__ __forceinline__ int q_stride() const { return N; }
+  __device__ __forceinline__ unsigned parity_byte(int k, int n) const {
+    return __ldg(parity + (size_t)(k >> 3) * N + n);
+  }
+  __device__ __forceinline__ const uint8_t* p16(int c, int n0) const {
+    return parity + (size_t)c * N + n0;
+  }
+  __device__ __forceinline__ float col_scale(int n) const {
+    return __ldg(scale + n);
+  }
+};
 
 // --- the tensor-core body (bf16 activations) --------------------------------
 
@@ -389,26 +428,30 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// One block's share of a product: 128 columns from n0, the M tile of BM
+// rows from m0 (rows past M are zero-filled and not written), K rows
+// k_begin..k_end-1. Row m goes out at dst + m * N, times its column's scale
+// when `whole`, else as a partial sum. syn2bit is initialised; the stages
+// are free on entry (the caller syncs between two tiles of one block).
 // Warp w owns block rows 64(w/4).. (WM of them) and columns 32(w%4)..
 // 32(w%4)+31; its n8 tile j, MMA column 0 <= c < 8, is block column
-// 32(w%4) + 4c + j.
-template <int BM, bool WIDE, typename W>
-__global__ void __launch_bounds__(mma_threads(BM))
-ecdp_mma_kernel(const __nv_bfloat16* __restrict__ a, const W w,
-                float* __restrict__ out, int M, int K, int N, int k_split,
-                int ecc) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ int syn2bit[128];
+// 32(w%4) + 4c + j. With SKIP, a warp skips its m16 tiles past M
+// (warp-uniform; the grouped kernel's experts hold a few rows of a 64-row
+// tile); without it the products of every m16 tile issue unbranched.
+template <int BM, bool WIDE, bool SKIP, typename W>
+__device__ __forceinline__ void mma_tile(const __nv_bfloat16* __restrict__ a,
+                                         const W& w, float* __restrict__ dst,
+                                         bool whole, int M, int K, int N,
+                                         int m0, int n0, int k_begin,
+                                         int k_end, int ecc,
+                                         unsigned char* smem,
+                                         const int* syn2bit) {
   constexpr int S = STAGES, NT = mma_threads(BM), WM = BM < 64 ? BM : 64;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int wn = 32 * (warp & 3), wm = 64 * (warp >> 2);
-  const int n0 = blockIdx.x * COLS, m0 = blockIdx.z * BM;
-  const int k_begin = blockIdx.y * k_split;
-  const int k_end = min(K, k_begin + k_split);
   const int n_steps = (k_end - k_begin + KT - 1) / KT;
-
-  init_syn2bit(syn2bit);
+  const int rows = min(BM, M - m0);
 
   float acc[WM / 16][4][4];
 #pragma unroll
@@ -462,6 +505,7 @@ ecdp_mma_kernel(const __nv_bfloat16* __restrict__ a, const W w,
       }
 #pragma unroll
       for (int mt = 0; mt < WM / 16; ++mt) {
+        if (SKIP && wm + 16 * mt >= rows) break;
         unsigned af[4];
         ldsm_x4(af, &s.a[(wm + 16 * mt + (lane & 15)) * AS + kb
                          + (lane >> 4) * 8]);
@@ -486,13 +530,63 @@ ecdp_mma_kernel(const __nv_bfloat16* __restrict__ a, const W w,
   __syncthreads();
   const int c = tid % COLS, n = n0 + c;
   if (n >= N) return;
-  const bool whole = gridDim.y == 1;
   const float sc = whole ? w.col_scale(n) : 1.f;
-  float* dst = (whole ? out : out + (size_t)blockIdx.y * M * N) + n;
-  const int rows = min(BM, M - m0);
+  float* col = dst + n;
   for (int r = tid / COLS; r < rows; r += NT / COLS) {
     const float v = c_s[r * CS + c];
-    dst[(size_t)(m0 + r) * N] = whole ? v * sc : v;
+    col[(size_t)(m0 + r) * N] = whole ? v * sc : v;
+  }
+}
+
+// One tile of a (M,K) x (K,N) product a block: gridDim.x walks the column
+// blocks, gridDim.y the K splits, gridDim.z the M tiles.
+template <int BM, bool WIDE, typename W>
+__global__ void __launch_bounds__(mma_threads(BM))
+ecdp_mma_kernel(const __nv_bfloat16* __restrict__ a, const W w,
+                float* __restrict__ out, int M, int K, int N, int k_split,
+                int ecc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int syn2bit[128];
+  init_syn2bit(syn2bit);
+  const int k_begin = blockIdx.y * k_split;
+  const bool whole = gridDim.y == 1;
+  mma_tile<BM, WIDE, false>(
+      a, w, whole ? out : out + (size_t)blockIdx.y * M * N, whole, M, K, N,
+      blockIdx.z * BM, blockIdx.x * COLS, k_begin, min(K, k_begin + k_split),
+      ecc, smem, syn2bit);
+}
+
+// The expert-grouped product: a (R,K) holds the rows of expert e at
+// row_start[e] .. row_start[e+1]-1 (nondecreasing, within [0, R]); they
+// are multiplied by bank.expert(e), a W as above, into the same rows of
+// out (R,N). gridDim.x walks the column blocks, gridDim.y the K splits,
+// gridDim.z the experts; a block whose expert has no rows exits before it
+// reads a weight byte, and one with more than BM walks them BM at a time.
+// Rows outside row_start[0] .. row_start[E]-1 are not written.
+template <int BM, bool WIDE, typename Bank>
+__global__ void __launch_bounds__(mma_threads(BM))
+grouped_ecdp_mma_kernel(const __nv_bfloat16* __restrict__ a, const Bank bank,
+                        const int* __restrict__ row_start,
+                        float* __restrict__ out, int R, int K, int N,
+                        int k_split, int ecc) {
+  const int e = blockIdx.z;
+  const int r0 = __ldg(row_start + e), r1 = __ldg(row_start + e + 1);
+  if (r1 <= r0) return;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int syn2bit[128];
+  init_syn2bit(syn2bit);
+  const auto w = bank.expert(e);
+  const int k_begin = blockIdx.y * k_split;
+  const int k_end = min(K, k_begin + k_split);
+  const bool whole = gridDim.y == 1;
+  float* dst = (whole ? out : out + (size_t)blockIdx.y * R * N)
+               + (size_t)r0 * N;
+  const __nv_bfloat16* ae = a + (size_t)r0 * K;
+  for (int m0 = 0; m0 < r1 - r0; m0 += BM) {
+    if (m0) __syncthreads();  // the last tile's output has left shared memory
+    mma_tile<BM, WIDE, true>(ae, w, dst, whole, r1 - r0, K, N, m0,
+                             blockIdx.x * COLS, k_begin, k_end, ecc, smem,
+                             syn2bit);
   }
 }
 
@@ -600,6 +694,82 @@ int ecdp_launch(const void* a, int a_bf16, const W& w, void* out,
           static_cast<const float*>(partial), w, rows_out, mc, N, gy);
     }
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[r, n] = scale_e[n] * sum over splits of part[split, r, n] for the
+// rows r of expert e = blockIdx.y, in a fixed order.
+template <typename Bank>
+__global__ void grouped_ecdp_reduce(const float* __restrict__ part,
+                                    const Bank bank,
+                                    const int* __restrict__ row_start,
+                                    float* __restrict__ out, int R, int N,
+                                    int splits) {
+  const int e = blockIdx.y, n = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r0 = __ldg(row_start + e), r1 = __ldg(row_start + e + 1);
+  if (n >= N || r1 <= r0) return;
+  const float sc = bank.expert(e).col_scale(n);
+  const size_t rn = (size_t)R * N;
+  for (int r = r0; r < r1; ++r) {
+    float s = 0.f;
+    for (int j = 0; j < splits; ++j) s += part[j * rn + (size_t)r * N + n];
+    out[(size_t)r * N + n] = s * sc;
+  }
+}
+
+template <int BM, bool WIDE, typename Bank>
+int launch_grouped(const __nv_bfloat16* a, const Bank& bank,
+                   const int* row_start, float* dst, int E, int R, int K,
+                   int N, int k_split, int gy, int ecc, cudaStream_t st) {
+  constexpr int smem = mma_smem_bytes<BM>();
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        grouped_ecdp_mma_kernel<BM, WIDE, Bank>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((N + COLS - 1) / COLS, gy, E);
+  grouped_ecdp_mma_kernel<BM, WIDE, Bank><<<grid, mma_threads(BM), smem,
+                                            st>>>(a, bank, row_start, dst, R,
+                                                  K, N, k_split, ecc);
+  return 0;
+}
+
+// The launches of one grouped product (bf16 activations only): the
+// tensor-core body over E experts in M tiles of m_tile (16 or 64) rows, K
+// cut into runs of k_split rows (a multiple of 64), and a per-expert
+// reduce when there is more than one run (partial holds splits*R*N
+// floats). Returns cudaGetLastError() after the launches
+// (cudaErrorInvalidValue for a plan the kernels do not take).
+template <typename Bank>
+int grouped_ecdp_launch(const void* a, const Bank& bank, const int* row_start,
+                        void* out, void* partial, int E, int R, int K, int N,
+                        int k_split, int m_tile, int wide, int ecc,
+                        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k_split < KT || k_split % KT || (m_tile != 16 && m_tile != 64) ||
+      E < 1 || E > 65535)
+    return cudaErrorInvalidValue;
+  const int gy = (K + k_split - 1) / k_split;
+  float* dst = gy == 1 ? static_cast<float*>(out)
+                       : static_cast<float*>(partial);
+  const auto* ab = static_cast<const __nv_bfloat16*>(a);
+  int err;
+  if (m_tile == 16)
+    err = wide ? launch_grouped<16, true>(ab, bank, row_start, dst, E, R, K,
+                                          N, k_split, gy, ecc, st)
+               : launch_grouped<16, false>(ab, bank, row_start, dst, E, R, K,
+                                           N, k_split, gy, ecc, st);
+  else
+    err = wide ? launch_grouped<64, true>(ab, bank, row_start, dst, E, R, K,
+                                          N, k_split, gy, ecc, st)
+               : launch_grouped<64, false>(ab, bank, row_start, dst, E, R, K,
+                                           N, k_split, gy, ecc, st);
+  if (err) return err;
+  if (gy > 1)
+    grouped_ecdp_reduce<Bank><<<dim3((N + 127) / 128, E), 128, 0, st>>>(
+        static_cast<const float*>(partial), bank, row_start,
+        static_cast<float*>(out), R, N, gy);
   return static_cast<int>(cudaGetLastError());
 }
 

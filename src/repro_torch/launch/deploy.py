@@ -62,7 +62,8 @@ def run_deploy(arch: str, smoke: bool, ckpt_dir: str | None, out_dir: str,
         # the streamed engine also needs per-layer flash Q/K/V/O copies
         # (Alg. 2's in-flash projection targets); program them into the
         # image so it is SELF-CONTAINED — ``serve --store-image`` opens it
-        # read-only and has nothing left to program.
+        # read-only and has nothing left to program. (MoE attention stays
+        # DRAM-tier.)
         from repro_torch.core.tiering import program_attn_flash
         program_attn_flash(store, params["layers"]["attn"], cfg.n_layers,
                            rber=rber, seed=seed)

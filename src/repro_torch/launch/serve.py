@@ -27,10 +27,12 @@ ObsPlane Chrome trace; ``--stats-interval S`` prints a structured ``stats
 {json}`` line every S seconds; the HTTP frontend also serves Prometheus
 text on ``GET /v1/metrics``.
 
-The engine serves dense-family archs; MoE serving (ROADMAP §A.3) and
-tensor-parallel ``--shards`` (ROADMAP §A.4) are not ported yet. Like the
-reference, ``--smoke`` is always on at the command line: full width is
-``build_engine(arch, smoke=False)``.
+The engine serves dense- and MoE-family archs (``--arch
+qwen3-moe-30b-a3b``, ``phi3.5-moe-42b-a6.6b``); MoE serves on the resident
+plane only: streamed MoE (``--stream`` / ``--store-image`` with a MoE arch,
+ROADMAP §A.3) and tensor-parallel ``--shards`` (ROADMAP §A.4) are not
+ported yet. Like the reference, ``--smoke`` is always on at the command
+line: full width is ``build_engine(arch, smoke=False)``.
 """
 from __future__ import annotations
 
@@ -73,9 +75,11 @@ def build_engine(arch: str = "opt-tiny", smoke: bool = True,
     cfg = OPT_TINY if arch == "opt-tiny" else get_config(arch, smoke=smoke)
     if cfg.family not in ("dense", "moe"):
         raise SystemExit("engine serves dense- and moe-family archs")
-    if cfg.family == "moe":
-        raise SystemExit(f"{arch}: the port serves dense-family archs; MoE "
-                         f"serving is not ported yet (ROADMAP §A.3)")
+    if cfg.family == "moe" and (stream or store_image is not None):
+        raise SystemExit(f"{arch}: the port serves MoE archs on the resident "
+                         f"plane; streamed MoE serving (--stream, "
+                         f"--store-image) is not ported yet (ROADMAP §A.3, "
+                         f"streamed half)")
     if shards > 1:
         raise SystemExit(f"--shards {shards}: the port serves on one device; "
                          f"tensor-parallel serving is not ported yet "

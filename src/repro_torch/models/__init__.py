@@ -3,17 +3,17 @@
 
 A family module exposes ``init``, ``prefill(cfg, params, batch, pad_to)``,
 ``decode_step(cfg, params, cache, batch)`` and ``cache_shape(cfg, batch,
-max_seq)``. The port holds the dense family so far.
+max_seq)``. The port holds the dense and MoE families.
 """
 from __future__ import annotations
 
 import importlib
 
-_FAMILIES = {"dense": "repro_torch.models.dense"}
+_FAMILIES = {"dense": "repro_torch.models.dense",
+             "moe": "repro_torch.models.moe"}
 # families of the reference the port does not hold yet, and where ROADMAP.md
 # queues them
-_NOT_PORTED = {"moe": "ROADMAP §A.3",
-               "rglru": "ROADMAP §A.5", "rwkv6": "ROADMAP §A.5",
+_NOT_PORTED = {"rglru": "ROADMAP §A.5", "rwkv6": "ROADMAP §A.5",
                "encdec": "ROADMAP §A.5"}
 
 

@@ -2,7 +2,9 @@
 ``repro/models/dense.py``: the norm and FFN dispatch, ``attn_cfg``, an
 ``init`` of the port's own, and the offline inference API — ``forward``,
 ``prefill``, ``decode_step`` (a host check and a device body, which
-``launch.steps`` captures in a CUDA graph), ``cache_shape``.
+``launch.steps`` captures in a CUDA graph), ``cache_shape``. The layer
+bodies take the FFN as a hook (``dense_ffn``), which the MoE family
+replaces with its expert FFN.
 
 Params are plain nested dicts of tensors with the JAX package's names and
 layout: per-layer weights (bf16 tensors or stacked ``FlashWeight``s) are
@@ -38,6 +40,12 @@ def _ffn_apply(cfg, p, x):
     return cm.gelu_ffn_apply(p, x)
 
 
+def dense_ffn(cfg, lp, h):
+    """A layer's FFN on its normed input: the family's hook into the layer
+    bodies below (``models/moe.py`` passes its expert FFN)."""
+    return _ffn_apply(cfg, lp["ffn"], h)
+
+
 def layer_slice(tree, li):
     """Layer ``li`` of a stacked param tree (views, no copies)."""
     if isinstance(tree, dict):
@@ -52,7 +60,7 @@ def _final_norm(cfg, params, x):
                          params["final_norm"]["b"])
 
 
-def _layer_fwd(cfg, x, lp, positions, collect_kv=True):
+def _layer_fwd(cfg, x, lp, positions, collect_kv=True, ffn=dense_ffn):
     """Full-sequence layer forward; returns (x, (k, v) or None)."""
     h = _norm(cfg, x, lp, "ln1")
     q, k, v = cm.qkv_project(lp["attn"], h, attn_cfg(cfg), positions)
@@ -60,7 +68,7 @@ def _layer_fwd(cfg, x, lp, positions, collect_kv=True):
     b, s, _, _ = attn.shape
     attn = maybe_flash_matmul(attn.reshape(b, s, -1), lp["attn"]["wo"])
     x = x + attn
-    x = x + _ffn_apply(cfg, lp["ffn"], _norm(cfg, x, lp, "ln2"))
+    x = x + ffn(cfg, lp, _norm(cfg, x, lp, "ln2"))
     return x, ((k, v) if collect_kv else None)
 
 
@@ -73,9 +81,11 @@ def _embed(cfg, params, tokens, positions, extra_embeds=None):
     return x
 
 
-def forward(cfg, params, tokens, extra_embeds=None, return_cache=False):
+def forward(cfg, params, tokens, extra_embeds=None, return_cache=False,
+            ffn=dense_ffn):
     """Prefill forward. tokens (B, S) -> logits (B, S_tot, V) f32, and with
-    ``return_cache`` the cache {"k"/"v": (L, B, S_tot, KV, Dh)}."""
+    ``return_cache`` the cache {"k"/"v": (L, B, S_tot, KV, Dh)}. ``ffn``
+    is each layer's FFN (``dense_ffn``'s signature)."""
     b, s = tokens.shape
     n_extra = extra_embeds.shape[1] if extra_embeds is not None else 0
     positions = torch.arange(s + n_extra, device=tokens.device)
@@ -83,7 +93,7 @@ def forward(cfg, params, tokens, extra_embeds=None, return_cache=False):
     ks, vs = [], []
     for li in range(cfg.n_layers):
         x, kv = _layer_fwd(cfg, x, layer_slice(params["layers"], li),
-                           positions, collect_kv=return_cache)
+                           positions, collect_kv=return_cache, ffn=ffn)
         if return_cache:
             ks.append(kv[0])
             vs.append(kv[1])
@@ -94,12 +104,12 @@ def forward(cfg, params, tokens, extra_embeds=None, return_cache=False):
     return logits
 
 
-def prefill(cfg, params, batch, pad_to: int | None = None):
+def prefill(cfg, params, batch, pad_to: int | None = None, ffn=dense_ffn):
     """Returns (last_logits (B, V), cache). batch: {"tokens" (B, S)[,
     "patch_embeds"]}. Cache padded with zero rows to ``pad_to``."""
     extra = batch.get("patch_embeds")
     logits, cache = forward(cfg, params, batch["tokens"], extra_embeds=extra,
-                            return_cache=True)
+                            return_cache=True, ffn=ffn)
     if pad_to is not None:
         s = cache["k"].shape[2]
         if pad_to < s:
@@ -121,7 +131,7 @@ def decode_check(cache, batch) -> int:
     return kv_len
 
 
-def decode_body(cfg, params, cache, token, kv_len):
+def decode_body(cfg, params, cache, token, kv_len, ffn=dense_ffn):
     """The device half of ``decode_step``: token (B,) int, kv_len a (1,)
     int64 device tensor (a checked one). Reads no tensor on the host, so
     ``launch.steps.make_decode_step(compiled=True)`` captures it. Returns
@@ -138,7 +148,7 @@ def decode_body(cfg, params, cache, token, kv_len):
         b = attn.shape[0]
         attn = maybe_flash_matmul(attn.reshape(b, 1, -1), lp["attn"]["wo"])
         x = x + attn
-        x = x + _ffn_apply(cfg, lp["ffn"], _norm(cfg, x, lp, "ln2"))
+        x = x + ffn(cfg, lp, _norm(cfg, x, lp, "ln2"))
         # rows >= kv_len are masked in every later read of this step
         cache["k"][li].index_copy_(1, positions, k.to(cache["k"].dtype))
         cache["v"][li].index_copy_(1, positions, v.to(cache["v"].dtype))
@@ -147,7 +157,7 @@ def decode_body(cfg, params, cache, token, kv_len):
                               out_dtype=torch.float32)
 
 
-def decode_step(cfg, params, cache, batch):
+def decode_step(cfg, params, cache, batch, ffn=dense_ffn):
     """One decode step. batch: {"token" (B,), "kv_len" host int: the filled
     prefix}. cache: {"k"/"v": (L, B, Smax, KV, Dh)}. Returns (logits (B, V)
     f32, cache).
@@ -163,7 +173,7 @@ def decode_step(cfg, params, cache, batch):
     kv_len = decode_check(cache, batch)
     token = batch["token"]
     pos = torch.full((1,), kv_len, dtype=torch.int64, device=token.device)
-    return decode_body(cfg, params, cache, token, pos), cache
+    return decode_body(cfg, params, cache, token, pos, ffn=ffn), cache
 
 
 def cache_shape(cfg, batch: int, max_seq: int) -> dict:
@@ -173,30 +183,39 @@ def cache_shape(cfg, batch: int, max_seq: int) -> dict:
             "v": torch.empty(kv, dtype=torch.bfloat16, device="meta")}
 
 
-def init(cfg, generator: torch.Generator, device="cuda") -> dict:
+def init_stack(generator: torch.Generator, lead: tuple, k: int, n: int,
+               device) -> torch.Tensor:
+    """A (*lead, K, N) bf16 stack of ``common.dense_init`` matrices, drawn
+    one (K, N) matrix at a time."""
+    w = torch.empty(lead + (k, n), dtype=torch.bfloat16, device=device)
+    flat = w.view((-1, k, n))
+    for i in range(flat.shape[0]):
+        flat[i] = cm.dense_init(generator, k, n, torch.bfloat16, device)
+    return w
+
+
+def init(cfg, generator: torch.Generator, device="cuda",
+         ffn: bool = True) -> dict:
     """Random params with the shapes, distributions and scales of the JAX
     ``dense.init`` (bf16; dense_init / embed_init scales; LayerNorm gains 1
     and biases 0, RMSNorm gammas 0, qk-norm gammas 0 too). Numbers are
     drawn on the generator's device and placed on ``device`` one (K, N)
-    matrix at a time, so no full-model f32 temporary exists."""
+    matrix at a time, so no full-model f32 temporary exists. ``ffn=False``
+    leaves the FFN out (the MoE family draws its expert banks itself)."""
     bf = torch.bfloat16
     d, h, kv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
     n_l = cfg.n_layers
     mats = {"attn": {"wq": (d, h * dh), "wk": (d, kv * dh),
                      "wv": (d, kv * dh), "wo": (h * dh, d)}}
-    if cfg.ffn_type == "swiglu":
-        mats["ffn"] = {"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
-    else:
-        mats["ffn"] = {"w_up": (d, f), "w_down": (f, d)}
+    if ffn:
+        mats["ffn"] = ({"w_gate": (d, f), "w_up": (d, f), "w_down": (f, d)}
+                       if cfg.ffn_type == "swiglu"
+                       else {"w_up": (d, f), "w_down": (f, d)})
     layers: dict = {}
     for group, shapes in mats.items():
-        layers[group] = {}
-        for name, (k, n) in shapes.items():
-            w = torch.empty((n_l, k, n), dtype=bf, device=device)
-            for li in range(n_l):
-                w[li] = cm.dense_init(generator, k, n, bf, device)
-            layers[group][name] = w
+        layers[group] = {name: init_stack(generator, (n_l,), k, n, device)
+                         for name, (k, n) in shapes.items()}
     if cfg.qk_norm:                      # per-head RMSNorm gammas, zeros
         for name in ("q_norm", "k_norm"):
             layers["attn"][name] = torch.zeros((n_l, dh), dtype=bf,

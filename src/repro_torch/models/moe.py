@@ -1,0 +1,293 @@
+"""Mixture-of-Experts decoder family (qwen3-moe-30b-a3b, phi3.5-moe-42b) —
+the port of ``repro/models/moe.py``.
+
+The dense family's skeleton (``models/dense.py``: its layer bodies take
+the FFN as a hook) with the FFN replaced by a top-k MoE. Two dispatches,
+as in the reference:
+
+  * ``moe_apply`` — the offline path's sorted CAPACITY dispatch: top-k
+    routing per token, a stable sort by expert id, rank within the expert
+    from an exclusive cumsum of the counts, assignments at rank >=
+    capacity to a trash row; tokens go into an (E, C+1, D) buffer, every
+    expert runs on its C+1 rows, and a gather brings them back, gate-
+    weighted and summed over the k copies. Outside a mesh the reference's
+    group count is 1, so there is one token group and no mesh code.
+  * ``serve_route`` + ``serve_expert_ffn`` — the serving engine's LOSSLESS
+    dispatch: every (token, k) assignment owns its own row, so no capacity
+    drops, and each expert's result is independent of the bank's
+    composition (a partial slab with ``slab_map`` gives the full bank's
+    outputs bit for bit).
+
+A flash-tier (``FlashWeight``) bank of stacked (E, K, N) experts is read
+RAW, with ECC off, as the reference's ``_expert_matmul`` reads it
+(``ops.ecdp_matmul_xla``'s default): correction folds in at deployment. It
+runs through the expert-grouped ECDP (``kernels/grouped_ecdp.py``), one
+launch per bank matrix: the routed rows sorted by expert and
+``row_start`` from the counts, all on the device (no host read, so the
+engine's captured step holds it). A plain bf16 bank takes the
+reference's dense buffer and a batched product. A pool-paged bank
+(``PagedWeight``) is the streamed half of ROADMAP §A.3 and is refused.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.erdpe import flash_matmul_grouped
+from repro_torch.core.tiering import FlashWeight, PagedWeight
+from repro_torch.models import dense
+
+_STREAMED = ("a pool-paged expert bank is the streamed MoE plane, not "
+             "ported yet (ROADMAP §A.3, streamed half)")
+
+
+# --- init ---------------------------------------------------------------------
+
+def moe_init(cfg, generator: torch.Generator, device="cuda",
+             lead: tuple = ()) -> dict:
+    """One MoE FFN's params (``lead`` stacks them, e.g. (L,)): the router
+    (D, E) and the expert banks w_gate/w_up (E, D, F), w_down (E, F, D),
+    bf16 with the JAX ``moe_init``'s shapes and scales."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    return {"router": dense.init_stack(generator, lead, d, e, device),
+            "experts": {
+                "w_gate": dense.init_stack(generator, lead + (e,), d, f,
+                                           device),
+                "w_up": dense.init_stack(generator, lead + (e,), d, f,
+                                         device),
+                "w_down": dense.init_stack(generator, lead + (e,), f, d,
+                                           device)}}
+
+
+def init(cfg, generator: torch.Generator, device="cuda") -> dict:
+    """Random params with the JAX ``moe.init``'s tree, shapes and scales:
+    the dense family's attention, norms, embedding and lm_head, and a
+    layer-stacked ``layers/moe`` (router (L, D, E), banks (L, E, K, N))."""
+    params = dense.init(cfg, generator, device, ffn=False)
+    params["layers"]["moe"] = moe_init(cfg, generator, device,
+                                       (cfg.n_layers,))
+    return params
+
+
+# --- expert products ----------------------------------------------------------
+
+def _refuse_paged(w):
+    if isinstance(w, PagedWeight):
+        raise ValueError(_STREAMED)
+
+
+def _expert_matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """x: (E, C, K) bf16 — expert e's rows x[e] — @ w (E, K, N) -> (E, C, N)
+    bf16. A FlashWeight bank runs the grouped ECDP with ECC off over the
+    E * C rows (expert e's at e * C); a plain bank the f32 product of the
+    bf16 operands, rounded to bf16."""
+    _refuse_paged(w)
+    e, c, k = x.shape
+    if isinstance(w, FlashWeight):
+        row_start = torch.arange(0, (e + 1) * c, c, dtype=torch.int32,
+                                 device=x.device)
+        out = flash_matmul_grouped(x.reshape(e * c, k), w, row_start,
+                                   ecc_enabled=False, max_rows=c)
+        return out.reshape(e, c, -1)
+    return torch.bmm(x.float(), w.float()).to(torch.bfloat16)
+
+
+def _swiglu_bank(bank, xb, dtype, matmul=_expert_matmul):
+    """The experts' SwiGLU on their rows: down(silu(gate) * up), each
+    product ``matmul(rows, bank matrix)`` rounded to bf16."""
+    h_g = matmul(xb, bank["w_gate"])
+    h_u = matmul(xb, bank["w_up"])
+    h = (F.silu(h_g.float()) * h_u.float()).to(dtype)
+    return matmul(h, bank["w_down"])
+
+
+# --- capacity dispatch (offline path) ----------------------------------------
+
+def _route(xt, router, k: int):
+    """The capacity dispatch's top-k routing of xt (Tg, D): (gates (Tg, k)
+    f32, softmax over the selected logits, idx (Tg, k))."""
+    gates, idx = torch.topk(xt.float() @ router.float(), k)
+    return torch.softmax(gates, dim=-1), idx
+
+
+def _dispatch_group(cfg, xt, router, capacity_factor, dtype):
+    """Capacity dispatch for one token group. xt: (Tg, D). Returns (buf
+    (E, C+1, D), combine metadata)."""
+    tg, d = xt.shape
+    e, k = cfg.n_experts, cfg.top_k
+    gates, idx = _route(xt, router, k)                        # (Tg, k)
+    flat_e = idx.reshape(-1)                                  # (Tg*k,)
+    dev = xt.device
+    flat_tok = torch.arange(tg, device=dev)[:, None].expand(tg, k)
+    flat_tok = flat_tok.reshape(-1)
+    cap = max(int(tg * k / e * capacity_factor), 1)
+
+    e_sorted, order = torch.sort(flat_e, stable=True)
+    counts = torch.zeros((e,), dtype=torch.int64, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    starts = torch.cumsum(counts, 0) - counts                 # exclusive
+    rank = torch.arange(tg * k, device=dev) - starts[e_sorted]
+    slot = torch.clamp(rank, max=cap)                         # cap -> trash
+
+    buf = torch.zeros((e, cap + 1, d), dtype=dtype, device=dev)
+    buf[e_sorted, slot] = xt[flat_tok[order]].to(dtype)
+    buf[:, cap] = 0                                           # clear trash
+
+    # unsort the (expert, slot) addresses, not the D-wide vectors: the
+    # combine is then a pure gather
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(tg * k, device=dev))
+    return buf, (gates, e_sorted[inv], slot[inv], rank[inv], cap)
+
+
+def _combine_group(out_buf, meta, d):
+    """Gather-based combine for one group. out_buf: (E, C+1, D)."""
+    gates, e_un, slot_un, rank_un, cap = meta
+    tg, k = gates.shape
+    gathered = out_buf[e_un, torch.clamp(slot_un, max=cap)]   # (Tg*k, D)
+    gathered = torch.where((rank_un >= cap)[:, None], 0.0, gathered.float())
+    weighted = gathered * gates.reshape(-1)[:, None]
+    return weighted.reshape(tg, k, d).sum(dim=1)
+
+
+def moe_apply(cfg, p, x, capacity_factor: float = 1.25):
+    """x: (B, S, D) -> (B, S, D): one token group (the reference's group
+    count outside a mesh), its capacity dispatch, the experts on their
+    (C+1)-row buffers, the combine."""
+    b, s, d = x.shape
+    buf, meta = _dispatch_group(cfg, x.reshape(b * s, d), p["router"],
+                                capacity_factor, x.dtype)
+    out_buf = _swiglu_bank(p["experts"], buf, x.dtype)        # (E, C+1, D)
+    out = _combine_group(out_buf, meta, d)
+    return out.reshape(b, s, d).to(x.dtype)
+
+
+# --- serving-engine MoE FFN ---------------------------------------------------
+
+def serve_route(router, x, top_k: int, n_groups: int = 1,
+                topk_groups: int = 0):
+    """Top-k routing for a (S, T, D) serving chunk batch: (gates (S, T, k)
+    f32 — softmax over the selected logits — and idx (S, T, k) int32).
+
+    Group-limited routing (``n_groups`` contiguous expert groups, each
+    token routing within its ``topk_groups`` best groups by the group's max
+    logit); ``topk_groups`` in {0, n_groups} disables it."""
+    logits = torch.einsum("std,de->ste", x.float(), router.float())
+    if n_groups > 1 and 0 < topk_groups < n_groups:
+        e = logits.shape[-1]
+        if e % n_groups:
+            raise ValueError(f"n_experts={e} not divisible by "
+                             f"n_expert_groups={n_groups}")
+        gsz = e // n_groups
+        lead = logits.shape[:-1]
+        gl = logits.reshape(lead + (n_groups, gsz)).amax(-1)
+        gidx = torch.topk(gl, topk_groups).indices            # (S, T, kg)
+        keep = torch.zeros(lead + (n_groups,), dtype=torch.bool,
+                           device=x.device).scatter_(-1, gidx, True)
+        keep = keep[..., None].expand(lead + (n_groups, gsz)).reshape(
+            lead + (e,))
+        logits = torch.where(keep, logits, float("-inf"))
+    gates, idx = torch.topk(logits, top_k)
+    return torch.softmax(gates, dim=-1), idx.to(torch.int32)
+
+
+def _grouped_rows(flat_row, ok, e_bank: int):
+    """The routed rows sorted by bank row (unmapped ones last, past every
+    expert): (order (A,), row_start (E+1,) int32), on the device."""
+    key = torch.where(ok, flat_row, e_bank)
+    _, order = torch.sort(key, stable=True)
+    counts = torch.zeros((e_bank + 1,), dtype=torch.int64,
+                         device=key.device).scatter_add_(
+        0, key, torch.ones_like(key))
+    row_start = torch.cat([counts.new_zeros((1,)),
+                           torch.cumsum(counts[:e_bank], 0)])
+    return order, row_start.to(torch.int32)
+
+
+def serve_expert_ffn(bank, x, gates, idx, slab_map=None):
+    """Batched-expert SwiGLU over a full or partial expert bank.
+
+    bank     : {"w_gate","w_up","w_down"} each (E_bank, K, N) FlashWeight
+               (deployed) or plain tensor.
+    x        : (S, T, D) normed FFN input; gates/idx (S, T, k).
+    slab_map : (n_experts,) int expert id -> bank row, -1 = not resident
+               (those assignments contribute 0). None = identity.
+
+    Assignment a = token * k + j owns row a. A FlashWeight bank: the rows
+    sorted by bank row, one grouped ECDP per bank matrix with ECC off, and
+    the results put back in assignment order. A plain bank: the
+    reference's (E_bank, A, D) buffer with assignment a in column a, and a
+    batched product."""
+    s, t, d = x.shape
+    k = idx.shape[-1]
+    a = s * t * k
+    row = idx if slab_map is None else slab_map[idx.long()]
+    flat_row = row.reshape(a).long()
+    ok = flat_row >= 0
+    w_gate = bank["w_gate"]
+    _refuse_paged(w_gate)
+    e_bank = w_gate.shape[0]
+    x2 = x.reshape(s * t, d)
+    if isinstance(w_gate, FlashWeight):
+        order, row_start = _grouped_rows(flat_row, ok, e_bank)
+        xs = x2.index_select(0, torch.div(order, k, rounding_mode="floor"))
+
+        def grouped(r, w):
+            # an expert gets at most S * T rows: top-k picks distinct ones
+            return flash_matmul_grouped(r, w, row_start, ecc_enabled=False,
+                                        max_rows=s * t)
+        ys = _swiglu_bank(bank, xs, x.dtype, grouped)            # (A, D)
+        out_a = torch.empty_like(ys).index_copy_(0, order, ys).float()
+    else:
+        cols = torch.arange(a, device=x.device)
+        safe = torch.where(ok, flat_row, 0)
+        xa = x2[:, None].expand(s * t, k, d).reshape(a, d)
+        buf = torch.zeros((e_bank, a, d), dtype=x.dtype, device=x.device)
+        buf[safe, cols] = torch.where(ok[:, None], xa, 0).to(x.dtype)
+        out_buf = _swiglu_bank(bank, buf, x.dtype)            # (E, A, D)
+        out_a = out_buf[safe, cols].float()
+    out_a = torch.where(ok[:, None], out_a, 0.0)
+    out = (out_a * gates.reshape(a)[:, None]).reshape(s, t, k, d).sum(dim=2)
+    return out.to(x.dtype)
+
+
+# --- offline inference API ----------------------------------------------------
+
+def _ffn(cfg, lp, h):
+    return moe_apply(cfg, lp["moe"], h)
+
+
+def _decode_ffn(cfg, lp, h):
+    return moe_apply(cfg, lp["moe"], h, capacity_factor=2.0)
+
+
+def forward(cfg, params, tokens, return_cache=False):
+    """Prefill forward: tokens (B, S) -> logits (B, S, V) f32 (and the
+    cache with ``return_cache``); the MoE FFN at capacity factor 1.25."""
+    return dense.forward(cfg, params, tokens, return_cache=return_cache,
+                         ffn=_ffn)
+
+
+def prefill(cfg, params, batch, pad_to: int | None = None):
+    """(last_logits (B, V), cache), the cache padded to ``pad_to`` rows."""
+    return dense.prefill(cfg, params, batch, pad_to=pad_to, ffn=_ffn)
+
+
+decode_check = dense.decode_check
+
+
+def decode_body(cfg, params, cache, token, kv_len):
+    """The device half of ``decode_step`` (``dense.decode_body`` with the
+    MoE FFN at capacity factor 2.0): reads no tensor on the host, so
+    ``launch.steps.make_decode_step(compiled=True)`` captures it."""
+    return dense.decode_body(cfg, params, cache, token, kv_len,
+                             ffn=_decode_ffn)
+
+
+def decode_step(cfg, params, cache, batch):
+    """One decode step (``dense.decode_step``'s contract: the cache is
+    written in place at kv_len) with the MoE FFN at capacity factor 2.0."""
+    return dense.decode_step(cfg, params, cache, batch, ffn=_decode_ffn)
+
+
+cache_shape = dense.cache_shape

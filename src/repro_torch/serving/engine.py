@@ -1,5 +1,5 @@
-"""NVLLM serving engine, resident dense plane — the port of the slice's part
-of ``repro/serving/engine.py``: the paper's end-to-end dataflow (§3.5) at
+"""NVLLM serving engine — the port of ``repro/serving/engine.py``'s dense
+planes and its resident MoE plane: the paper's end-to-end dataflow (§3.5) at
 request level, with the KV-cache-aware scheduler (Algorithm 2) in the loop.
 
   * data plane — ``_step_impl``: one MIXED prefill/decode step over a
@@ -17,6 +17,10 @@ request level, with the KV-cache-aware scheduler (Algorithm 2) in the loop.
     the compiled engine captures the whole step once in a CUDA graph and
     replays it every step (``repro_torch.graphs``) — the counterpart of
     the reference's jitted step.
+  * MoE (resident plane) — each layer's attention on the DRAM projections,
+    the router's top-k, and the deployed expert banks read raw (ECC off)
+    through one expert-grouped ECDP launch per bank matrix
+    (``models/moe.serve_expert_ffn``), inside the same captured step.
   * flash tier — FFN weights and ``lm_head`` are deployed as INT8 + parity
     (``core.tiering.deploy``) and read through the ECDP on every use; the
     Q and O projections also keep a flash copy, and Algorithm 2's bitmap
@@ -78,6 +82,7 @@ from repro_torch.core.tiering import (ATTN_FLASH_KEYS, PagedWeight, deploy,
 from repro_torch.kernels.paged_attn import _HEAD_DIMS, takes_head_dim
 from repro_torch.models import common as cm
 from repro_torch.models import dense
+from repro_torch.models import moe as moe_mod
 from repro_torch.serving import spec as spec_mod
 from repro_torch.serving.kvcache import PagedKVPool
 from repro_torch.serving.prefix import PrefixIndex, block_hashes
@@ -161,6 +166,35 @@ def _chunk_layer(cfg, bitmap, lengths, positions, block_tables, x, layer):
     out = _proj(attn.reshape(b, t, -1), ap["wo"], fl["wo"], bitmap)
     x = x + out
     x = x + dense._ffn_apply(cfg, lp["ffn"], dense._norm(cfg, x, lp, "ln2"))
+    return x, (k, v)
+
+
+def _moe_attn_router_body(cfg, lengths, positions, block_tables, x, lp, kc,
+                          vc):
+    """Attention + router for one MoE layer. MoE keeps Q/K/V/O on the NPU
+    (f32 DRAM products, no flash copy): the in-flash engine serves the
+    expert banks. Returns the post-attention residual, the normed FFN
+    input, the router's (gates, idx) and the layer's fresh K/V."""
+    b, t, _ = x.shape
+    q, k, v = _qkv(cfg, lp, None, x, positions, None)
+    attn = cm.chunk_attention_paged(q, kc, vc, block_tables, lengths, k, v,
+                                    window=cfg.local_window)
+    x = x + _proj(attn.reshape(b, t, -1), lp["attn"]["wo"], None, None)
+    h = dense._norm(cfg, x, lp, "ln2")
+    gates, idx = moe_mod.serve_route(
+        lp["moe"]["router"], h, cfg.top_k, n_groups=cfg.n_expert_groups,
+        topk_groups=cfg.topk_expert_groups)
+    return x, h, gates, idx, k, v
+
+
+def _chunk_layer_moe(cfg, lengths, positions, block_tables, x, layer):
+    """One mixed-batch MoE layer (resident plane): attention + router, then
+    the expert FFN over the full deployed bank (``slab_map`` None).
+    ``layer`` = (params slice, read-only paged K/V pool slices)."""
+    lp, kc, vc = layer
+    x, h, gates, idx, k, v = _moe_attn_router_body(
+        cfg, lengths, positions, block_tables, x, lp, kc, vc)
+    x = x + moe_mod.serve_expert_ffn(lp["moe"]["experts"], h, gates, idx)
     return x, (k, v)
 
 
@@ -316,7 +350,7 @@ def _step_impl(cfg, sched_cfg, sample_cfg, kv_aware, params, layers,
               (slots,) i32, "bitmap": (H,) i32, "prev_cycles": i32}, all
               written in place.
     layers : per-layer param dicts (views of the stacked params);
-    attn_flash : per-layer {"wq", "wo"} FlashWeights.
+    attn_flash : per-layer {"wq", "wo"} FlashWeights (None for MoE).
     tokens : (slots, T) i32 chunk lanes; q_lens (slots,) valid lanes;
     admitted (slots,) bool; block_tables (slots, max_blocks) i32.
     Returns (sampled (slots,) i32, logits (slots, V) f32, stats (3,) f32).
@@ -335,9 +369,16 @@ def _step_impl(cfg, sched_cfg, sample_cfg, kv_aware, params, layers,
         cfg, params, state["lengths"], tokens, q_lens, spec)
     ks, vs = [], []
     for li in range(cfg.n_layers):          # the layer loop (no scan)
-        x, (kl, vl) = _chunk_layer(
-            cfg, bitmap, ctx_lens, positions, block_tables, x,
-            (layers[li], attn_flash[li], state["k"][li], state["v"][li]))
+        if cfg.family == "moe":
+            # MoE projections stay on the NPU: no bitmap, no flash copy
+            x, (kl, vl) = _chunk_layer_moe(
+                cfg, ctx_lens, positions, block_tables, x,
+                (layers[li], state["k"][li], state["v"][li]))
+        else:
+            x, (kl, vl) = _chunk_layer(
+                cfg, bitmap, ctx_lens, positions, block_tables, x,
+                (layers[li], attn_flash[li], state["k"][li],
+                 state["v"][li]))
         ks.append(kl)
         vs.append(vl)
     return _finish_step(cfg, sched_cfg, sample_cfg, kv_aware,
@@ -388,7 +429,7 @@ _layer_slice = dense.layer_slice
 
 
 class Engine:
-    """Resident dense serving engine over a ``dense``-family ArchConfig.
+    """Serving engine over a ``dense``- or ``moe``-family ArchConfig.
 
     ``params`` is a raw param tree (``models.dense.init`` or params carried
     across with ``interop``); it is moved to ``device`` and deployed there
@@ -416,6 +457,15 @@ class Engine:
 
     The resident engine keeps the DRAM projections ``wq``/``wk``/``wv``/
     ``wo`` in f32, made once from bf16 (exact), so no step upcasts them.
+
+    A ``moe``-family engine serves on the resident plane (compiled or
+    eager, speculative too): attention stays on the DRAM projections (no
+    flash copy, no bitmap dispatch), the router picks each lane's top-k
+    experts, and each deployed expert bank runs as one grouped ECDP launch
+    a layer with ECC off (``models/moe.serve_expert_ffn``); Algorithm 2's
+    bitmap still updates and still contracts the step token budget. A MoE
+    engine with a ``weight_store`` (the streamed MoE plane, ROADMAP §A.3)
+    is refused.
 
     ``weight_store`` (a ``store.PageStore``) serves the streamed plane:
     the flash tier is programmed into the store (or, if the store already
@@ -454,9 +504,14 @@ class Engine:
                  spec_cfg: spec_mod.SpecConfig | None = None,
                  draft_cfg=None, draft_params=None,
                  registry: "obs.MetricsRegistry | None" = None):
-        if cfg.family != "dense":
-            raise ValueError(f"engine serves dense-family archs (got "
-                             f"{cfg.family!r})")
+        if cfg.family not in ("dense", "moe"):
+            raise ValueError("engine serves dense- and moe-family archs "
+                             f"(got {cfg.family!r})")
+        if cfg.family == "moe" and weight_store is not None:
+            raise ValueError(
+                "a weight_store serves the streamed plane, and streamed MoE "
+                "serving (expert paging) is not ported yet (ROADMAP §A.3, "
+                "streamed half); serve MoE resident (no weight_store)")
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not takes_head_dim(cfg.head_dim):
@@ -529,7 +584,11 @@ class Engine:
                 self._init_streamed(params, rber, seed)
             else:
                 self.stream_cfg = None
-                self.attn_flash = self._flash_attn_copy(params, rber, seed)
+                # MoE keeps attention DRAM-only: the flash engine serves
+                # the expert banks
+                self.attn_flash = (
+                    None if cfg.family == "moe"
+                    else self._flash_attn_copy(params, rber, seed))
                 # the DRAM projections in f32, made once (bf16 -> f32 is
                 # exact): _proj's and split_projection's upcast returns them
                 attn = self.params["layers"]["attn"]
@@ -984,9 +1043,10 @@ class Engine:
         return out
 
     def expert_stats(self, *, strict: bool = True) -> dict:
-        """Expert-cache telemetry. The port serves no MoE model:
-        ``strict=False`` returns ``{}``, ``strict=True`` raises, as the
-        reference does for an engine not serving one."""
+        """Expert-cache telemetry of a store-backed (streamed) MoE engine,
+        which the port does not serve yet (ROADMAP §A.3): ``strict=False``
+        returns ``{}``, ``strict=True`` raises, as the reference does for an
+        engine not serving one — a resident MoE engine included."""
         if not strict:
             return {}
         raise ValueError("expert_stats: engine is not serving a "

@@ -246,3 +246,52 @@ def test_spec_step_body_reads_no_tensor_on_the_host(params, monkeypatch,
     eng.run()
     assert [len(r.out) for r in eng.requests.values()] == [12, 12]
     assert {k: t.data_ptr() for k, t in eng._dev_in.items()} == ptrs
+
+
+def _masked_grouped_plain(a, row_start, wq, parity, scale,
+                          ecc_enabled=True):
+    """The grouped ECDP's plain version with its row ranges applied as
+    masks on the device instead of read on the host."""
+    from repro_torch.kernels.ecdp import ecdp_matmul_plain
+    rows = torch.arange(a.shape[0])[:, None]
+    out = torch.zeros((a.shape[0], wq.shape[2]))
+    for e in range(wq.shape[0]):
+        inside = (rows >= row_start[e]) & (rows < row_start[e + 1])
+        out = torch.where(inside, ecdp_matmul_plain(
+            a, wq[e], parity[e], scale[e], ecc_enabled), out)
+    return out
+
+
+def test_moe_step_bodies_read_no_tensor_on_the_host(monkeypatch):
+    """The resident MoE step body (router, the sorted dispatch, the grouped
+    bank products, the combine) and the MoE offline decode body (the
+    capacity dispatch) make no host read, so the card captures them. The
+    grouped ECDP's plain version reads its row ranges on the host (on the
+    card the wrapper hands them to the kernel as a device pointer); here a
+    stand-in that masks instead replaces it, and gives the same logits."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import grouped_ecdp
+    from repro_torch.models import moe
+
+    cfg = get_config("qwen3-moe-30b-a3b", smoke=True)
+    p = moe.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    eng = Engine(cfg, p, max_slots=2, max_seq=96, rber=1e-3, device="cpu")
+    eng.submit(list(range(1, 20)), max_new=4)
+    eng.submit([5, 6], max_new=4)
+    eng.step()                                   # a prefill chunk each
+    eng.step()                                   # a prefill and a decode
+    eng._load_inputs()
+    state = {k: t.clone() for k, t in eng._state().items()}
+    want = eng._resident_body()[1]
+    for k, t in eng._state().items():            # the step writes in place
+        t.copy_(state[k])
+    d, _ = deploy(p, rber=1e-3, seed=1)
+    last, cache = moe.prefill(cfg, d, {"tokens": torch.ones(
+        (2, 5), dtype=torch.int32)}, pad_to=12)
+    tok, pos = last.argmax(-1), torch.full((1,), 5, dtype=torch.int64)
+    monkeypatch.setattr(grouped_ecdp, "grouped_ecdp_plain",
+                        _masked_grouped_plain)
+    with torch.no_grad(), _no_host_reads(monkeypatch):
+        got = eng._resident_body()[1]
+        moe.decode_body(cfg, d, cache, tok, pos)
+    assert torch.equal(got, want)

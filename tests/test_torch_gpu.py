@@ -1197,3 +1197,112 @@ def test_checkpoint_restores_onto_the_card(cuda, tmp_path):
             g, w = (g,), (w,)
         for a, b in zip(g, w):
             assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+
+
+# --- the expert-grouped ECDP and the resident MoE plane -------------------------
+
+def _grouped_case(rng, counts, k, n, rber, cuda):
+    """A bank of len(counts) experts (bit errors planted at ``rber``), rows
+    grouped by expert with ``counts`` rows each, bf16 on the card."""
+    banks = [_flash(rng, k, n, rber, seed=k + n + e)
+             for e in range(len(counts))]
+    wq, parity, scale = (torch.stack(t).to(cuda) for t in zip(*banks))
+    row_start = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                             dtype=torch.int32, device=cuda)
+    a = torch.from_numpy(rng.standard_normal((int(sum(counts)), k),
+                                             dtype=np.float32)
+                         ).to(torch.bfloat16).to(cuda)
+    return a, row_start, wq, parity, scale
+
+
+# expert row counts: empty experts, one past a 64-row tile (the block
+# walks two), all rows in one expert, a decode's few rows; K with an
+# 8-row tail, N ragged and N % 16 != 0 (byte loads), the qwen3 bank shapes;
+# the offline path's capacity layouts at the qwen3 shapes (every expert's
+# C+1 rows: a decode's 2, the 16-row tile; a prefill's 21)
+GROUPED_CASES = [([3, 0, 5, 1], 128, 48), ([0, 70, 2, 0, 9], 264, 136),
+                 ([0, 0, 40, 0], 520, 264), ([1] * 12, 2048, 768),
+                 ([2, 3, 0, 4, 1, 0, 2, 4], 768, 2048),
+                 ([5, 17, 0, 64], 1032, 130), ([2] * 32, 2048, 768),
+                 ([21] * 8, 768, 2048)]
+
+
+@pytest.mark.parametrize("counts,k,n", GROUPED_CASES)
+@pytest.mark.parametrize("rber", [0.0, 2e-3])
+@pytest.mark.parametrize("ecc_on", [True, False])
+def test_grouped_ecdp_kernel_matches_plain(cuda, counts, k, n, rber, ecc_on):
+    """The grouped kernel against its plain version (the per-expert ECDP
+    loop) on every routed row, within the ECDP bound; one counted launch,
+    at the M tile ``max_rows`` picks and at the default."""
+    from repro_torch.kernels import grouped_ecdp as ge
+
+    rng = np.random.default_rng(sum(counts) * k + n)
+    a, rs, wq, parity, scale = _grouped_case(rng, counts, k, n, rber, cuda)
+    want = ge.grouped_ecdp_plain(a.cpu(), rs.cpu(), wq.cpu(), parity.cpu(),
+                                 scale.cpu(), ecc_on)
+    mag = torch.zeros_like(want)
+    bounds = rs.tolist()
+    for e in range(len(counts)):
+        r0, r1 = bounds[e], bounds[e + 1]
+        mag[r0:r1] = (a[r0:r1].cpu().float().abs()
+                      @ wq[e].cpu().float().abs()) * scale[e].cpu()
+    bound = 1e-4 + 4 * math.sqrt(k) * EPS32 * mag
+    for max_rows in (max(counts), None):
+        before = ge.grouped_ecdp_matmul.launches
+        got = ge.grouped_ecdp_matmul(a, rs, wq, parity, scale, ecc_on,
+                                     max_rows=max_rows)
+        torch.cuda.synchronize()
+        assert ge.grouped_ecdp_matmul.launches == before + 1
+        err = (got.cpu() - want).abs()
+        assert bool((err <= bound).all()), float((err - bound).max())
+
+
+def test_grouped_ecdp_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import grouped_ecdp as ge
+
+    rng = np.random.default_rng(0)
+    a, rs, wq, parity, scale = _grouped_case(rng, [1, 2], 64, 32, 0.0, cuda)
+    with pytest.raises(TypeError):
+        ge.grouped_ecdp_matmul(a.float(), rs, wq, parity, scale)
+    with pytest.raises(ValueError):
+        ge.grouped_ecdp_matmul(a, rs.cpu(), wq, parity, scale)
+    with pytest.raises(ValueError):
+        ge.grouped_ecdp_matmul(a.t().contiguous().t(), rs, wq, parity, scale)
+
+
+def test_moe_engine_replays_one_graph_bit_equal_to_eager(cuda):
+    """qwen3-moe-30b-a3b-smoke on the card: the compiled engine captures
+    its step once and every replay's logits equal the eager engine's bit
+    for bit; the eager engine launches per step 3 grouped ECDP and one
+    paged attention a layer and one ECDP (lm_head), and the compiled one's
+    counters hold its warm-up and capture, twice that."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import grouped_ecdp as ge
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import Engine
+
+    cfg = get_config("qwen3-moe-30b-a3b", smoke=True)
+    params = moe.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                      device=cuda)
+    runs = {}
+    for compiled in (True, False):
+        eng = Engine(cfg, params, max_slots=2, max_seq=96, rber=1e-3,
+                     device=cuda, compiled=compiled)
+        counts = (ge.grouped_ecdp_matmul.launches, ecdp.ecdp_matmul.launches,
+                  pa.paged_attn.launches)
+        out, logits = _serve(eng, "slot_churn")
+        torch.cuda.synchronize()
+        runs[compiled] = dict(out=out, logits=logits, traces=eng.step_traces,
+                              launches=[b - a for a, b in zip(counts, (
+                                  ge.grouped_ecdp_matmul.launches,
+                                  ecdp.ecdp_matmul.launches,
+                                  pa.paged_attn.launches))])
+    comp, eager = runs[True], runs[False]
+    assert comp["traces"] == 1 and eager["traces"] == -1
+    assert comp["out"] == eager["out"]
+    steps = len(eager["logits"])
+    per_step = [3 * cfg.n_layers, 1, cfg.n_layers]
+    assert eager["launches"] == [steps * n for n in per_step]
+    assert comp["launches"] == [2 * n for n in per_step]
+    for i, (got, want) in enumerate(zip(comp["logits"], eager["logits"])):
+        assert torch.equal(got, want), (i, float((got - want).abs().max()))

@@ -34,11 +34,12 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "bad = sorted(k for k in sys.modules if k == 'jax' "
         "or k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 55, names\n"
+        "assert len(names) >= 57, names\n"
         "assert {'repro_torch.store.' + m for m in ('faults', 'nand', "
         "'page_pool', 'pagestore', 'streamer')} <= set(names), names\n"
         "assert {'repro_torch.kernels.decode_attn', 'repro_torch.launch', "
-        "'repro_torch.launch.steps', 'repro_torch.models.dense'} "
+        "'repro_torch.launch.steps', 'repro_torch.models.dense', "
+        "'repro_torch.models.moe', 'repro_torch.kernels.grouped_ecdp'} "
         "<= set(names), names\n"
         "assert {'repro_torch.obs', 'repro_torch.obs.registry', "
         "'repro_torch.obs.trace', 'repro_torch.obs.timeline', "
@@ -100,9 +101,10 @@ def _c_array(src: str, name: str) -> list[int]:
 
 
 def test_ecdp_kernel_constants_equal_the_codec_tables():
-    # ecdp.cu and paged_ecdp.cu share the kernel body and its tables
+    # ecdp.cu, paged_ecdp.cu and grouped_ecdp.cu share the kernel body and
+    # its tables
     csrc = PORT / "kernels" / "csrc"
-    for name in ("ecdp.cu", "paged_ecdp.cu"):
+    for name in ("ecdp.cu", "paged_ecdp.cu", "grouped_ecdp.cu"):
         assert '#include "ecdp_core.cuh"' in (csrc / name).read_text()
     src = (csrc / "ecdp_core.cuh").read_text()
     phys_mask, data_pos = tecc.tables()
