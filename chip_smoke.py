@@ -8,9 +8,10 @@ prefill / decode path; checks the card's engine against the CPU engine, the
 streamed engine against the resident one, and the card's prefill / decode
 against the CPU's; then serves through the ServeFront under injected NAND
 faults and with the prefix cache, speculatively, through the command
-line's entry points on granite-8b at full width, and serves MoE on the
+line's entry points on granite-8b at full width, serves MoE on the
 resident plane at qwen3-moe-30b-a3b's width through the expert-grouped
-ECDP.
+ECDP, and serves it streamed, expert-paged from a host page store through
+the paged ECDP's expert axis.
 
     python3 chip_smoke.py
 
@@ -241,10 +242,35 @@ Phases (any failure exits non-zero; nothing is caught):
                 capture, counters gated) and on the CPU (phase 8(c)'s
                 rule), under the same row witness (a row's experts and
                 which of its assignments the capacity kept).
+  13. moe stream — the streamed MoE plane, qwen3-moe-30b-a3b. (a) the
+                paged ECDP's expert axis (grouped_paged_ecdp_matmul) at
+                w_gate/w_up 2048x768 and w_down 768x2048 over a real
+                64-lane route at k = 8, the routed experts' pages
+                programmed by a PageStore and uploaded into a pool, the
+                engine's 128-row slab: against its plain version (ECC on
+                and off, RBER 0 and 2e-3) and bit for bit against the
+                dense grouped ECDP over the full bank on the same bytes
+                at the path's plan; timed per launch beside its plain
+                version, the dense grouped kernel, torch.bmm over the
+                routed experts' dequantised weights and its byte bound.
+                (b) build_engine(stream=True) at full width, 24 of 48
+                layers, RBER 1e-4, greedy, the device budget half the
+                store's flash tier: 12(b)'s 6 requests x 16 tokens, every
+                step's logits (slots with lanes) and the tokens bit-equal
+                to 12(b)'s resident engine, the expert cache within its
+                capacity at every step, fewer expert bytes per token than
+                all-experts streaming, 24 x 3 grouped paged ECDP + 1 ECDP
+                + 24 paged attention launches a step (counters zeroed
+                just before, read just after); ms per prefill / decode
+                step, the step-phase split, hit rate, misroute stalls,
+                prefetched bytes, device memory. (c) speculative serving
+                on it at 2 layers (n-gram, k = 4): tokens, logits and
+                verify-lane logits bit-equal to the resident spec
+                engine's. Its figures are the ``moe_stream`` JSON line.
 
-The ``spec`` line comes before the card's name; the second-to-last line
-is the ``kernels`` JSON; the last line is ``{"ok": true, "device":
-{...}}``. Times are CUDA-event medians with the
+The ``spec`` and ``moe_stream`` lines come before the card's name; the
+second-to-last line is the ``kernels`` JSON; the last line is ``{"ok":
+true, "device": {...}}``. Times are CUDA-event medians with the
 L2 cache flushed before each timed call (the serving step streams more
 weight bytes than L2 holds) and the card held while the call is enqueued
 (``Timer``). bound_ms is the larger of the bytes a call
@@ -287,13 +313,17 @@ def resources_row(res: dict, smem_dynamic: int, **key) -> dict:
                 smem_dynamic=smem_dynamic, smem=res["smem"] + smem_dynamic)
 
 
-def grouped_resources(build) -> list[dict]:
+def grouped_resources(build, name: str = "grouped_ecdp") -> list[dict]:
     """Registers, spills and shared memory per block of each instantiation
-    of the grouped ECDP (grouped_ecdp_mma_kernel<M tile, wide, Bank>)."""
+    of the grouped ECDP (grouped_ecdp_mma_kernel<M tile, wide, Bank>) in
+    kernel library ``name``: grouped_ecdp (DenseBank) or paged_ecdp
+    (PagedBank, the paged ECDP's expert axis)."""
     import re
-    smem_fn = build.load("grouped_ecdp").grouped_ecdp_smem_bytes
+    lib = build.load(name)
+    smem_fn = (lib.grouped_paged_ecdp_smem_bytes if name == "paged_ecdp"
+               else lib.grouped_ecdp_smem_bytes)
     out = []
-    for fn, res in build.resources("grouped_ecdp").items():
+    for fn, res in build.resources(name).items():
         m = re.search(r"grouped_ecdp_mma_kernelILi(\d+)ELb([01])E", fn)
         if m:
             m_tile = int(m.group(1))
@@ -311,7 +341,8 @@ def mma_resources(build, name: str) -> list[dict]:
     smem_fn = build.load("ecdp").ecdp_mma_smem_bytes
     out = []
     for fn, res in build.resources(name).items():
-        m = re.search(r"ecdp_mma_kernelILi(\d+)ELb([01])E", fn)
+        # not grouped_ecdp_mma_kernel: paged_ecdp.cu holds both
+        m = re.search(r"(?<![A-Za-z_])ecdp_mma_kernelILi(\d+)ELb([01])E", fn)
         if m:
             m_tile = int(m.group(1))
             out.append(resources_row(res, smem_fn(m_tile), m_tile=m_tile,
@@ -3193,10 +3224,11 @@ def moe_run(torch, eng, prompts) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     moe_zero_counts()
-    logits = []
+    logits, live = [], []
     t0 = time.perf_counter()
     while eng.step():
         logits.append(eng.last_logits.cpu())
+        live.append(eng._host_in["q_lens"].numpy() > 0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = moe_counts()
@@ -3204,8 +3236,8 @@ def moe_run(torch, eng, prompts) -> dict:
     assert all(len(o) == MOE_NEW for o in out), out
     assert all(0 <= t < eng.cfg.vocab_size for o in out for t in o)
     assert all(bool(torch.isfinite(lg).all()) for lg in logits)
-    return dict(out=out, logits=logits, steps=len(logits), wall_s=wall,
-                launches=launches,
+    return dict(out=out, logits=logits, live=live, steps=len(logits),
+                wall_s=wall, launches=launches,
                 peak_bytes=torch.cuda.max_memory_allocated(),
                 stats=list(eng.stats))
 
@@ -3370,7 +3402,10 @@ def moe_full(torch, timer) -> dict:
                 tokens_per_s=generated / comp["wall_s"], build_s=build_s,
                 build_peak_bytes=build_peak, resident_bytes=resident,
                 peak_bytes=comp["peak_bytes"], launches=eager["launches"],
-                per_step=per_step, profile=prof, step=step)
+                per_step=per_step, profile=prof, step=step,
+                # phase 13(b)'s reference: the resident plane's every step
+                reference=dict(out=eager["out"], logits=eager["logits"],
+                               live=eager["live"], stats=eager["stats"]))
 
 
 def moe_offline(torch) -> dict:
@@ -3518,6 +3553,477 @@ def phase_moe(torch) -> dict:
     return dict(kernels=kernels, full=full, parity=parity, offline=offline)
 
 
+# --- phase 13: the streamed MoE plane -------------------------------------------
+
+MOE_STREAM_SPEC_LAYERS = 2
+MOE_STREAM_SPEC_K = 4
+
+
+def moe_stream_counts():
+    from repro_torch.kernels import ecdp, grouped_ecdp, paged_attn, paged_ecdp
+    return {"grouped_paged_ecdp":
+                paged_ecdp.grouped_paged_ecdp_matmul.launches,
+            "grouped_ecdp": grouped_ecdp.grouped_ecdp_matmul.launches,
+            "ecdp": ecdp.ecdp_matmul.launches,
+            "paged_attn": paged_attn.paged_attn.launches}
+
+
+def moe_stream_zero_counts():
+    from repro_torch.kernels import paged_ecdp
+    moe_zero_counts()
+    paged_ecdp.grouped_paged_ecdp_matmul.launches = 0
+
+
+def moe_stream_kernels(torch, timer) -> dict:
+    """13(a): the grouped paged ECDP at qwen3's bank shapes over a real
+    route of 64 lanes x top-8 (``moe_route``'s), its experts' pages
+    programmed by a PageStore and uploaded, as the engine does, into a
+    pool on the card (only the routed experts; a shuffled free list), the
+    slab the engine builds (routed experts in id order, padded to 128
+    rows with its first row's tables): against its plain version within
+    the ECDP bound (RBER 0 and 2e-3, ECC on and off), and bit for bit
+    against the dense grouped ECDP over the full bank on the same bytes at
+    the path's plan; timed per launch (ECC off, as served) beside its
+    plain version, torch.bmm over the routed experts' dequantised bf16
+    weights and the byte bound."""
+    import numpy as np
+
+    from repro_torch.core.quant import dequantize_int8
+    from repro_torch.core.tiering import FlashWeight, encode_flash
+    from repro_torch.kernels.ecdp import _n_sms
+    from repro_torch.kernels.grouped_ecdp import (grouped_ecdp_matmul,
+                                                  grouped_plan)
+    from repro_torch.kernels.paged_ecdp import (grouped_paged_ecdp_matmul,
+                                                grouped_paged_ecdp_plain)
+    from repro_torch.models import common as cm
+    from repro_torch.models import moe
+    from repro_torch.store import PageStore, WeightPagePool
+
+    cfg = moe_cfg(1)
+    d, f, e, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    router = cm.dense_init(gen, d, e, torch.bfloat16, "cuda")
+    x = torch.randn((1, MOE_ROUTE_TOKENS, d), generator=gen, device="cuda"
+                    ).to(torch.bfloat16)
+    _, idx = moe.serve_route(router, x, k)
+    idx_host = idx.cpu().numpy()
+    routed = np.unique(idx_host).tolist()
+    # the engine's slab: e_slab = min(E, slots x chunk x k) rows
+    e_slab = min(e, MOE_ROUTE_TOKENS * k)
+    slab_map = torch.full((e,), -1, dtype=torch.int32, device="cuda")
+    slab_map[torch.tensor(routed, device="cuda")] = torch.arange(
+        len(routed), dtype=torch.int32, device="cuda")
+    flat = idx.reshape(-1).long()
+    flat_row = slab_map[flat].long()
+    order, rs_slab = moe._grouped_rows(flat_row, flat_row >= 0, e_slab)
+    order_full, rs_full = moe._grouped_rows(flat, flat >= 0, e)
+    rows = MOE_ROUTE_TOKENS * k
+    assert torch.equal(order, order_full)
+    bounds_full, bounds_slab = rs_full.tolist(), rs_slab.tolist()
+    for r, ex in enumerate(routed):
+        assert bounds_slab[r:r + 2] == bounds_full[ex:ex + 2]
+    counts = [bounds_full[x + 1] - bounds_full[x] for x in range(e)]
+    log(f"  route of {MOE_ROUTE_TOKENS} lanes at k={k}: {rows} rows over "
+        f"{len(routed)} of {e} experts, at most {max(counts)} an expert; "
+        f"slab of {e_slab} rows")
+    acts = {d: torch.randn((rows, d), generator=gen, device="cuda"
+                           ).to(torch.bfloat16),
+            f: torch.randn((rows, f), generator=gen, device="cuda"
+                           ).to(torch.bfloat16)}
+    worst, per_launch, layer = 0.0, {}, {}
+    for name, (kk, n) in (("w_gate/w_up", (d, f)), ("w_down", (f, d))):
+        w = torch.randn((e, kk, n), generator=gen, device="cuda")
+        flash = {r: encode_flash(w, rber=r, seed=kk + n + 1)
+                 for r in (0.0, 2e-3)}
+        del w
+        a = acts[kk]
+        slabs = {}
+        for rber, fw in flash.items():
+            store = PageStore(n_planes=8)
+            for ex in range(e):
+                store.put(f"e@{ex}", FlashWeight(fw.q[ex], fw.parity[ex],
+                                                 fw.scale[ex]))
+            names = [f"e@{ex}" for ex in routed]
+            n_pages = sum(store.entry_pages(x) for x in names) + 16
+            pool = WeightPagePool(store, n_pages, device="cuda")
+            pool._free = [int(s) for s in
+                          np.random.default_rng(kk + n).permutation(n_pages)]
+            tbls = pool.upload(names)
+            torch.cuda.current_stream().wait_event(tbls[names[0]]["ready"])
+            tabs = [torch.stack([tbls[x]["dev"][i] for x in names]
+                                + [tbls[names[0]]["dev"][i]]
+                                * (e_slab - len(names)))
+                    for i in range(3)]
+            slabs[rber] = (pool, store, tabs)
+            for ecc_on in (True, False):
+                got = grouped_paged_ecdp_matmul(
+                    a, rs_slab, pool.buffer, *tabs, (kk, n), ecc_on,
+                    max_rows=MOE_ROUTE_TOKENS, plan_experts=e)
+                dense = grouped_ecdp_matmul(a, rs_full, fw.q, fw.parity,
+                                            fw.scale, ecc_on,
+                                            max_rows=MOE_ROUTE_TOKENS)
+                want = grouped_paged_ecdp_plain(a, rs_slab, pool.buffer,
+                                                *tabs, (kk, n), ecc_on)
+                torch.cuda.synchronize()
+                if not torch.equal(got, dense):
+                    raise AssertionError(
+                        f"grouped paged ecdp {name} rber={rber} ecc="
+                        f"{ecc_on}: differs from the dense grouped kernel "
+                        f"on the same bytes by "
+                        f"{float((got - dense).abs().max())}")
+                for r, ex in enumerate(routed):
+                    r0, r1 = bounds_slab[r], bounds_slab[r + 1]
+                    mag = (a[r0:r1].float().abs()
+                           @ fw.q[ex].float().abs()) * fw.scale[ex]
+                    tol = 1e-4 + 4 * math.sqrt(kk) * EPS32 * mag
+                    err = (got[r0:r1] - want[r0:r1]).abs()
+                    if not bool((err <= tol).all()):
+                        raise AssertionError(
+                            f"grouped paged ecdp {name} rber={rber} ecc="
+                            f"{ecc_on} expert {ex}: max err "
+                            f"{float(err.max())}")
+                    worst = max(worst, float(err.max()))
+        pool, store, tabs = slabs[2e-3]           # the serving path: ECC off
+        fw = flash[2e-3]
+        t_kernel = timer(lambda: grouped_paged_ecdp_matmul(
+            a, rs_slab, pool.buffer, *tabs, (kk, n), False,
+            max_rows=MOE_ROUTE_TOKENS, plan_experts=e))
+        t_dense = timer(lambda: grouped_ecdp_matmul(
+            a, rs_full, fw.q, fw.parity, fw.scale, False,
+            max_rows=MOE_ROUTE_TOKENS))
+        t_plain = timer(lambda: grouped_paged_ecdp_plain(
+            a, rs_slab, pool.buffer, *tabs, (kk, n), False), reps=3)
+        # the library: one bmm over the routed experts' dequantised bf16
+        # weights, each expert's rows padded to the 64 an expert can get
+        sel = torch.tensor(routed, device="cuda")
+        w_deq = dequantize_int8(fw.q[sel], fw.scale[sel])
+        padded = torch.zeros((len(routed), MOE_ROUTE_TOKENS, kk),
+                             dtype=torch.bfloat16, device="cuda")
+        t_lib = timer(lambda: torch.bmm(padded, w_deq))
+        del w_deq, padded
+        plan = grouped_plan(rows, e, kk, n, MOE_ROUTE_TOKENS, _n_sms(0))
+        # ECC off: the routed experts' q and scales (parity unread), the
+        # rows in, the f32 rows out, the tables and row_start
+        nbytes = (len(routed) * (kk * n + 4 * n) + 2 * rows * kk
+                  + 4 * rows * n + 4 * (e_slab + 1)
+                  + 4 * len(routed) * (tabs[0][0].numel()
+                                       + tabs[1].shape[1] + tabs[2].shape[1]))
+        b_ms, b_by = bound_ms(nbytes, 2.0 * rows * kk * n)
+        b_ecc, _ = bound_ms(len(routed) * (kk * n * 9 / 8 + 4 * n), 0.0)
+        per_launch[name] = dict(rows=rows, routed=len(routed), k=kk, n=n,
+                                m_tile=plan.m_tile, k_splits=plan.splits,
+                                ms=t_kernel, dense_grouped_ms=t_dense,
+                                plain_ms=t_plain, library_ms=t_lib,
+                                bound_ms=b_ms, bound_by=b_by,
+                                bound_ms_ecc_on=b_ecc)
+        log(f"  grouped paged ecdp {name:12s} R={rows} K={kk:4d} N={n:4d} "
+            f"slab {e_slab} ({len(routed)} routed), M tile {plan.m_tile}, "
+            f"{plan.splits} K splits: kernel {t_kernel:.4f} ms (dense "
+            f"grouped {t_dense:.4f}), plain {t_plain:.4f} ms, torch.bmm "
+            f"(routed, 64, K) bf16 {t_lib:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}; {b_ecc:.4f} with parity)")
+        del flash, slabs, pool, store, tabs
+        gc.collect()
+    # one layer's expert half: w_gate, w_up, w_down
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms",
+                "dense_grouped_ms"):
+        layer[key] = 2 * per_launch["w_gate/w_up"][key] \
+            + per_launch["w_down"][key]
+    layer["bound_by"] = per_launch["w_down"]["bound_by"]
+    log(f"  grouped paged ecdp vs plain: max abs err {worst:.3e} (8 cases); "
+        f"bit-equal to the dense grouped kernel (8 cases); one layer's 3 "
+        f"launches {layer['ms']:.4f} ms, bound {layer['bound_ms']:.4f} ms, "
+        f"torch.bmm {layer['library_ms']:.4f} ms")
+    return dict(max_abs_err=worst, per_launch=per_launch, layer=layer,
+                route=dict(rows=rows, routed=len(routed),
+                           max_rows=max(counts), e_slab=e_slab))
+
+
+def _moe_stream_step_run(torch, eng, prompts, new):
+    """Serve ``prompts`` (``new`` new tokens each) with the counters zeroed
+    just before: every step's host wall (synchronized), logits and live
+    slots, its phase times, and the cache's bytes against its capacity."""
+    rids = [eng.submit(p, max_new=new) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    moe_stream_zero_counts()
+    logits, live, wall, phases, over = [], [], [], {}, []
+    t_all = time.perf_counter()
+    while True:
+        t0 = time.perf_counter()
+        if not eng.step():
+            break
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        logits.append(eng.last_logits.cpu())
+        live.append(eng._host_in["q_lens"].numpy() > 0)
+        for p, s in eng._phases.items():
+            phases[p] = phases.get(p, 0.0) + s
+        c = eng.expert_cache
+        if c.capacity is not None and c.bytes_used > c.capacity:
+            over.append((len(wall), c.bytes_used, c.capacity))
+    total = time.perf_counter() - t_all
+    return dict(out=[list(eng.requests[r].out) for r in rids],
+                logits=logits, live=live, wall=wall, total_s=total,
+                phases=phases, over=over, launches=moe_stream_counts(),
+                peak_bytes=torch.cuda.max_memory_allocated(),
+                stats=list(eng.stats))
+
+
+def _same_live_logits(torch, what, got, want):
+    """Every step's logits of the slots that ran lanes, bit for bit (a slot
+    with no lanes samples a padding lane, whose experts the streamed plane
+    leaves unmapped); the same number of steps."""
+    if len(got["logits"]) != len(want["logits"]):
+        raise AssertionError(f"{what}: {len(got['logits'])} steps against "
+                             f"{len(want['logits'])}")
+    for i, (a, b, la, lb) in enumerate(zip(got["logits"], want["logits"],
+                                           got["live"], want["live"])):
+        if not (la == lb).all():
+            raise AssertionError(f"{what} step {i}: slots with lanes "
+                                 f"{la.tolist()} against {lb.tolist()}")
+        if not torch.equal(a[la], b[lb]):
+            raise AssertionError(
+                f"{what} step {i}: logits differ from the resident "
+                f"engine's by {float((a[la] - b[lb]).abs().max())}")
+
+
+def moe_stream_full(torch, reference) -> dict:
+    """13(b): qwen3-moe-30b-a3b at full width, 24 of 48 layers, streamed
+    through build_engine(stream=True) (RBER 1e-4, greedy, the seed and cut
+    of 12(b)) under half the store's flash tier: every step's logits and
+    the tokens bit-equal to 12(b)'s resident engine (``reference``), the
+    cache within its capacity at every step, fewer expert bytes per token
+    than streaming all experts, 3 x 24 grouped paged ECDP launches a step
+    (no dense grouped launch). The streamed engine contracts its token
+    budget by its misroute-stall fraction and the resident engine does not,
+    so its stall signal is read as 0 here: both plan the same steps (the
+    stalls stay counted in expert_stats)."""
+    import numpy as np
+
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.serving.sampler import SampleConfig
+
+    cfg = moe_cfg(MOE_LAYERS)
+    rng = np.random.default_rng(14)                    # 12(b)'s prompts
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in MOE_PROMPTS]
+    d, f = cfg.d_model, cfg.d_ff
+    expert = 2 * _payload(d, f) + _payload(f, d)
+    tier = cfg.n_layers * cfg.n_experts * expert + _payload(d,
+                                                            cfg.vocab_size)
+    budget_mib = tier / 2 / 2**20
+    get_config = serve_mod.get_config
+    serve_mod.get_config = lambda arch, smoke=False: (
+        cfg if arch == MOE_ARCH and not smoke else get_config(arch, smoke))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        eng = serve_mod.build_engine(MOE_ARCH, smoke=False, device="cuda",
+                                     rber=1e-4, stream=True,
+                                     device_budget_mib=budget_mib,
+                                     sample_cfg=SampleConfig())
+    finally:
+        serve_mod.get_config = get_config
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    resident = torch.cuda.memory_allocated()
+    store, cache = eng.store, eng.expert_cache
+    assert eng.streamed_moe and store.total_bytes == tier, \
+        (store.total_bytes, tier)
+    assert eng.stream_cfg.device_budget_bytes < tier
+    log(f"  build_engine(stream=True) {cfg.name}: {build_s:.1f} s; store "
+        f"{store.total_bytes / 2**30:.2f} GiB ({cfg.n_layers} x "
+        f"{cfg.n_experts} experts of {expert / 2**20:.2f} MiB + lm_head), "
+        f"budget {eng.stream_cfg.device_budget_bytes / 2**30:.2f} GiB: "
+        f"cache {cache.capacity / 2**30:.2f} GiB, slab {eng._e_slab} rows, "
+        f"pool {eng.wpool.n_pages} pages "
+        f"({eng.wpool.n_pages * store.page_bytes / 2**30:.2f} GiB); device "
+        f"peak {build_peak / 2**30:.2f} GiB while deploying, "
+        f"{resident / 2**30:.2f} GiB resident")
+    eng._stream_stall_s = lambda: 0.0          # the resident engine's plan
+    run = _moe_stream_step_run(torch, eng, prompts, MOE_NEW)
+    steps = len(run["logits"])
+    per_step = {"grouped_paged_ecdp": 3 * cfg.n_layers, "grouped_ecdp": 0,
+                "ecdp": 1, "paged_attn": cfg.n_layers}
+    assert run["launches"] == {k: steps * n for k, n in per_step.items()}, \
+        (run["launches"], steps)
+    assert not run["over"], run["over"]
+    assert run["out"] == reference["out"], (run["out"], reference["out"])
+    assert [{k: v for k, v in e.items() if k != "stall_frac"}
+            for e in run["stats"]] == reference["stats"]
+    _same_live_logits(torch, cfg.name, run, reference)
+    st = eng.expert_stats()
+    assert st["expert_bytes_per_token"] < st["all_experts_bytes_per_token"]
+    assert st["pool_grows"] == 0 and st["prefetch_failures"] == 0, st
+    prefill = [w for w, s in zip(run["wall"], run["stats"])
+               if s["prefill_tokens"]]
+    decode = [w for w, s in zip(run["wall"], run["stats"])
+              if not s["prefill_tokens"]]
+    ms = lambda ws: sum(ws) / max(len(ws), 1) * 1e3     # noqa: E731
+    ph = run["phases"]
+    dispatch = sum(ph.get(p, 0.0) for p in ("head_dispatch",
+                                            "fused_dispatch",
+                                            "tail_dispatch"))
+    split = {p: ph.get(p, 0.0) / steps * 1e3
+             for p in ("plan", "head_dispatch", "route_sync",
+                       "expert_acquire", "fused_dispatch", "tail_dispatch",
+                       "sync")}
+    generated = MOE_NEW * len(prompts)
+    log(f"  streamed: {steps} steps ({len(prefill)} with prefill), "
+        f"{ms(run['wall']):.1f} ms/step: prefill steps {ms(prefill):.1f}, "
+        f"decode steps {ms(decode):.1f} ms; "
+        f"{generated / run['total_s']:.2f} generated tokens/s; "
+        f"per step route_sync {split['route_sync']:.1f} ms, expert_acquire "
+        f"{split['expert_acquire']:.1f} ms, dispatch "
+        f"{dispatch / steps * 1e3:.1f} ms (head {split['head_dispatch']:.1f},"
+        f" fused {split['fused_dispatch']:.1f}, tail "
+        f"{split['tail_dispatch']:.1f}), sync {split['sync']:.1f} ms")
+    log(f"  experts: hit rate {st['expert_hit_rate']:.3f} ({st['expert_hits']}"
+        f" hits, {st['expert_misses']} misses), misroute stalls "
+        f"{st['misroute_stalls']} = {st['misroute_stall_s']:.2f} s, fetched "
+        f"{st['expert_bytes_fetched'] / 2**30:.2f} GiB ({st['expert_fetches']}"
+        f" fetches; prefetched {st['expert_prefetched_bytes'] / 2**30:.2f} "
+        f"GiB in {st['expert_prefetches']}, {st['prefetch_batches']} "
+        f"rounds); {st['expert_bytes_per_token'] / 2**20:.1f} MiB/token vs "
+        f"{st['all_experts_bytes_per_token'] / 2**20:.1f} MiB/token "
+        f"all experts; cache {st['expert_cache_entries']} entries "
+        f"{st['expert_cache_bytes'] / 2**30:.2f} GiB of "
+        f"{cache.capacity / 2**30:.2f}; largest routed set "
+        f"{st['max_routed_seen']}; H2D {st['pool_bytes_staged'] / 2**30:.2f}"
+        f" GiB in {st['pool_h2d_s']:.2f} s")
+    log(f"  peak device memory serving {run['peak_bytes'] / 2**30:.2f} GiB, "
+        f"resident {torch.cuda.memory_allocated() / 2**30:.2f} GiB; logits "
+        f"of the slots with lanes and the tokens bit-equal to 12(b)'s "
+        f"resident engine at all {steps} steps; launches {run['launches']}")
+    eng.close()
+    del eng, store, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(steps=steps, prefill_steps=len(prefill),
+                ms_per_step=ms(run["wall"]),
+                ms_per_prefill_step=ms(prefill),
+                ms_per_decode_step=ms(decode),
+                tokens_per_s=generated / run["total_s"],
+                phase_ms_per_step=split,
+                dispatch_ms_per_step=dispatch / steps * 1e3,
+                build_s=build_s, build_peak_bytes=build_peak,
+                resident_bytes=resident, peak_bytes=run["peak_bytes"],
+                launches=run["launches"], per_step=per_step,
+                tier_bytes=tier, experts={
+                    k: st[k] for k in (
+                        "expert_hit_rate", "expert_hits", "expert_misses",
+                        "misroute_stalls", "misroute_stall_s",
+                        "expert_bytes_fetched", "expert_prefetched_bytes",
+                        "expert_prefetches", "expert_bytes_per_token",
+                        "all_experts_bytes_per_token", "max_routed_seen",
+                        "pool_h2d_s", "pool_bytes_staged")})
+
+
+def moe_stream_spec(torch) -> dict:
+    """13(c): speculative serving on the streamed MoE plane, qwen3 width at
+    2 layers, n-gram k = 4, under a budget below the tier, against the
+    resident spec engine on the same weights: the tokens, and every step's
+    logits of the slots with lanes and its verify-lane logits within the
+    lanes the routed-expert filter maps (q_lens + draft_cap), bit for bit;
+    token budget 1024 on both, so the stall never contracts the plan."""
+    import numpy as np
+
+    from repro_torch.core.scheduler import AdmissionConfig
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.sampler import SampleConfig
+    from repro_torch.serving.spec import SpecConfig
+    from repro_torch.store import PageStore, StreamConfig
+
+    cfg = moe_cfg(MOE_STREAM_SPEC_LAYERS)
+    d, f = cfg.d_model, cfg.d_ff
+    expert = 2 * _payload(d, f) + _payload(f, d)
+    # lm_head, the 128-row slab and a quarter of the expert tier: at 2
+    # layers half the tier would not hold lm_head and the slab
+    budget = (_payload(d, cfg.vocab_size) + cfg.n_experts * expert
+              + cfg.n_layers * cfg.n_experts * expert // 4)
+    kw = dict(max_slots=4, max_seq=256, rber=1e-4, seed=0, kv_aware=False,
+              sample_cfg=SampleConfig(), device="cuda",
+              spec_cfg=SpecConfig(k=MOE_STREAM_SPEC_K),
+              admission_cfg=AdmissionConfig(chunk_tokens=16,
+                                            token_budget=1024))
+    rng = np.random.default_rng(15)
+    # repeating prompts, so the n-gram drafter has something to propose
+    prompts = [(rng.integers(1, cfg.vocab_size, 6).tolist() * 5)[:n]
+               for n in (12, 30, 18, 24)]
+    runs = {}
+    for streamed in (False, True):
+        params = moe.init(cfg, torch.Generator(device="cuda").manual_seed(3),
+                          device="cuda")
+        extra = {}
+        if streamed:
+            extra = dict(weight_store=PageStore(n_planes=8),
+                         stream_cfg=StreamConfig(
+                             device_budget_bytes=budget))
+        eng = Engine(cfg, params, **kw, **extra)
+        del params
+        with eng._cv:
+            rids = [eng.submit(p, max_new=16) for p in prompts]
+        moe_stream_zero_counts()
+        rows = []
+        while eng.step():
+            bound = (eng._host_in["q_lens"].numpy()
+                     + eng._host_in["draft_cap"].numpy())
+            rows.append((eng.last_logits.cpu(), eng.last_lane_logits.cpu(),
+                         eng._host_in["q_lens"].numpy() > 0, bound))
+        torch.cuda.synchronize()
+        runs[streamed] = dict(out=[list(eng.requests[r].out) for r in rids],
+                              rows=rows, launches=moe_stream_counts(),
+                              spec=eng.spec_stats(),
+                              traces=eng.step_traces)
+        if streamed:
+            runs[streamed]["experts"] = eng.expert_stats()
+        eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    res, stm = runs[False], runs[True]
+    steps = len(stm["rows"])
+    assert stm["out"] == res["out"], (stm["out"], res["out"])
+    assert len(res["rows"]) == steps
+    for i, ((a, la, live, bound), (b, lb, live_r, _)) in enumerate(
+            zip(stm["rows"], res["rows"])):
+        assert (live == live_r).all(), i
+        if not torch.equal(a[live], b[live]):
+            raise AssertionError(f"13(c) step {i}: logits differ by "
+                                 f"{float((a[live] - b[live]).abs().max())}")
+        for s, n in enumerate(bound):
+            n = min(int(n), la.shape[1])
+            if not torch.equal(la[s, :n], lb[s, :n]):
+                raise AssertionError(f"13(c) step {i} slot {s}: verify-lane "
+                                     "logits differ")
+    assert stm["launches"]["grouped_paged_ecdp"] == 3 * cfg.n_layers * steps
+    assert stm["launches"]["grouped_ecdp"] == 0
+    assert stm["spec"] == res["spec"] and stm["traces"] == -1
+    assert stm["spec"]["spec_accepted"] > 0, stm["spec"]
+    log(f"  (c) streamed spec {cfg.name}, n-gram k={MOE_STREAM_SPEC_K}: "
+        f"{steps} steps, {stm['spec']['spec_tokens_per_step']:.3f} tokens "
+        f"per verify step, acceptance {stm['spec']['spec_acceptance_rate']:.3f}"
+        f"; tokens, logits and verify-lane logits bit-equal to the resident "
+        f"spec engine's (compiled) at all {steps} steps; expert hit rate "
+        f"{stm['experts']['expert_hit_rate']:.3f}; launches "
+        f"{stm['launches']}")
+    return dict(steps=steps, spec=stm["spec"], launches=stm["launches"])
+
+
+def phase_moe_stream(torch, reference) -> dict:
+    timer = Timer(torch)
+    kernels = moe_stream_kernels(torch, timer)
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = moe_stream_full(torch, reference)
+    spec = moe_stream_spec(torch)
+    return dict(kernels=kernels, full=full, spec=spec)
+
+
 def main() -> int:
     import torch
 
@@ -3572,13 +4078,16 @@ def main() -> int:
                 f"{int(r['wide'])}: {r['registers']} registers, {r['smem']} B "
                 f"smem, spills {r['spill_stores']}/{r['spill_loads']} B")
     ge_inst = grouped_resources(build)
-    if len(ge_inst) != 4:
-        raise AssertionError(f"grouped_ecdp: {len(ge_inst)} tensor-core "
-                             "instances in the build log, want 4")
-    for r in ge_inst:
-        log(f"  grouped_ecdp_mma_kernel m_tile={r['m_tile']} wide="
-            f"{int(r['wide'])}: {r['registers']} registers, {r['smem']} B "
-            f"smem, spills {r['spill_stores']}/{r['spill_loads']} B")
+    gp_inst = grouped_resources(build, "paged_ecdp")
+    for lib, rows in (("grouped_ecdp", ge_inst), ("paged_ecdp", gp_inst)):
+        if len(rows) != 4:
+            raise AssertionError(f"{lib}: {len(rows)} grouped tensor-core "
+                                 "instances in the build log, want 4")
+        for r in rows:
+            log(f"  {lib} grouped_ecdp_mma_kernel m_tile={r['m_tile']} "
+                f"wide={int(r['wide'])}: {r['registers']} registers, "
+                f"{r['smem']} B smem, spills {r['spill_stores']}/"
+                f"{r['spill_loads']} B")
     torch.backends.cuda.matmul.allow_tf32 = False
     timer = Timer(torch)
 
@@ -3625,8 +4134,16 @@ def main() -> int:
     t0 = time.perf_counter()
     moe_res = phase_moe(torch)
     log(f"  phase 12 in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 13: the streamed MoE plane, qwen3-moe-30b-a3b")
+    t0 = time.perf_counter()
+    ms_res = phase_moe_stream(torch, moe_res["full"].pop("reference"))
+    log(f"  phase 13 in {time.perf_counter() - t0:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"spec": spec}), flush=True)
+    print(json.dumps({"moe_stream": dict(full=ms_res["full"],
+                                         spec=ms_res["spec"])}), flush=True)
 
     step = serve["ecdp_step"]
     kernels = [
@@ -3738,6 +4255,30 @@ def main() -> int:
              "capacity_layouts"],
          "routed_rows": moe_res["kernels"]["grouped"]["route"],
          "bf16_instances": ge_inst},
+        {"name": "grouped_paged_ecdp_matmul", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_ecdp.cu",
+         "replaces": "src/repro/kernels/paged_ffn.py:156",
+         "launches": ms_res["full"]["launches"]["grouped_paged_ecdp"],
+         "per_step": ms_res["full"]["per_step"]["grouped_paged_ecdp"],
+         "max_abs_err": ms_res["kernels"]["max_abs_err"],
+         "ms": ms_res["kernels"]["layer"]["ms"],
+         "kernel_ms": ms_res["kernels"]["layer"]["ms"],
+         "plain_ms": ms_res["kernels"]["layer"]["plain_ms"],
+         "bound_ms": ms_res["kernels"]["layer"]["bound_ms"],
+         "bound_by": ms_res["kernels"]["layer"]["bound_by"],
+         "library_ms": ms_res["kernels"]["layer"]["library_ms"],
+         "dense_grouped_ms": ms_res["kernels"]["layer"]["dense_grouped_ms"],
+         "at": f"one {MOE_ARCH} layer's expert half, 3 launches back to "
+               "back (w_gate, w_up 2048x768, w_down 768x2048) over a slab "
+               "of pool pages (the routed experts of a real 64-lane route "
+               "at k=8, ECC off); the paged ECDP with an expert axis, for "
+               "the reference's per-expert paged ECDP over the slab "
+               "(src/repro/models/moe.py:78)",
+         "per_launch": ms_res["kernels"]["per_launch"],
+         "routed_rows": ms_res["kernels"]["route"],
+         "at_spec": dict(launches=ms_res["spec"]["launches"][
+             "grouped_paged_ecdp"], at="13(c): 2 layers, streamed spec"),
+         "bf16_instances": gp_inst},
     ]
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,9 +7,10 @@ weight page pool. It flattens leading batch/seq dims to an (M, K) GEMM, runs
 the ECDP (``kernels/ecdp.py``) or the paged ECDP (``kernels/paged_ecdp.py``)
 and restores the output shape. ``flash_matmul_grouped`` is how an MoE
 layer consumes a stacked (E, K, N) expert bank: one grouped ECDP
-(``kernels/grouped_ecdp.py``) over rows grouped by expert. There is no
-``ExecMode``: the device of the tensors picks the kernel (CUDA) or its
-plain version (CPU).
+(``kernels/grouped_ecdp.py``) over rows grouped by expert, or, for a slab
+of pool-paged experts, one grouped paged ECDP (``kernels/paged_ecdp.py``).
+There is no ``ExecMode``: the device of the tensors picks the kernel
+(CUDA) or its plain version (CPU).
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ import torch
 from repro_torch.core.tiering import FlashWeight, PagedWeight
 from repro_torch.kernels.ecdp import ecdp_matmul
 from repro_torch.kernels.grouped_ecdp import grouped_ecdp_matmul
-from repro_torch.kernels.paged_ecdp import paged_ecdp_matmul
+from repro_torch.kernels.paged_ecdp import (grouped_paged_ecdp_matmul,
+                                            paged_ecdp_matmul)
 
 
 def serve_ecc_mode() -> str:
@@ -56,20 +58,30 @@ def flash_matmul(x: torch.Tensor, w, ecc_enabled: bool = True,
     return out.reshape(lead + (n,)).to(out_dtype)
 
 
-def flash_matmul_grouped(x: torch.Tensor, w: FlashWeight,
-                         row_start: torch.Tensor, ecc_enabled: bool = True,
-                         out_dtype=torch.bfloat16,
-                         max_rows: int | None = None) -> torch.Tensor:
-    """x: (R, K) bf16 rows grouped by expert, expert e's at
+def flash_matmul_grouped(x: torch.Tensor, w, row_start: torch.Tensor,
+                         ecc_enabled: bool = True, out_dtype=torch.bfloat16,
+                         max_rows: int | None = None,
+                         plan_experts: int | None = None) -> torch.Tensor:
+    """x: (R, K) bf16 rows grouped by bank row, row e's at
     ``row_start[e] .. row_start[e+1]-1`` (``row_start`` (E+1,) int32 on
-    x's device); w: one (E, K, N) FlashWeight bank. Returns (R, N) in
-    ``out_dtype``; ``max_rows`` is the most rows an expert can have."""
+    x's device); w: one (E, K, N) FlashWeight bank, or a PagedWeight slab
+    whose page tables are stacked over E slab rows (the grouped paged
+    ECDP). Returns (R, N) in ``out_dtype``; ``max_rows`` is the most rows
+    a bank row can have; ``plan_experts`` the expert count the launch
+    plan is made for (``grouped_paged_ecdp_matmul``)."""
+    if isinstance(w, PagedWeight) and len(w.lead) == 1:
+        out = grouped_paged_ecdp_matmul(
+            x.contiguous(), row_start, w.pool, w.q_tbl, w.p_slots,
+            w.s_slots, tuple(w.kn), ecc_enabled=ecc_enabled,
+            max_rows=max_rows, plan_experts=plan_experts)
+        return out.to(out_dtype)
     if not isinstance(w, FlashWeight) or w.q.ndim != 3:
         raise ValueError("flash_matmul_grouped expects one (E, K, N) "
-                         "FlashWeight bank; index stacked layers first")
+                         "FlashWeight bank or a PagedWeight slab; index "
+                         "stacked layers first")
     out = grouped_ecdp_matmul(x.contiguous(), row_start, w.q, w.parity,
                               w.scale, ecc_enabled=ecc_enabled,
-                              max_rows=max_rows)
+                              max_rows=max_rows, plan_experts=plan_experts)
     return out.to(out_dtype)
 
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 
@@ -147,6 +148,44 @@ def plan_chunks(decode_slots: list, prefill_slots: list[tuple[int, int]],
             plan[slot] = n
             left -= n
     return plan
+
+
+def routed_experts(idx, q_lens):
+    """The host half of the MoE expert-id bitmap handoff.
+
+    The streamed MoE engine runs the router ON DEVICE and ships the top-k
+    expert ids to the host streamer — the MoE analog of Algorithm 2's plane
+    bitmap dispatch. This extracts the distinct experts actually routed by
+    VALID lanes (padding lanes route garbage hidden states; fetching their
+    experts would be pure wasted NAND traffic).
+
+    idx    : (slots, T, k) host int array — this layer's top-k expert ids.
+    q_lens : (slots,) host int array — valid lanes per slot this step.
+    Returns a sorted numpy int array of distinct expert ids (possibly
+    empty when no slot has work).
+    """
+    idx = np.asarray(idx)
+    lanes = np.arange(idx.shape[1])[None, :, None]
+    valid = np.broadcast_to(
+        lanes < np.asarray(q_lens)[:, None, None], idx.shape)
+    return np.unique(idx[valid])
+
+
+def routed_experts_by_slot(idx, q_lens):
+    """Per-slot split of ``routed_experts`` — same bitmap handoff, kept
+    separated by decode slot so the expert cache's per-slot router
+    histories see each sequence's routing phase instead of the batch
+    union. Returns {slot: sorted distinct expert ids} covering only slots
+    with valid lanes this step.
+    """
+    idx = np.asarray(idx)
+    q_lens = np.asarray(q_lens)
+    out = {}
+    for s in range(idx.shape[0]):
+        n = int(q_lens[s])
+        if n > 0:
+            out[s] = np.unique(idx[s, :n])
+    return out
 
 
 def split_projection(x: torch.Tensor, w_dram: torch.Tensor,

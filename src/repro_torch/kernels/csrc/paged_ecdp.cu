@@ -33,6 +33,23 @@
 // straddles two pages), and the logical (K, N) bounds every loop, so no
 // padded copy of anything is made. With the same launch plan the result is
 // bit-identical to ecdp_matmul on the dense weight with the same bytes.
+//
+// The expert axis (grouped_paged_ecdp_matmul). The streamed MoE plane
+// keeps each routed expert's banks as pool pages and names them through a
+// per-layer SLAB: slab row e's page tables are row e of q tables stacked
+// (E_slab, kt, nt) and parity / scale runs stacked (E_slab, np) and
+// (E_slab, ns). Replaces the reference's per-expert paged ECDP mapped over
+// the slab (src/repro/models/moe.py::_expert_matmul's
+// jax.vmap(ops.paged_ecdp_matmul_xla), the XLA twin of
+// paged_ecdp_matmul_pallas, ECC off there), computed on the routed rows
+// only, as grouped_ecdp.cu argues for the dense bank. PagedBank maps slab
+// row e to the PagedWeight above and the launch is grouped_ecdp.cu's
+// (ecdp_core.cuh's grouped_ecdp_launch): a (R,K) bf16 rows sorted by slab
+// row, slab row e's at row_start[e] .. row_start[e+1]-1 on the device,
+// grid z over the slab rows, a row with no routed rows exits before it
+// reads a page. Bounded, like the dense grouped launch, by the routed
+// experts' (9/8)*K*N bytes at 3.35 TB/s. With the same launch plan and the
+// same bytes its output is bit-identical to grouped_ecdp_matmul's.
 #include "ecdp_core.cuh"
 
 namespace {
@@ -85,6 +102,22 @@ struct PagedWeight {
   }
 };
 
+// A slab of paged expert weights: slab row e is the PagedWeight over row e
+// of the stacked page tables.
+struct PagedBank {
+  const int8_t* pool;
+  const int* q_tbl;      // (E_slab, kt, nt)
+  const int* p_slots;    // (E_slab, np)
+  const int* s_slots;    // (E_slab, ns)
+  int kt, nt, np, ns, N;
+
+  __device__ __forceinline__ PagedWeight expert(int e) const {
+    return PagedWeight{pool, q_tbl + (size_t)e * kt * nt,
+                       p_slots + (size_t)e * np, s_slots + (size_t)e * ns, N,
+                       nt};
+  }
+};
+
 }  // namespace
 
 // a (M,K) bf16 (a_bf16=1) or f32; pool (n_pages, 16384) int8; q_tbl
@@ -104,4 +137,30 @@ extern "C" int paged_ecdp_matmul(const void* a, int a_bf16, const void* pool,
                       static_cast<const int*>(s_slots), N, nt};
   return ecdp_launch(a, a_bf16, w, out, partial, M, K, N, k_split, m_tile,
                      wide, ecc, stream);
+}
+
+// a (R,K) bf16 rows sorted by slab row; row_start (E+1,) i32 on the device;
+// pool (n_pages, 16384) int8; q_tbl (E, kt, nt), p_slots (E, np), s_slots
+// (E, ns) i32, E = the slab's rows; out (R,N) f32. k_split, m_tile, wide
+// and partial's size as grouped_ecdp_launch (ecdp_core.cuh) takes them.
+// K % 8 == 0, R, N > 0. Returns cudaGetLastError() after the launches.
+extern "C" int grouped_paged_ecdp_matmul(
+    const void* a, const void* row_start, const void* pool, const void* q_tbl,
+    const void* p_slots, const void* s_slots, void* out, void* partial, int E,
+    int R, int K, int N, int kt, int nt, int np, int ns, int k_split,
+    int m_tile, int wide, int ecc, void* stream) {
+  const PagedBank bank{static_cast<const int8_t*>(pool),
+                       static_cast<const int*>(q_tbl),
+                       static_cast<const int*>(p_slots),
+                       static_cast<const int*>(s_slots), kt, nt, np, ns, N};
+  return grouped_ecdp_launch(a, bank, static_cast<const int*>(row_start), out,
+                             partial, E, R, K, N, k_split, m_tile, wide, ecc,
+                             stream);
+}
+
+// Dynamic shared memory per block of the grouped launch at M tile m_tile
+// (16 or 64), in bytes; -1 for another tile.
+extern "C" int grouped_paged_ecdp_smem_bytes(int m_tile) {
+  return m_tile == 16 ? mma_smem_bytes<16>()
+       : m_tile == 64 ? mma_smem_bytes<64>() : -1;
 }

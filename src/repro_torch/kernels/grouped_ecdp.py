@@ -120,12 +120,16 @@ def _lib():
 def grouped_ecdp_matmul(a: torch.Tensor, row_start: torch.Tensor,
                         wq: torch.Tensor, parity: torch.Tensor,
                         scale: torch.Tensor, ecc_enabled: bool = True,
-                        max_rows: int | None = None) -> torch.Tensor:
+                        max_rows: int | None = None,
+                        plan_experts: int | None = None) -> torch.Tensor:
     """Expert-grouped error-corrected quantized matmul: (R,K) bf16 rows
     grouped by expert x (E,K,N) int8 -> (R,N) f32. ``max_rows`` is the
     most rows any expert can have (it picks the M tile; default R; more
-    rows than it are still right, only slower). CUDA tensors run the
-    kernel; CPU tensors the plain version."""
+    rows than it are still right, only slower). ``plan_experts`` (default
+    E) is the expert count the launch plan is made for: a partial slab
+    given the full bank's count gets the full bank's plan, and so its
+    outputs bit for bit. CUDA tensors run the kernel; CPU tensors the
+    plain version."""
     _check(a, row_start, wq, parity, scale)
     if not a.is_cuda:
         return grouped_ecdp_plain(a, row_start, wq, parity, scale,
@@ -135,7 +139,8 @@ def grouped_ecdp_matmul(a: torch.Tensor, row_start: torch.Tensor,
     out = torch.empty((r, n), dtype=torch.float32, device=a.device)
     if out.numel() == 0:
         return out
-    plan = grouped_plan(r, e, k, n, r if max_rows is None else max_rows,
+    plan = grouped_plan(r, e if plan_experts is None else int(plan_experts),
+                        k, n, r if max_rows is None else max_rows,
                         _n_sms(a.device.index))
     partial = (None if plan.partial is None else
                torch.empty(plan.partial, dtype=torch.float32,

@@ -28,11 +28,12 @@ ObsPlane Chrome trace; ``--stats-interval S`` prints a structured ``stats
 text on ``GET /v1/metrics``.
 
 The engine serves dense- and MoE-family archs (``--arch
-qwen3-moe-30b-a3b``, ``phi3.5-moe-42b-a6.6b``); MoE serves on the resident
-plane only: streamed MoE (``--stream`` / ``--store-image`` with a MoE arch,
-ROADMAP §A.3) and tensor-parallel ``--shards`` (ROADMAP §A.4) are not
-ported yet. Like the reference, ``--smoke`` is always on at the command
-line: full width is ``build_engine(arch, smoke=False)``.
+qwen3-moe-30b-a3b``, ``phi3.5-moe-42b-a6.6b``), resident or, with
+``--stream`` / ``--store-image``, streamed: a MoE arch then pages only its
+routed experts out of the store (the expert cache and its prefetcher).
+Tensor-parallel ``--shards`` (ROADMAP §A.4) is not ported yet. Like the
+reference, ``--smoke`` is always on at the command line: full width is
+``build_engine(arch, smoke=False)``.
 """
 from __future__ import annotations
 
@@ -75,11 +76,6 @@ def build_engine(arch: str = "opt-tiny", smoke: bool = True,
     cfg = OPT_TINY if arch == "opt-tiny" else get_config(arch, smoke=smoke)
     if cfg.family not in ("dense", "moe"):
         raise SystemExit("engine serves dense- and moe-family archs")
-    if cfg.family == "moe" and (stream or store_image is not None):
-        raise SystemExit(f"{arch}: the port serves MoE archs on the resident "
-                         f"plane; streamed MoE serving (--stream, "
-                         f"--store-image) is not ported yet (ROADMAP §A.3, "
-                         f"streamed half)")
     if shards > 1:
         raise SystemExit(f"--shards {shards}: the port serves on one device; "
                          f"tensor-parallel serving is not ported yet "
@@ -115,7 +111,8 @@ def build_engine(arch: str = "opt-tiny", smoke: bool = True,
         params = init(cfg, seed)
     if stream:
         # flash tier host-resident in the page store, streamed per layer
-        # group under a device weight budget
+        # group under a device weight budget, or (MoE) expert-paged by the
+        # router
         from repro_torch.store import PageStore, StreamConfig
         if store is None:
             store = PageStore()
@@ -235,6 +232,8 @@ def serve(arch: str = "opt-tiny", smoke: bool = True, n_requests: int = 6,
            "ttft_steps": first_tok, "traces": eng.step_traces}
     if eng.streamed:
         out["stream"] = eng.stream_stats()
+        if eng.streamed_moe:
+            out["experts"] = eng.expert_stats()
     if spec_k > 0:
         out["spec"] = eng.spec_stats()
     eng.close()
@@ -429,7 +428,17 @@ def main():
           f"tokens in {out['seconds']:.1f}s ({out['tps']:.1f} generated "
           f"tok/s, {out['processed_tps']:.1f} processed tok/s on "
           f"{args.device}), step traces={out['traces']}")
-    if "stream" in out:
+    if "experts" in out:
+        ex = out["experts"]
+        print(f"expert paging: {ex['expert_hit_rate']*100:.0f}% cache hit "
+              f"rate, {ex['expert_bytes_fetched']/2**20:.2f} MiB fetched "
+              f"({ex['expert_bytes_per_token']/2**10:.1f} KiB/token vs "
+              f"{ex['all_experts_bytes_per_token']/2**10:.1f} KiB/token "
+              f"all-experts), {ex['misroute_stalls']} misroute stalls, "
+              f"{ex['expert_prefetches']} prefetches, "
+              f"{out['stream']['pages_read']} page reads -> "
+              f"{out['stream']['nand_seconds']*1e3:.2f} ms NAND")
+    elif "stream" in out:
         st = out["stream"]
         print(f"streamed {st['bytes_streamed']/2**20:.1f} MiB "
               f"(stall {st['stall_s']*1e3:.0f} ms / stream "

@@ -24,9 +24,11 @@ RAW, with ECC off, as the reference's ``_expert_matmul`` reads it
 runs through the expert-grouped ECDP (``kernels/grouped_ecdp.py``), one
 launch per bank matrix: the routed rows sorted by expert and
 ``row_start`` from the counts, all on the device (no host read, so the
-engine's captured step holds it). A plain bf16 bank takes the
-reference's dense buffer and a batched product. A pool-paged bank
-(``PagedWeight``) is the streamed half of ROADMAP §A.3 and is refused.
+engine's captured step holds it). A pool-paged bank (``PagedWeight``,
+the streamed MoE plane's slab: page tables stacked over slab rows) runs the
+same way through the grouped paged ECDP, one launch per bank matrix with
+ECC off, where the reference maps ``paged_ecdp_matmul_xla`` over the slab.
+A plain bf16 bank takes the reference's dense buffer and a batched product.
 """
 from __future__ import annotations
 
@@ -36,9 +38,6 @@ import torch.nn.functional as F
 from repro_torch.core.erdpe import flash_matmul_grouped
 from repro_torch.core.tiering import FlashWeight, PagedWeight
 from repro_torch.models import dense
-
-_STREAMED = ("a pool-paged expert bank is the streamed MoE plane, not "
-             "ported yet (ROADMAP §A.3, streamed half)")
 
 
 # --- init ---------------------------------------------------------------------
@@ -71,19 +70,14 @@ def init(cfg, generator: torch.Generator, device="cuda") -> dict:
 
 # --- expert products ----------------------------------------------------------
 
-def _refuse_paged(w):
-    if isinstance(w, PagedWeight):
-        raise ValueError(_STREAMED)
-
-
 def _expert_matmul(x: torch.Tensor, w) -> torch.Tensor:
     """x: (E, C, K) bf16 — expert e's rows x[e] — @ w (E, K, N) -> (E, C, N)
-    bf16. A FlashWeight bank runs the grouped ECDP with ECC off over the
-    E * C rows (expert e's at e * C); a plain bank the f32 product of the
-    bf16 operands, rounded to bf16."""
-    _refuse_paged(w)
+    bf16. A FlashWeight bank (or a PagedWeight slab of E paged experts)
+    runs the grouped ECDP (grouped paged ECDP) with ECC off over the E * C
+    rows (expert e's at e * C); a plain bank the f32 product of the bf16
+    operands, rounded to bf16."""
     e, c, k = x.shape
-    if isinstance(w, FlashWeight):
+    if isinstance(w, (FlashWeight, PagedWeight)):
         row_start = torch.arange(0, (e + 1) * c, c, dtype=torch.int32,
                                  device=x.device)
         out = flash_matmul_grouped(x.reshape(e * c, k), w, row_start,
@@ -208,16 +202,20 @@ def serve_expert_ffn(bank, x, gates, idx, slab_map=None):
     """Batched-expert SwiGLU over a full or partial expert bank.
 
     bank     : {"w_gate","w_up","w_down"} each (E_bank, K, N) FlashWeight
-               (deployed) or plain tensor.
+               (deployed), PagedWeight slab (page tables stacked over
+               E_bank slab rows: the streamed plane) or plain tensor.
     x        : (S, T, D) normed FFN input; gates/idx (S, T, k).
     slab_map : (n_experts,) int expert id -> bank row, -1 = not resident
                (those assignments contribute 0). None = identity.
 
-    Assignment a = token * k + j owns row a. A FlashWeight bank: the rows
-    sorted by bank row, one grouped ECDP per bank matrix with ECC off, and
-    the results put back in assignment order. A plain bank: the
-    reference's (E_bank, A, D) buffer with assignment a in column a, and a
-    batched product."""
+    Assignment a = token * k + j owns row a. A FlashWeight bank or a
+    PagedWeight slab: the rows sorted by bank row, one grouped (paged)
+    ECDP per bank matrix with ECC off, and the results put back in
+    assignment order; a slab's launch plan is made for the ``n_experts``
+    of ``slab_map``, the full bank's, so a slab gives the full bank's
+    outputs bit for bit on the card too. A plain bank: the reference's
+    (E_bank, A, D) buffer with assignment a in column a, and a batched
+    product."""
     s, t, d = x.shape
     k = idx.shape[-1]
     a = s * t * k
@@ -225,17 +223,18 @@ def serve_expert_ffn(bank, x, gates, idx, slab_map=None):
     flat_row = row.reshape(a).long()
     ok = flat_row >= 0
     w_gate = bank["w_gate"]
-    _refuse_paged(w_gate)
     e_bank = w_gate.shape[0]
     x2 = x.reshape(s * t, d)
-    if isinstance(w_gate, FlashWeight):
+    if isinstance(w_gate, (FlashWeight, PagedWeight)):
         order, row_start = _grouped_rows(flat_row, ok, e_bank)
         xs = x2.index_select(0, torch.div(order, k, rounding_mode="floor"))
+        plan_experts = None if slab_map is None else slab_map.shape[0]
 
         def grouped(r, w):
             # an expert gets at most S * T rows: top-k picks distinct ones
             return flash_matmul_grouped(r, w, row_start, ecc_enabled=False,
-                                        max_rows=s * t)
+                                        max_rows=s * t,
+                                        plan_experts=plan_experts)
         ys = _swiglu_bank(bank, xs, x.dtype, grouped)            # (A, D)
         out_a = torch.empty_like(ys).index_copy_(0, order, ys).float()
     else:

@@ -21,6 +21,18 @@ request level, with the KV-cache-aware scheduler (Algorithm 2) in the loop.
     the router's top-k, and the deployed expert banks read raw (ECC off)
     through one expert-grouped ECDP launch per bank matrix
     (``models/moe.serve_expert_ffn``), inside the same captured step.
+  * MoE (streamed plane) — with a ``weight_store`` the expert banks stay in
+    the host page store, one entry per (layer, expert). ``_streamed_step_moe``
+    runs each layer's attention + router on the device, reads the routed
+    expert ids on the host (the step's per-layer sync, the MoE analog of
+    Algorithm 2's plane bitmap), gathers the routed experts' page tables
+    into the layer's SLAB from the ``ExpertCache`` (a miss uploads
+    synchronously: a misroute stall), and runs the expert half through one
+    grouped paged ECDP launch per bank matrix. The expert half of layer l
+    is chained with layer l+1's attention + router (``_moe_fused_impl``);
+    the embed rides layer 0's (``_moe_head_impl``) and the finish the last
+    layer's experts (``_moe_tail_impl``). The ``ExpertPrefetcher``'s worker
+    uploads the router-history predictor's picks ahead of the layers.
   * flash tier — FFN weights and ``lm_head`` are deployed as INT8 + parity
     (``core.tiering.deploy``) and read through the ECDP on every use; the
     Q and O projections also keep a flash copy, and Algorithm 2's bitmap
@@ -59,7 +71,9 @@ request level, with the KV-cache-aware scheduler (Algorithm 2) in the loop.
     prefix copy-free, so a warm request prefills only its tail.
   * observability — each step's host phases (``plan``, ``dispatch``,
     ``sync``; streamed: ``embed``, ``stream_wait``, ``group_dispatch``,
-    ``finish``) land in ``timeline``, the ``engine_step_seconds``
+    ``finish``; streamed MoE: ``head_dispatch``, ``route_sync``,
+    ``expert_acquire``, ``fused_dispatch``, ``tail_dispatch``) land in
+    ``timeline``, the ``engine_step_seconds``
     histogram and, when the tracer is on, spans; ``telemetry()`` and
     ``obs_samples()`` feed the serving front (``serving/server.py``).
 """
@@ -68,6 +82,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import itertools
 import threading
 import time
 
@@ -87,6 +102,7 @@ from repro_torch.serving import spec as spec_mod
 from repro_torch.serving.kvcache import PagedKVPool
 from repro_torch.serving.prefix import PrefixIndex, block_hashes
 from repro_torch.serving.sampler import SampleConfig, last_valid_hidden, sample
+from repro_torch.store.expert_cache import ExpertCache, ExpertPrefetcher
 from repro_torch.store.page_pool import WeightPagePool
 from repro_torch.store.pagestore import (StoreRef, drop_store_refs,
                                          graft_store_refs)
@@ -419,6 +435,57 @@ def _stream_group_impl(cfg, bitmap, shapes, layers_dram, window, pool_buf,
     return x, ks, vs
 
 
+def _moe_expert_paged_impl(kn, x, h, gates, idx, slab, slab_map, pool_buf):
+    """Expert half of one STREAMED MoE layer: the slab is page tables only,
+    stacked (e_slab, ...) per bank matrix (``slab[name]["dev"]``); the
+    routed experts' weights stay raw pages in ``pool_buf`` and one grouped
+    paged ECDP per bank matrix reads them in place. ``kn`` is each
+    matrix's (K, N)."""
+    bank = {name: _paged(pool_buf, t, kn[name]) for name, t in slab.items()}
+    return x + moe_mod.serve_expert_ffn(bank, h, gates, idx, slab_map)
+
+
+def _moe_fused_impl(cfg, kn, layer, x, h, gates, idx, slab, slab_map,
+                    pool_buf, positions, ctx_lens, block_tables):
+    """The expert half of layer l - 1 chained into the attention + router
+    half of layer l (``layer`` = its DRAM params and K/V pool slices): the
+    host's expert-id read sits between two such calls. Returns
+    ``_moe_attn_router_body``'s tuple."""
+    x = _moe_expert_paged_impl(kn, x, h, gates, idx, slab, slab_map,
+                               pool_buf)
+    lp, kc, vc = layer
+    return _moe_attn_router_body(cfg, ctx_lens, positions, block_tables, x,
+                                 lp, kc, vc)
+
+
+def _moe_head_impl(cfg, params, layer, lengths, tokens, q_lens,
+                   block_tables, spec=None):
+    """Head of the streamed MoE step: the embed (drafting included, with
+    ``spec``) and layer 0's attention + router, which read no pool page.
+    Returns (x, h, gates, idx, k, v, positions, ctx_lens, q_lens, fin),
+    ``fin`` being ``_finish_step``'s ``spec``."""
+    x, positions, ctx_lens, q_lens, fin = _embed_step(
+        cfg, params, lengths, tokens, q_lens, spec)
+    lp, kc, vc = layer
+    x, h, gates, idx, k, v = _moe_attn_router_body(
+        cfg, ctx_lens, positions, block_tables, x, lp, kc, vc)
+    return x, h, gates, idx, k, v, positions, ctx_lens, q_lens, fin
+
+
+def _moe_tail_impl(cfg, sched_cfg, sample_cfg, kv_aware, kn, final_norm,
+                   lm_head, state, x, h, gates, idx, slab, slab_map,
+                   pool_buf, k_new, v_new, q_lens, admitted, positions,
+                   block_tables, generator, spec=None):
+    """Tail of the streamed MoE step: the last layer's expert half and the
+    finish (``_finish_step``: final norm, sampling or verification, the
+    paged KV write, Algorithm 2). Returns what ``_finish_step`` returns."""
+    x = _moe_expert_paged_impl(kn, x, h, gates, idx, slab, slab_map,
+                               pool_buf)
+    return _finish_step(cfg, sched_cfg, sample_cfg, kv_aware, final_norm,
+                        lm_head, state, x, k_new, v_new, q_lens, admitted,
+                        positions, block_tables, generator, spec=spec)
+
+
 def _map_tree(fn, tree):
     if isinstance(tree, dict):
         return {k: _map_tree(fn, v) for k, v in tree.items()}
@@ -463,9 +530,16 @@ class Engine:
     flash copy, no bitmap dispatch), the router picks each lane's top-k
     experts, and each deployed expert bank runs as one grouped ECDP launch
     a layer with ECC off (``models/moe.serve_expert_ffn``); Algorithm 2's
-    bitmap still updates and still contracts the step token budget. A MoE
-    engine with a ``weight_store`` (the streamed MoE plane, ROADMAP §A.3)
-    is refused.
+    bitmap still updates and still contracts the step token budget. With a
+    ``weight_store`` a MoE engine serves the streamed MoE plane (expert
+    paging; ``StreamConfig.group_size`` 1): the expert banks stay in the
+    store and only the routed experts' pages are uploaded, into a device
+    page pool sized once at construction, under an ``ExpertCache`` of
+    what the device budget leaves after lm_head and the slab. On the card
+    the compute stream waits for each slab row's upload before its layer's
+    launch; freeing a transient or evicted expert records the consumer
+    event the next upload into its pages waits on. ``expert_stats()``
+    reports its traffic; ``close()`` stops its prefetcher.
 
     ``weight_store`` (a ``store.PageStore``) serves the streamed plane:
     the flash tier is programmed into the store (or, if the store already
@@ -507,11 +581,6 @@ class Engine:
         if cfg.family not in ("dense", "moe"):
             raise ValueError("engine serves dense- and moe-family archs "
                              f"(got {cfg.family!r})")
-        if cfg.family == "moe" and weight_store is not None:
-            raise ValueError(
-                "a weight_store serves the streamed plane, and streamed MoE "
-                "serving (expert paging) is not ported yet (ROADMAP §A.3, "
-                "streamed half); serve MoE resident (no weight_store)")
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not takes_head_dim(cfg.head_dim):
@@ -546,6 +615,7 @@ class Engine:
                                                    draft_params)
         self.store = weight_store
         self.streamed = weight_store is not None
+        self.streamed_moe = self.streamed and cfg.family == "moe"
         self.compiled = compiled and not self.streamed
         if (self.compiled and self.device.type == "cuda"
                 and sample_cfg.temperature > 0
@@ -581,7 +651,10 @@ class Engine:
             if self.streamed:
                 self.stream_cfg = stream_cfg or StreamConfig()
                 self.attn_flash = None
-                self._init_streamed(params, rber, seed)
+                if self.streamed_moe:
+                    self._init_streamed_moe(max_slots)
+                else:
+                    self._init_streamed(params, rber, seed)
             else:
                 self.stream_cfg = None
                 # MoE keeps attention DRAM-only: the flash engine serves
@@ -791,6 +864,268 @@ class Engine:
         self.store.reset_counters()
         self.wpool.reset_counters()
 
+    # --- streamed MoE mode (expert paging) ----------------------------------
+
+    def _init_streamed_moe(self, max_slots: int):
+        """MoE flash tier: the per-(layer, expert) bank slices live in the
+        PageStore (``deploy`` splits the stacked (L, E, K, N) banks at
+        ``name@li.ei``); router, attention and norms stay DRAM. Stands up
+        the page pool, the ``ExpertCache`` ((layer, expert) residency) and
+        the router-history prefetcher under the device budget; the per-layer
+        expert SLAB is budget-accounted like the dense prefetch windows."""
+        cfg, sc = self.cfg, self.stream_cfg
+        if sc.group_size != 1:
+            raise ValueError(
+                f"group_size={sc.group_size}: MoE streaming is per-layer "
+                "(group_size=1) — each layer's routing depends on the "
+                "previous layer's experts, so a multi-layer group cannot "
+                "know its expert set up front")
+        experts = self.params["layers"]["moe"]["experts"]
+        self._expert_refs = {k: v for k, v in experts.items()
+                             if isinstance(v, StoreRef)}
+        if set(self._expert_refs) != {"w_gate", "w_up", "w_down"}:
+            raise ValueError("MoE streamed mode expects the expert bank "
+                             "(w_gate/w_up/w_down) in the store, got "
+                             f"{sorted(self._expert_refs)}")
+        for ref in self._expert_refs.values():
+            if ref.lead != (cfg.n_layers, cfg.n_experts):
+                raise ValueError(
+                    f"expert bank {ref.name!r} is split {ref.lead}, expected "
+                    f"(n_layers, n_experts)=({cfg.n_layers}, {cfg.n_experts})")
+        stray = [p for p, t in self.tier_map.items()
+                 if t == "flash" and p != "lm_head"
+                 and not p.startswith("layers/moe/experts/")]
+        if stray:
+            raise ValueError("MoE streamed mode expects the expert flash "
+                             "layout (layers/moe/experts/* + lm_head); stray "
+                             f"flash leaves would never be fetched: {stray}")
+        layers_dram = drop_store_refs(self.params["layers"])
+        self._layers = [_layer_slice(layers_dram, li)
+                        for li in range(cfg.n_layers)]
+        self._dram_params = {k: self.params[k]
+                             for k in ("embed", "pos_embed", "final_norm")
+                             if k in self.params}
+        self._expert_nbytes = [
+            [sum(self.store.entry_nbytes(ref.entry(li, e))
+                 for ref in self._expert_refs.values())
+             for e in range(cfg.n_experts)]
+            for li in range(cfg.n_layers)]
+        max_expert = max(max(r) for r in self._expert_nbytes)
+        self._max_expert_bytes = max_expert
+        # fetch generation stamps and the per-layer slab memo
+        # (``_acquire_experts``): both exist before the pins fetch
+        self._fetch_gen = itertools.count(1)
+        self._slab_memo: dict = {}
+        worst_routed = min(cfg.n_experts,
+                           max_slots * self.admission_cfg.chunk_tokens
+                           * cfg.top_k)
+        self._e_slab = max(1, int(sc.expert_slab or worst_routed))
+        lm_bytes = self.store.entry_nbytes("lm_head")
+        slab_bytes = self._e_slab * max_expert
+        if sc.device_budget_bytes is None or sc.pin_all:
+            cache_cap = None
+        else:
+            cache_cap = sc.device_budget_bytes - lm_bytes - slab_bytes
+            if cache_cap < max_expert:
+                raise ValueError(
+                    f"device_budget_bytes={sc.device_budget_bytes} cannot "
+                    f"hold the pinned lm_head ({lm_bytes}B) + the "
+                    f"{self._e_slab}-row expert slab ({slab_bytes}B) + at "
+                    f"least one cacheable expert ({max_expert}B); raise the "
+                    "budget or shrink StreamConfig.expert_slab")
+        # the device page pool in PHYSICAL pages: the cache's payload budget
+        # at the worst pages-per-payload-byte ratio, plus the slab's
+        # misroute fetches and the prefetcher's in-flight traffic, capped
+        # at the whole expert tier. Sized once: a grow mid-run would
+        # synchronize the card and swap the pool tensor.
+        expert_pages = [
+            [sum(self.store.entry_pages(ref.entry(li, e))
+                 for ref in self._expert_refs.values())
+             for e in range(cfg.n_experts)]
+            for li in range(cfg.n_layers)]
+        tier_pages = sum(sum(r) for r in expert_pages)
+        max_ep = max(max(r) for r in expert_pages)
+        pb = self.store.page_bytes
+        worst = max(expert_pages[li][e] * pb
+                    / max(self._expert_nbytes[li][e], 1)
+                    for li in range(cfg.n_layers)
+                    for e in range(cfg.n_experts))
+        self._pool_reserve_pages = 2 * self._e_slab * max_ep
+        if cache_cap is None:
+            n_pages = tier_pages
+        else:
+            n_pages = min(tier_pages,
+                          -(-int(worst * cache_cap) // pb)
+                          + self._pool_reserve_pages)
+        self.wpool = WeightPagePool(self.store, n_pages, device=self.device,
+                                    stream=self._stream)
+        self._expert_kn = {
+            name: tuple(self.store.table[ref.entry(0, 0)]["q"].shape)
+            for name, ref in self._expert_refs.items()}
+        self.expert_cache = ExpertCache(cache_cap, cfg.n_layers,
+                                        cfg.n_experts, n_slots=max_slots,
+                                        on_evict=self._evict_window)
+        self.cache = self.expert_cache
+        self.streamer = None             # the dense group streamer is unused
+        self._lm_head = self.store.get("lm_head", self.device)
+        if sc.pin_all:                   # the fully resident baseline
+            pins = [(li, e) for li in range(cfg.n_layers)
+                    for e in range(cfg.n_experts)]
+        else:
+            # always-routed shared experts: the first pin_shared_experts
+            # of every layer never pay an upload or a misroute stall
+            pins = [(li, e) for li in range(cfg.n_layers)
+                    for e in range(min(sc.pin_shared_experts,
+                                       cfg.n_experts))]
+        for li, e in pins:
+            val, nb = self._fetch_expert(li, e)
+            if not self.expert_cache.insert((li, e), val, nb, pin=True):
+                self._discard_window(val)
+        self.prefetcher = ExpertPrefetcher(
+            self.expert_cache, self._fetch_expert,
+            discard=self._discard_window,
+            batch_fetch=self._fetch_expert_batch)
+        # misroute-stall-aware budget retune (auto_expert_budget)
+        self._auto_expert_done = False
+        self._max_routed_seen = 0
+        self._host_q_lens = np.zeros((max_slots,), np.int32)
+        self._host_draft_cap = None
+        # init-time reads (lm_head, pins) are deployment, not serving
+        self.store.reset_counters()
+        self.expert_cache.reset_counters()
+        self.wpool.reset_counters()
+
+    def _fetch_expert(self, li: int, e: int):
+        """Upload ONE (layer, expert) weight set's pages (w_gate / w_up /
+        w_down) in one staged transfer and return (its page tables,
+        payload bytes). Runs on the compute path or on the prefetch worker
+        (whose uploads go to the pool's copy stream)."""
+        return (self._fetch_experts(li, [e])[e],
+                self._expert_nbytes[li][e])
+
+    def _fetch_experts(self, li: int, es):
+        """Upload SEVERAL of one layer's experts in ONE staged transfer;
+        returns {expert: table dict}."""
+        sets = self._fetch_expert_sets([(li, e) for e in es])
+        return {e: v for (_, e), v in sets.items()}
+
+    def _fetch_expert_sets(self, keys):
+        """Upload several (layer, expert) weight sets, any mix of layers, in
+        ONE staged transfer; returns {(layer, expert): {name: page tables,
+        "slots": the pool slots, "ready": the upload's event, "gen": a
+        fetch generation stamp}}."""
+        tbls = self.wpool.upload(
+            [ref.entry(li, e) for li, e in keys
+             for ref in self._expert_refs.values()])
+        out = {}
+        for li, e in keys:
+            val = {name: tbls[ref.entry(li, e)]
+                   for name, ref in self._expert_refs.items()}
+            val["slots"] = np.concatenate(
+                [val[name]["slots"] for name in self._expert_refs])
+            val["ready"] = val["w_gate"]["ready"]
+            # the slab memo keys on it, so a re-fetch (new pool slots) can
+            # never alias a stale memoized slab; next() on a count is atomic
+            # (the compute path and the prefetch worker both fetch)
+            val["gen"] = next(self._fetch_gen)
+            out[(li, e)] = val
+        return out
+
+    def _fetch_expert_batch(self, keys):
+        """The prefetch worker's batch hook: its whole drained queue in one
+        staged transfer. Returns {key: (value, nbytes)}."""
+        sets = self._fetch_expert_sets(keys)
+        return {k: (v, self._expert_nbytes[k[0]][k[1]])
+                for k, v in sets.items()}
+
+    def _acquire_experts(self, li: int, routed):
+        """Gather one layer's ROUTED experts into the slab's page tables.
+
+        Cache hits are acquired ref-held; an expert the prefetch worker is
+        reading is waited for (bounded); the rest are MISROUTE STALLS,
+        uploaded together in ONE staged transfer and hold-inserted (an
+        insert the budget rejects leaves a TRANSIENT, freed after the
+        launch). Returns (slab {name: {"dev": (q_tbl (e_slab, kt, nt),
+        p_slots, s_slots) device int32}}, slab_map (n_experts,) int32 device
+        tensor
+        with -1 = not in the slab, held keys and transient slot arrays to
+        release / free after the launch, the missing expert-id set)."""
+        routed = [int(e) for e in routed] or [0]
+        if len(routed) > self._e_slab:
+            raise ValueError(
+                f"layer {li} routed {len(routed)} distinct experts > "
+                f"expert_slab={self._e_slab}; raise StreamConfig.expert_slab")
+        cache = self.expert_cache
+        held, transients, vals = [], [], {}
+        missing = []
+        for e in routed:
+            key = (li, e)
+            val = cache.acquire(key)
+            if val is None and self.prefetcher.in_flight(key):
+                # the worker is reading this expert's pages: wait for it
+                # instead of reading them twice
+                t0 = time.perf_counter()
+                deadline = t0 + 1.0
+                while (self.prefetcher.in_flight(key)
+                       and time.perf_counter() < deadline):
+                    time.sleep(0.0005)
+                val = cache.acquire(key)
+                cache.note_stall(time.perf_counter() - t0)
+            if val is None:
+                missing.append(e)
+            else:
+                held.append(key)
+                vals[e] = val
+        if missing:
+            t0 = time.perf_counter()
+            fetched = self._fetch_experts(li, missing)
+            dt = time.perf_counter() - t0
+            for e in missing:
+                val, nb = fetched[e], self._expert_nbytes[li][e]
+                cache.note_fetch(nb)
+                cache.note_stall(dt / len(missing))
+                prior = (cache.acquire((li, e))
+                         if (li, e) in cache else None)
+                if prior is not None:
+                    # the prefetch worker landed it between the miss and
+                    # this fetch: use its copy, ours is a transient
+                    held.append((li, e))
+                    transients.append(val["slots"])
+                    vals[e] = prior
+                elif cache.insert((li, e), val, nb, hold=True):
+                    held.append((li, e))
+                    vals[e] = val
+                else:
+                    transients.append(val["slots"])
+                    vals[e] = val
+        rows = [vals[e] for e in routed]
+        if self._stream is not None:
+            # read after write: each row's pages are in once its upload's
+            # event (on the pool's copy stream) has passed
+            for ev in {id(r["ready"]): r["ready"] for r in rows
+                       if r["ready"] is not None}.values():
+                self._stream.wait_event(ev)
+        # slab memo: in steady decode a layer routes the same expert set
+        # step after step, and its page tables move only when an expert is
+        # re-fetched (a new generation stamp)
+        memo_key = (tuple(routed), tuple(r["gen"] for r in rows))
+        memo = self._slab_memo.get(li)
+        if memo is not None and memo[0] == memo_key:
+            slab, dev_map = memo[1], memo[2]
+        else:
+            slab_map = np.full((self.cfg.n_experts,), -1, np.int32)
+            for r, e in enumerate(routed):
+                slab_map[e] = r
+            rows += [rows[0]] * (self._e_slab - len(rows))    # static rows
+            slab = {name: {"dev": tuple(
+                torch.from_numpy(np.stack([r[name][k] for r in rows])).to(
+                    self.device)
+                for k in ("q_tbl", "p_slots", "s_slots"))}
+                for name in self._expert_refs}
+            dev_map = torch.from_numpy(slab_map).to(self.device)
+            self._slab_memo[li] = (memo_key, slab, dev_map)
+        return slab, dev_map, held, transients, set(missing)
+
     def _evict_window(self, key, value):
         """Cache eviction hook: hand an evicted window's pool slots back
         (the pool orders their reuse after the consumer's reads)."""
@@ -944,6 +1279,128 @@ class Engine:
         self._phase("finish", t)
         return out
 
+    def _streamed_step_moe(self):
+        """The expert-paged MoE data plane: per layer, the attention +
+        router half runs on the device, the top-k expert ids come to the
+        host (``idx.cpu()``: the step's per-layer sync, a few hundred
+        bytes), the routed experts are gathered from the ExpertCache (a
+        miss is a misroute stall) and the expert half reads them through
+        the slab. Layer l's expert half is chained with layer l+1's
+        attention + router (``_moe_fused_impl``); the embed rides layer 0's
+        (``_moe_head_impl``), the finish the last layer's experts
+        (``_moe_tail_impl``). While layer l computes, the prefetch worker
+        reads the predictor's picks for layer l+1 (wrapping to layer 0 for
+        the next step). Returns what ``_step_impl`` returns."""
+        cfg, cache = self.cfg, self.expert_cache
+        t = time.perf_counter()
+        self._load_inputs()
+        d, state = self._dev_in, self._state()
+        tokens, admitted, block_tables = (d["tokens"], d["admitted"],
+                                          d["block_tables"])
+        x, h, gates, idx, k_l, v_l, positions, ctx_lens, q_lens, fin = \
+            _moe_head_impl(cfg, self._dram_params,
+                           (self._layers[0], state["k"][0], state["v"][0]),
+                           state["lengths"], tokens, d["q_lens"],
+                           block_tables, self._spec_inputs())
+        lane_bound = self._host_q_lens
+        if self.spec_cfg is not None:
+            # verify lanes grow q_lens on the device (by n_draft <=
+            # draft_cap): the routed-expert filter takes the superset bound,
+            # so a draft lane's routing is never dropped from the slab
+            lane_bound = self._host_q_lens + self._host_draft_cap
+        # whole-step prefetch lead: the per-layer request below gives the
+        # worker one layer's compute to land its fetches; the per-slot
+        # histories already know each layer's likely experts, so every
+        # layer's predictions are queued up front (one batched transfer)
+        active = [s for s in range(len(lane_bound)) if lane_bound[s] > 0]
+        if self._steps_done > 0:
+            for li in range(cfg.n_layers):
+                self._request_prefetch(li, self._e_slab, slots=active)
+        t = self._phase("head_dispatch", t)
+        ks, vs = [k_l], [v_l]
+        out = None
+        for li in range(cfg.n_layers):
+            idx_host = idx.cpu().numpy()             # layer li's routing
+            t = self._phase("route_sync", t)
+            by_slot = sched.routed_experts_by_slot(idx_host, lane_bound)
+            routed = sched.routed_experts(idx_host, lane_bound)
+            cache.observe(li, routed)
+            for s, ids in by_slot.items():
+                cache.observe_slot(s, li, ids)
+            self._max_routed_seen = max(self._max_routed_seen, len(routed))
+            self._request_prefetch((li + 1) % cfg.n_layers, len(routed),
+                                   slots=by_slot.keys())
+            t = time.perf_counter()
+            slab, slab_map, held, transients, missing = \
+                self._acquire_experts(li, routed)
+            t = self._phase("expert_acquire", t)
+            for s, ids in by_slot.items():
+                cache.note_slot_route(s, len(ids),
+                                      sum(1 for e in ids
+                                          if int(e) in missing))
+            if li + 1 < cfg.n_layers:
+                # layer li's experts chained with layer li+1's attn+router
+                x, h, gates, idx, k_l, v_l = _moe_fused_impl(
+                    cfg, self._expert_kn,
+                    (self._layers[li + 1], state["k"][li + 1],
+                     state["v"][li + 1]),
+                    x, h, gates, idx, slab, slab_map, self.wpool.buffer,
+                    positions, ctx_lens, block_tables)
+                ks.append(k_l)
+                vs.append(v_l)
+                t = self._phase("fused_dispatch", t)
+            else:          # the last layer's experts with the finish
+                out = _moe_tail_impl(
+                    cfg, self.sched_cfg, self.sample_cfg, self.kv_aware,
+                    self._expert_kn, self._dram_params["final_norm"],
+                    self._lm_head, state, x, h, gates, idx, slab, slab_map,
+                    self.wpool.buffer, torch.stack(ks), torch.stack(vs),
+                    q_lens, admitted, positions, block_tables,
+                    self._generator, spec=fin)
+                t = self._phase("tail_dispatch", t)
+            # the launches that read the slab are enqueued: the held
+            # entries can go, and freeing the transients records the event
+            # the next upload into their pages waits on
+            for hk in held:
+                cache.release(hk)
+            for slots in transients:
+                self.wpool.free(slots)
+        return out
+
+    def _request_prefetch(self, layer: int, breadth: int, slots=None):
+        """Enqueue predicted experts for ``layer``, gated by the cache's
+        score-aware admission (``would_admit``), so a speculative fetch
+        never reads pages the cache would reject at once. ``slots`` (the
+        active decode slots) switches the predictor to the per-slot
+        histories (max-combined)."""
+        cache = self.expert_cache
+        want = breadth + self.stream_cfg.prefetch_experts_margin
+        picks = [(layer, e) for e in cache.predict(layer, want, slots=slots)
+                 if cache.would_admit((layer, e),
+                                      self._expert_nbytes[layer][e])]
+        if picks:
+            self.prefetcher.request(picks)
+
+    def _maybe_retune_expert_budget(self):
+        """Misroute-stall-aware expert budget re-split
+        (``StreamConfig.auto_expert_budget``): once, after the first
+        measured steps, if routed experts stalled, return the slab's unused
+        rows (e_slab against the largest routed set seen) to the expert
+        cache's capacity. The slab's size is fixed at init, so the unused
+        reservation is headroom the cache can spend on residency."""
+        sc = self.stream_cfg
+        if (not self.streamed_moe or not sc.auto_expert_budget
+                or self._auto_expert_done
+                or self._steps_done < sc.auto_depth_after):
+            return
+        self._auto_expert_done = True
+        cache = self.expert_cache
+        if (cache.misroute_stalls == 0 or cache.capacity is None
+                or self._max_routed_seen >= self._e_slab):
+            return
+        unused = self._e_slab - max(self._max_routed_seen, 1)
+        cache.resize(cache.capacity + unused * self._max_expert_bytes)
+
     def _phase(self, name: str, t0: float, now: float | None = None) -> float:
         """Accumulate one step-phase interval (ObsPlane): seconds since
         ``t0`` land in this step's phase breakdown and, when tracing is
@@ -959,9 +1416,14 @@ class Engine:
         return now
 
     def _stream_stall_s(self) -> float:
-        """Seconds the compute path has spent blocked on the weight
-        stream."""
-        return self.streamer.stall_s if self.streamed else 0.0
+        """Seconds the compute path has spent blocked on the weight stream:
+        the window-queue stall (dense groups) or the cumulative misroute
+        stall (MoE expert paging)."""
+        if not self.streamed:
+            return 0.0
+        if self.streamed_moe:
+            return self.expert_cache.misroute_stall_s
+        return self.streamer.stall_s
 
     def _maybe_autotune_depth(self):
         """Overlap-depth auto-tuning (``StreamConfig.auto_depth``): once,
@@ -969,7 +1431,8 @@ class Engine:
         observed stall/stream ratio, and re-split the device budget between
         the window and the cache (never below the pinned floor)."""
         sc = self.stream_cfg
-        if (not sc.auto_depth or self._auto_depth_done
+        if (self.streamer is None or not sc.auto_depth
+                or self._auto_depth_done
                 or self._steps_done < sc.auto_depth_after):
             return
         self._auto_depth_done = True
@@ -1008,11 +1471,14 @@ class Engine:
             if not strict:
                 return {}
             raise ValueError("stream_stats: engine is not in streamed mode")
-        out = {**self.streamer.stats(), **self.store.stats(),
-               **self.wpool.stats(),
-               "pool_reserve_bytes":
-                   self._pool_reserve_pages * self.store.page_bytes,
-               "prefetch_depth": self.streamer.prefetch_depth}
+        if self.streamed_moe:
+            out = {**self.expert_stats(), **self.store.stats()}
+        else:
+            out = {**self.streamer.stats(), **self.store.stats(),
+                   **self.wpool.stats(),
+                   "pool_reserve_bytes":
+                       self._pool_reserve_pages * self.store.page_bytes,
+                   "prefetch_depth": self.streamer.prefetch_depth}
         if self.spec_cfg is not None:
             out.update(self.spec_stats())
         return out
@@ -1043,14 +1509,46 @@ class Engine:
         return out
 
     def expert_stats(self, *, strict: bool = True) -> dict:
-        """Expert-cache telemetry of a store-backed (streamed) MoE engine,
-        which the port does not serve yet (ROADMAP §A.3): ``strict=False``
-        returns ``{}``, ``strict=True`` raises, as the reference does for an
-        engine not serving one — a resident MoE engine included."""
-        if not strict:
-            return {}
-        raise ValueError("expert_stats: engine is not serving a "
-                         "store-backed MoE model")
+        """ExpertCache telemetry of the expert-paged MoE engine: hit rate
+        over routed-expert acquires, fetched bytes (prefetch included) and
+        bytes per token against what streaming every expert of every layer
+        each step would fetch, misroute stalls, per-slot hit rates, the
+        prefetcher's and the pool's counters. ``strict=False`` returns
+        ``{}`` when the engine is not serving a store-backed MoE model (a
+        resident MoE engine included); ``strict=True`` raises."""
+        if not self.streamed_moe:
+            if not strict:
+                return {}
+            raise ValueError("expert_stats: engine is not serving a "
+                             "store-backed MoE model")
+        c = self.expert_cache.stats()
+        toks = sum(s["prefill_tokens"] + s["decode_tokens"]
+                   for s in self.stats)
+        bank_total = sum(sum(r) for r in self._expert_nbytes)
+        return {
+            "expert_hits": c["hits"], "expert_misses": c["misses"],
+            "expert_hit_rate": c["hits"] / max(c["hits"] + c["misses"], 1),
+            "expert_bytes_fetched": c["bytes_fetched"],
+            "expert_fetches": c["fetches"],
+            "expert_prefetches": c["prefetches"],
+            "expert_prefetched_bytes": c["prefetched_bytes"],
+            "misroute_stalls": c["misroute_stalls"],
+            "misroute_stall_s": c["misroute_stall_s"],
+            "expert_cache_entries": c["entries"],
+            "expert_cache_bytes": c["bytes_used"],
+            "expert_slab": self._e_slab,
+            "steps": self._steps_done, "tokens": toks,
+            "expert_bytes_per_token": c["bytes_fetched"] / max(toks, 1),
+            "all_experts_bytes_per_token":
+                self._steps_done * bank_total / max(toks, 1),
+            "slot_hit_rates": c.get("slot_hit_rates", []),
+            "max_routed_seen": self._max_routed_seen,
+            "expert_budget_retuned": self._auto_expert_done,
+            "pool_reserve_bytes":
+                self._pool_reserve_pages * self.store.page_bytes,
+            **self.prefetcher.stats(),
+            **self.wpool.stats(),
+        }
 
     def prefix_stats(self, *, strict: bool = True) -> dict:
         """Prefix-cache telemetry: index entries/hits/misses/evictions
@@ -1095,7 +1593,11 @@ class Engine:
                              float(self._stall_frac))
             yield from self.store.obs_samples()
             yield from self.wpool.obs_samples()
-            yield from self.streamer.obs_samples()
+            if self.streamed_moe:
+                yield from self.expert_cache.obs_samples()
+                yield from self.prefetcher.obs_samples()
+            else:
+                yield from self.streamer.obs_samples()
         if self.spec_cfg is not None:
             yield from spec_mod.spec_obs_samples(self._spec_totals)
         if self.prefix is not None:
@@ -1334,13 +1836,19 @@ class Engine:
             # included (draws on the admission reservation: cannot fail)
             self.pool.ensure(slot, int(self.pool.lengths[slot]) + cnt)
         np.copyto(tables, self.pool.block_tables)
+        if self.streamed_moe:
+            # host lane bounds for the routed-expert filter (verify lanes
+            # are added on the device; the filter uses q_lens + draft_cap)
+            self._host_q_lens = q_lens.copy()
+            self._host_draft_cap = draft_cap.copy() if spec else None
         t_step0 = self._phase("plan", t_plan0)
         stall0 = self._stream_stall_s()
         ctx = (torch.cuda.stream(self._stream) if self._stream is not None
                else contextlib.nullcontext())
         with torch.no_grad(), ctx:
             if self.streamed:
-                out = self._streamed_step()
+                out = (self._streamed_step_moe() if self.streamed_moe
+                       else self._streamed_step())
                 t_sync0 = time.perf_counter()
             else:
                 out = self._run_resident()
@@ -1447,13 +1955,15 @@ class Engine:
         self._steps_done += 1
         if self.streamed:
             self._maybe_autotune_depth()
+            self._maybe_retune_expert_budget()
         self._admit()                    # freed slots host waiting requests
         return n_processed
 
     def close(self):
         """Mark the engine closed, waking every ``submit`` blocked on
-        backpressure. Idempotent and thread-safe; a close racing a step
-        waits for it (``_cv``)."""
+        backpressure, and stop the MoE expert prefetcher's worker (its
+        fetch closure holds this engine). Idempotent and thread-safe; a
+        close racing a step waits for it (``_cv``)."""
         with self._close_lock:
             if self._close_done:
                 return
@@ -1461,6 +1971,9 @@ class Engine:
         with self._cv:
             self._closed = True
             self._cv.notify_all()
+        p = getattr(self, "prefetcher", None)
+        if p is not None:
+            p.stop()
 
     def run(self, max_steps: int = 1000) -> dict[int, list[int]]:
         for _ in range(max_steps):

@@ -43,6 +43,22 @@ class StreamConfig:
     # re-pick prefetch_depth from the streamer's stall/stream telemetry
     auto_depth: bool = False
     auto_depth_after: int = 4
+    # MoE expert paging: rows in the per-layer device expert slab (the
+    # rotating window of the expert-paged plane; budget-accounted like the
+    # dense windows). None = min(n_experts, worst-case routed set:
+    # n_slots * chunk_tokens * top_k).
+    expert_slab: int | None = None
+    # experts the predictor prefetches for layer l+1 beyond the breadth of
+    # the set the router just asked for (headroom for routing churn)
+    prefetch_experts_margin: int = 1
+    # the first ``pin_shared_experts`` experts of every MoE layer are pinned
+    # device-resident at init (always-routed shared experts never pay an
+    # upload); they count against the expert cache budget
+    pin_shared_experts: int = 0
+    # after ``auto_depth_after`` measured steps, if misroute stalls were
+    # seen, return the slab's unused rows (e_slab vs the largest routed set
+    # seen) to the expert cache's capacity; the slab itself is fixed
+    auto_expert_budget: bool = False
     # tensor-parallel streamed serving is not ported: 1 only
     n_shards: int = 1
 
@@ -139,10 +155,18 @@ class ResidencyCache:
             if e is not None and e.refs > 0:
                 e.refs -= 1
 
+    def _eviction_candidates(self, key, pin: bool) -> list:
+        """Victim order for an insert that needs room: LRU-first among
+        unpinned ref-free entries. Called under the lock; a subclass
+        overrides only this policy (the expert cache's score-aware
+        admission), the insert mechanics stay shared."""
+        return [k for k, e in self._entries.items()
+                if not e.pinned and e.refs == 0]
+
     def insert(self, key, value, nbytes: int, pin: bool = False,
                hold: bool = False) -> bool:
-        """Admit an entry, LRU-evicting unpinned ref-free entries to make
-        room. Returns False (the entry stays non-resident, and the caller
+        """Admit an entry, evicting ``_eviction_candidates`` (in order) to
+        make room. Returns False (the entry stays non-resident, and the caller
         must discard ``value`` itself) if it cannot fit. ``hold=True``
         admits it with one ref already taken, for the consumer to
         ``release``."""
@@ -160,8 +184,7 @@ class ResidencyCache:
                     self.rejects += 1
                     return False
                 if used + nbytes > self.capacity:
-                    for k in [k for k, e in self._entries.items()
-                              if not e.pinned and e.refs == 0]:
+                    for k in self._eviction_candidates(key, pin):
                         if used + nbytes <= self.capacity:
                             break
                         ev = self._entries.pop(k)

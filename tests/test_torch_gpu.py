@@ -1306,3 +1306,162 @@ def test_moe_engine_replays_one_graph_bit_equal_to_eager(cuda):
     assert comp["launches"] == [2 * n for n in per_step]
     for i, (got, want) in enumerate(zip(comp["logits"], eager["logits"])):
         assert torch.equal(got, want), (i, float((got - want).abs().max()))
+
+
+# --- the paged ECDP's expert axis and the streamed MoE plane --------------------
+
+def _slab_case(cuda, rng, counts, k, n, rber, slab, spare=5):
+    """A bank of len(counts) experts programmed into a store and uploaded
+    into a pool on the card with a shuffled free list; ``slab`` lists the
+    bank rows the slab holds, in slab order. Returns (a, row_start of the
+    slab, the dense bank on the card, the slab's stacked tables (q_tbl,
+    p_slots, s_slots), the pool)."""
+    banks = [_flash(rng, k, n, rber, seed=k + n + e)
+             for e in range(len(counts))]
+    pool, tbls = _paged_pool(cuda, {f"e{e}": banks[e]
+                                    for e in range(len(counts))},
+                             spare=spare, seed=sum(counts) + k)
+    stacked = tuple(torch.stack([tbls[f"e{e}"]["dev"][i] for e in slab])
+                    for i in range(3))
+    dense = tuple(torch.stack(t).to(cuda) for t in zip(*banks))
+    slab_counts = [counts[e] for e in slab]
+    row_start = torch.tensor(np.concatenate([[0], np.cumsum(slab_counts)]),
+                             dtype=torch.int32, device=cuda)
+    a = torch.from_numpy(rng.standard_normal((int(sum(slab_counts)), k),
+                                             dtype=np.float32)
+                         ).to(torch.bfloat16).to(cuda)
+    return a, row_start, dense, stacked, pool
+
+
+@pytest.mark.parametrize("counts,k,n", GROUPED_CASES)
+@pytest.mark.parametrize("rber", [0.0, 2e-3])
+def test_grouped_paged_ecdp_kernel_matches_plain_and_grouped(cuda, counts, k,
+                                                             n, rber):
+    """The grouped paged kernel over a slab holding the whole bank: within
+    the ECDP bound of its plain version, and bit-equal to the dense grouped
+    kernel on the same bytes at the same plan, ECC on and off; one counted
+    launch each."""
+    from repro_torch.kernels import grouped_ecdp as ge
+
+    rng = np.random.default_rng(sum(counts) * k + n + 7)
+    slab = list(range(len(counts)))
+    a, rs, dense, (qt, ps, ss), pool = _slab_case(cuda, rng, counts, k, n,
+                                                  rber, slab)
+    mag = torch.zeros((a.shape[0], n), device=cuda)
+    bounds = rs.tolist()
+    for e in slab:
+        r0, r1 = bounds[e], bounds[e + 1]
+        mag[r0:r1] = (a[r0:r1].float().abs() @ dense[0][e].float().abs()) \
+            * dense[2][e]
+    bound = 1e-4 + 4 * math.sqrt(k) * EPS32 * mag
+    for ecc_on in (True, False):
+        before = pe.grouped_paged_ecdp_matmul.launches
+        got = pe.grouped_paged_ecdp_matmul(a, rs, pool.buffer, qt, ps, ss,
+                                           (k, n), ecc_on,
+                                           max_rows=max(counts))
+        torch.cuda.synchronize()
+        assert pe.grouped_paged_ecdp_matmul.launches == before + 1
+        assert torch.equal(got, ge.grouped_ecdp_matmul(
+            a, rs, *dense, ecc_on, max_rows=max(counts)))
+        want = pe.grouped_paged_ecdp_plain(a, rs, pool.buffer, qt, ps, ss,
+                                           (k, n), ecc_on)
+        err = (got - want).abs()
+        assert bool((err <= bound).all()), float((err - bound).max())
+
+
+def test_grouped_paged_ecdp_slab_equals_the_full_bank(cuda):
+    """A slab of 3 of 12 experts (a subset in bank order, fewer slab rows
+    than routed rows, so ``grouped_plan`` alone would split K otherwise)
+    with ``plan_experts`` the bank's 12: the routed rows equal the dense
+    grouped kernel's over the full bank bit for bit."""
+    from repro_torch.kernels import grouped_ecdp as ge
+
+    counts = [0, 4, 0, 0, 9, 0, 0, 0, 3, 0, 0, 0]
+    k, n = 2048, 768
+    rng = np.random.default_rng(11)
+    slab = [1, 4, 8]
+    a, rs, dense, (qt, ps, ss), pool = _slab_case(cuda, rng, counts, k, n,
+                                                  0.0, slab)
+    full_rs = torch.tensor(np.concatenate([[0], np.cumsum(counts)]),
+                           dtype=torch.int32, device=cuda)
+    want = ge.grouped_ecdp_matmul(a, full_rs, *dense, False, max_rows=16)
+    got = pe.grouped_paged_ecdp_matmul(a, rs, pool.buffer, qt, ps, ss,
+                                       (k, n), False, max_rows=16,
+                                       plan_experts=len(counts))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_grouped_paged_ecdp_wrapper_rejects_what_the_kernel_does_not_take(
+        cuda):
+    rng = np.random.default_rng(1)
+    a, rs, _, (qt, ps, ss), pool = _slab_case(cuda, rng, [1, 2], 64, 32, 0.0,
+                                              [0, 1])
+    with pytest.raises(TypeError):
+        pe.grouped_paged_ecdp_matmul(a.float(), rs, pool.buffer, qt, ps, ss,
+                                     (64, 32))
+    with pytest.raises(ValueError):
+        pe.grouped_paged_ecdp_matmul(a, rs.cpu(), pool.buffer, qt, ps, ss,
+                                     (64, 32))
+    with pytest.raises(ValueError):
+        pe.grouped_paged_ecdp_matmul(a, rs, pool.buffer, qt.cpu(), ps, ss,
+                                     (64, 32))
+    with pytest.raises(ValueError):
+        pe.grouped_paged_ecdp_matmul(a, rs, pool.buffer, qt[0], ps, ss,
+                                     (64, 32))
+
+
+def test_streamed_moe_engine_logits_equal_resident_on_the_card(cuda):
+    """qwen3-moe-30b-a3b-smoke streamed from a page store under a budget
+    smaller than its expert tier: every step's logits of the slots that ran
+    lanes equal the eager resident engine's bit for bit, the greedy tokens
+    are the same, the step launches 3 grouped paged ECDP a layer (and no
+    dense grouped ECDP, no plain version), and the cache stays within its
+    capacity."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import grouped_ecdp as ge
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import Engine
+    from repro_torch.store import StreamConfig
+
+    cfg = get_config("qwen3-moe-30b-a3b", smoke=True)
+    params = moe.init(cfg, torch.Generator(device=cuda).manual_seed(0),
+                      device=cuda)
+    probe = PageStore()
+    Engine(cfg, params, max_slots=2, max_seq=96, device=cuda,
+           weight_store=probe, stream_cfg=StreamConfig()).close()
+    budget = int(probe.total_bytes * 0.8)
+    runs = {}
+    for streamed in (False, True):
+        kw = {}
+        if streamed:
+            kw = dict(weight_store=PageStore(n_planes=8),
+                      stream_cfg=StreamConfig(device_budget_bytes=budget))
+        eng = Engine(cfg, params, max_slots=2, max_seq=96, rber=1e-3,
+                     device=cuda, compiled=False, **kw)
+        before = (ge.grouped_ecdp_matmul.launches,
+                  pe.grouped_paged_ecdp_matmul.launches)
+        rids = [eng.submit(list(range(33, 52)), max_new=8),
+                eng.submit([384, 8, 157], max_new=8)]
+        logits, lanes = [], []
+        while eng.step():
+            logits.append(eng.last_logits.clone())
+            lanes.append(eng._host_in["q_lens"].numpy() > 0)
+            if streamed:
+                assert eng.expert_cache.bytes_used \
+                    <= eng.expert_cache.capacity
+        torch.cuda.synchronize()
+        after = (ge.grouped_ecdp_matmul.launches,
+                 pe.grouped_paged_ecdp_matmul.launches)
+        runs[streamed] = dict(out=[eng.requests[r].out for r in rids],
+                              logits=logits, lanes=lanes,
+                              launches=[b - a for a, b in zip(before, after)])
+        eng.close()
+    res, st = runs[False], runs[True]
+    steps = len(res["logits"])
+    assert res["launches"] == [3 * cfg.n_layers * steps, 0]
+    assert st["launches"] == [0, 3 * cfg.n_layers * steps]
+    assert st["out"] == res["out"]
+    for i, (got, want, live) in enumerate(zip(st["logits"], res["logits"],
+                                              st["lanes"])):
+        assert torch.equal(got[live], want[live]), i

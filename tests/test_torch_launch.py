@@ -198,10 +198,33 @@ def test_refusals_carry_the_reference_messages(case):
     (dict(arch="phi3.5-moe-42b-a6.6b", store_image="nand.img", ckpt="d"),
      "§A.3"),
     (dict(stream=True, shards=2), "§A.4")])
-def test_what_the_port_lacks_names_its_roadmap_item(kw, item):
-    """MoE archs serve on the resident plane; the streamed MoE plane is
-    what the port lacks (tests/test_torch_moe_engine.py serves them)."""
-    assert item in _refusal(tserve.build_engine, device="cpu", **kw)
+def test_what_the_port_lacks_names_its_roadmap_item(kw, item, tmp_path):
+    """What the port lacks names its ROADMAP item: ``--shards > 1``
+    (§A.4). The streamed MoE plane (§A.3) is ported: ``stream=True`` and
+    a MoE die image written by the port's ``deploy --store`` serve
+    expert-paged, with the port's resident ``build_engine``'s greedy
+    tokens (the same init; tests/test_torch_moe_engine.py holds them
+    against the JAX package)."""
+    if item == "§A.4":
+        assert item in _refusal(tserve.build_engine, device="cpu", **kw)
+        return
+    arch = kw["arch"]
+    if "store_image" in kw:
+        img = str(tmp_path / kw["store_image"])
+        tdeploy.run_deploy(arch, True, None, str(tmp_path), store_path=img,
+                           device="cpu")
+        kw = dict(kw, store_image=img, ckpt=str(tmp_path))
+    outs = []
+    for args in (dict(arch=arch), kw):
+        eng = tserve.build_engine(sample_cfg=SampleConfig(), device="cpu",
+                                  **args)
+        rid = eng.submit([5, 17, 29, 3], max_new=4)
+        outs.append(eng.run()[rid])
+        if eng.streamed:
+            assert eng.streamed_moe
+            assert eng.expert_stats()["expert_bytes_fetched"] > 0
+        eng.close()
+    assert outs[1] == outs[0] and len(outs[0]) == 4
 
 
 def test_heads_no_kernel_takes_are_refused_at_build_on_the_card():

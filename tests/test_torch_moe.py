@@ -240,19 +240,54 @@ def test_serve_expert_ffn_unmapped_expert_contributes_zero(flash):
     assert not out.any()
 
 
+def _paged_slab(bank, rows, seed=0):
+    """Layer 0's deployed bank programmed expert by expert into a port
+    PageStore and uploaded into a CPU page pool with a shuffled free list;
+    returns {name: PagedWeight} whose tables are stacked over ``rows``
+    (bank rows, in slab order)."""
+    from repro_torch.store import PageStore, WeightPagePool
+    store = PageStore(n_planes=8)
+    names = []
+    for name, fw in bank.items():
+        for e in range(fw.q.shape[0]):
+            store.put(f"{name}@{e}", FlashWeight(fw.q[e], fw.parity[e],
+                                                 fw.scale[e]))
+            names.append(f"{name}@{e}")
+    n_pages = sum(store.entry_pages(n) for n in names)
+    pool = WeightPagePool(store, n_pages, device="cpu")
+    pool._free = [int(s) for s in
+                  np.random.default_rng(seed).permutation(n_pages)]
+    tbls = pool.upload(names)
+    return {name: PagedWeight(
+        pool.buffer, *(torch.stack([tbls[f"{name}@{e}"]["dev"][j]
+                                    for e in rows]) for j in range(3)),
+        kn=tuple(fw.q.shape[1:])) for name, fw in bank.items()}
+
+
 def test_paged_expert_bank_is_refused_with_its_roadmap_item():
-    pw = PagedWeight(pool=torch.zeros((1, 16384), dtype=torch.int8),
-                     q_tbl=torch.zeros((2, 1, 1), dtype=torch.int32),
-                     p_slots=torch.zeros((2, 1), dtype=torch.int32),
-                     s_slots=torch.zeros((2, 1), dtype=torch.int32),
-                     kn=(64, 32))
-    bank = {"w_gate": pw, "w_up": pw, "w_down": pw}
-    with pytest.raises(ValueError, match="§A.3"):
-        tmoe.serve_expert_ffn(bank, torch.zeros((1, 1, 64)),
-                              torch.ones((1, 1, 1)),
-                              torch.zeros((1, 1, 1), dtype=torch.int32))
-    with pytest.raises(ValueError, match="§A.3"):
-        tmoe._expert_matmul(torch.zeros((2, 1, 64)), pw)
+    """The streamed plane's pool-paged expert bank, which the port once
+    refused, now serves: ``serve_expert_ffn`` over a PagedWeight slab of
+    the routed experts (reverse row order, with its ``slab_map``) gives
+    the deployed FlashWeight bank's outputs bit for bit (the same bytes
+    through the same plain products), and so does ``_expert_matmul`` over
+    the whole bank paged (expert e's rows at e * C)."""
+    arch = "qwen3-moe-30b-a3b"
+    _, tbank, x, g, i = _serve_inputs(arch, 1e-3, seed=3)
+    routed = sorted(set(np.asarray(i).ravel().tolist()))
+    perm = routed[::-1]
+    slab_map = np.full((8,), -1, np.int32)
+    for row, ex in enumerate(perm):
+        slab_map[ex] = row
+    full = tmoe.serve_expert_ffn(tbank, _t(x), _t(g), _t(i))
+    paged = _paged_slab(tbank, perm)
+    assert paged["w_gate"].lead == (len(perm),)
+    part = tmoe.serve_expert_ffn(paged, _t(x), _t(g), _t(i), _t(slab_map))
+    assert torch.equal(part, full)
+    whole = _paged_slab(tbank, range(8), seed=1)
+    xe = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (8, 3, 64), dtype=np.float32)).to(torch.bfloat16)
+    assert torch.equal(tmoe._expert_matmul(xe, whole["w_gate"]),
+                       tmoe._expert_matmul(xe, tbank["w_gate"]))
 
 
 # --- the capacity dispatch -----------------------------------------------------

@@ -7,7 +7,8 @@ experts) and RBER 0 and 1e-3, on the JAX init's params carried across by
 ``interop``; the speculative resident engine beside the JAX one; and the
 command line on a MoE arch: ``build_engine`` / ``serve`` tokens, ``deploy``
 with and without ``--store`` byte-equal to the JAX deploy, the checkpoint
-round trip, and the refusals (streamed MoE, ``drafter='model'``)."""
+round trip, the streamed MoE plane through ``build_engine`` (``stream`` and
+a die image), and the refusal of ``drafter='model'``."""
 from __future__ import annotations
 
 import functools
@@ -249,17 +250,52 @@ def _refusal(**kw):
     return str(e.value)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_build_tokens(arch):
+    """The JAX ``build_engine(arch)``'s greedy tokens on the prompt pair
+    (4 slots, max_seq 256, RBER 0, the JAX init)."""
+    eng = jserve.build_engine(arch, sample_cfg=JSample())
+    try:
+        return _pair(eng, arch)
+    finally:
+        eng.close()
+
+
 @pytest.mark.parametrize("kw", [dict(stream=True),
                                 dict(store_image="nand.img", ckpt="d")],
                          ids=["stream", "store_image"])
 @pytest.mark.parametrize("arch", ARCHS)
-def test_streamed_moe_is_refused_with_its_roadmap_item(arch, kw):
-    msg = _refusal(arch=arch, **kw)
-    assert "§A.3" in msg and "streamed" in msg
+def test_streamed_moe_is_refused_with_its_roadmap_item(arch, kw, monkeypatch,
+                                                       tmp_path):
+    """The streamed MoE plane, once refused here, now serves: ``build_engine
+    (arch, stream=True)``, and a MoE die image written by the port's
+    ``deploy --store`` from the JAX init's checkpoint served through
+    ``store_image=``, emit the JAX ``build_engine``'s greedy tokens (4
+    slots, RBER 0), expert-paged (only routed experts fetched); and
+    ``Engine(weight_store=...)`` emits the JAX engine's (2 slots)."""
+    np_params = jax.tree.map(np.asarray, _params(arch)[0])
+    monkeypatch.setattr(tmoe, "init", lambda cfg, gen, device="cuda":
+                        interop.params_from_numpy(np_params, device))
+    if "store_image" in kw:
+        JManager(tmp_path / "params").save(0, _params(arch)[0])
+        img = str(tmp_path / "out" / kw["store_image"])
+        tdeploy.run_deploy(arch, True, str(tmp_path / "params"),
+                           str(tmp_path / "out"), store_path=img,
+                           device="cpu")
+        kw = dict(store_image=img, ckpt=str(tmp_path / "out"))
+    eng = tserve.build_engine(arch, sample_cfg=SampleConfig(), device="cpu",
+                              **kw)
+    assert eng.streamed_moe and eng.store_preprogrammed == ("ckpt" in kw)
+    assert _pair(eng, arch) == _jax_build_tokens(arch)
+    st = eng.expert_stats()
+    assert 0 < st["expert_bytes_per_token"] \
+        < st["all_experts_bytes_per_token"]
+    eng.close()
     cfg = get_config(arch, smoke=True)
-    with pytest.raises(ValueError, match="§A.3"):
-        TEngine(cfg, _params(arch)[1], weight_store=PageStore(),
-                device="cpu")
+    eng = TEngine(cfg, _params(arch)[1], max_slots=2, max_seq=MAX_SEQ,
+                  weight_store=PageStore(), device="cpu")
+    assert _pair(eng, arch) == _jax_run(arch, 0.0)[0]
+    eng.close()
 
 
 def test_draft_model_needs_a_dense_target():

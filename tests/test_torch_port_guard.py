@@ -34,9 +34,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "bad = sorted(k for k in sys.modules if k == 'jax' "
         "or k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 57, names\n"
+        "assert len(names) >= 58, names\n"
         "assert {'repro_torch.store.' + m for m in ('faults', 'nand', "
-        "'page_pool', 'pagestore', 'streamer')} <= set(names), names\n"
+        "'page_pool', 'pagestore', 'streamer', 'expert_cache')} "
+        "<= set(names), names\n"
         "assert {'repro_torch.kernels.decode_attn', 'repro_torch.launch', "
         "'repro_torch.launch.steps', 'repro_torch.models.dense', "
         "'repro_torch.models.moe', 'repro_torch.kernels.grouped_ecdp'} "
