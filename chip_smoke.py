@@ -2,16 +2,18 @@
 """Smoke run of the PyTorch port on one NVIDIA card (H100): builds the
 hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``, holds each
 against its plain PyTorch version on the card, serves OPT-6.7B at full
-width and depth through them — resident, and streamed from a host page
-store under a device budget of half the flash tier — and runs its offline
-prefill / decode path; checks the card's engine against the CPU engine, the
-streamed engine against the resident one, and the card's prefill / decode
-against the CPU's; then serves through the ServeFront under injected NAND
-faults and with the prefix cache, speculatively, through the command
-line's entry points on granite-8b at full width, serves MoE on the
-resident plane at qwen3-moe-30b-a3b's width through the expert-grouped
-ECDP, and serves it streamed, expert-paged from a host page store through
-the paged ECDP's expert axis.
+width through them — resident at full depth, and streamed from a host
+page store under a device budget of half the flash tier — and runs its
+offline prefill / decode path; checks the card's engine against the CPU
+engine, the streamed engine against the resident one, and the card's
+prefill / decode against the CPU's; then serves through the ServeFront
+under injected NAND faults and with the prefix cache, speculatively,
+through the command line's entry points on granite-8b at full width,
+serves MoE on the resident plane at qwen3-moe-30b-a3b's width through the
+expert-grouped ECDP, and serves it streamed, expert-paged from a host page
+store through the paged ECDP's expert axis; and runs the other model
+families' offline path (rwkv6-3b, recurrentgemma-9b, seamless-m4t-medium)
+at full width and depth.
 
     python3 chip_smoke.py
 
@@ -74,14 +76,16 @@ Phases (any failure exits non-zero; nothing is caught):
                 scrambled by a shuffled free list; times per launch at the
                 serving shapes and one layer's four paged calls back to
                 back.
-  7. streamed — Engine(OPT_6_7B) at full width and depth, seeded init,
+  7. streamed — Engine(OPT_6_7B) at full width cut to 16 of 32 layers
+                (the step is host-bound, the read of half the tier; full
+                depth took about 2 s a step), seeded init,
                 RBER 1e-4, its flash tier programmed into PageStore(
                 n_planes=32) and streamed under StreamConfig(group_size=1,
                 prefetch_depth=2, device_budget_bytes = half the tier); 4
                 requests (prompts 7..200 tokens, 16 new each). The launch
                 counters are zeroed just before and read just after:
-                paged ECDP = steps x 32 x 4, ECDP = steps (lm_head), paged
-                attention = steps x 32. Then a resident engine on the same
+                paged ECDP = steps x 16 x 4, ECDP = steps (lm_head), paged
+                attention = steps x 16. Then a resident engine on the same
                 params serves the same requests: every step's logits must
                 equal the streamed engine's bit for bit.
   8. offline  — the dense model's own prefill / decode_step on OPT-6.7B.
@@ -268,9 +272,46 @@ Phases (any failure exits non-zero; nothing is caught):
                 verify-lane logits bit-equal to the resident spec
                 engine's. Its figures are the ``moe_stream`` JSON line.
 
-The ``spec`` and ``moe_stream`` lines come before the card's name; the
-second-to-last line is the ``kernels`` JSON; the last line is ``{"ok":
-true, "device": {...}}``. Times are CUDA-event medians with the
+  14. families — the other model families on the offline path. (a) the
+                ECDP against its plain version at each family's flash
+                shapes (rwkv6-3b 2560x2560, 2560x8960, 8960x2560, lm_head
+                2560x65536; recurrentgemma-9b 4096x4096, 4096x12288,
+                12288x4096, lm_head 4096x256000; seamless-m4t-medium
+                1024x4096, 4096x1024, lm_head 1024x256206, N not a
+                multiple of 16), M 4 and 512, RBER 0 and 2e-3, ECC on and
+                off; each timed at both M beside its plain version,
+                torch.matmul on the dequantised bf16 weights and its byte
+                bound. Decode attention against its plain versions at
+                recurrentgemma's ring (B 4, S 2048, KV 1, rep 16, Dh 256:
+                the CUDA-core body; lengths 1, 700, 2047, 2048) and
+                seamless's self-KV (S 96) and cross-KV (S 128, full),
+                timed beside SDPA on the same cache under the length mask
+                and its bound. (b) each arch at full width and depth:
+                run_deploy at RBER 1e-4 from a seeded init on the card
+                (the checkpoint written under build/chip_smoke_phase14/,
+                restored onto the card, removed), 4 prompts x 128 tokens
+                (seamless: 128 source frames and a 16-token target, its
+                self-KV padded to 96) prefilled, 32 greedy decode steps
+                through make_decode_step(compiled=True) (one capture),
+                then the same eagerly: tokens and logits bit-equal; the
+                counters zeroed just before and read just after: a
+                prefill, ECDP = 257 / 193 / 49 and no decode attention; a
+                decode step, ECDP 257 / 193 / 25 and decode attention 0 /
+                12 / 24 (eager: that a step; compiled: twice, the warm-up
+                and the capture); 8 captured steps timed and 8 profiled
+                (device time, idle share). (c) full width at cut depth
+                (rwkv6 2 layers, recurrentgemma 5: a super-block and the 2
+                tail layers, seamless 2 + 2), deployed on the card; the CPU
+                runs the port's plain path on the card's params: prefill
+                and decode steps (the card's captured), phase 5's rule;
+                recurrentgemma's prompt (2056 tokens) is longer than its
+                window, so the card's captured decode writes the ring's
+                slots past the wrap. Its figures are the ``families`` JSON
+                line.
+
+The ``spec``, ``moe_stream`` and ``families`` lines come before the card's
+name; the second-to-last line is the ``kernels`` JSON; the last line is
+``{"ok": true, "device": {...}}``. Times are CUDA-event medians with the
 L2 cache flushed before each timed call (the serving step streams more
 weight bytes than L2 holds) and the card held while the call is enqueued
 (``Timer``). bound_ms is the larger of the bytes a call
@@ -735,6 +776,7 @@ def time_paged_layer(torch, timer, pool, tbls, acts):
 # --- phase 7: streamed serving ------------------------------------------------------
 
 STREAM_PROMPTS, STREAM_NEW = (7, 40, 120, 200), 16
+STREAM_LAYERS = 16                 # of OPT-6.7B's 32, at full width
 
 
 def _payload(k: int, n: int) -> int:
@@ -754,7 +796,8 @@ def phase_streamed(torch):
     from repro_torch.serving.engine import Engine
     from repro_torch.store import PageStore, StreamConfig
 
-    cfg = OPT_6_7B
+    cfg = dataclasses.replace(OPT_6_7B, n_layers=STREAM_LAYERS,
+                              name=f"opt-6.7b-{STREAM_LAYERS}l")
     d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
     tier = cfg.n_layers * (_payload(d, f) + _payload(f, d)
                            + 4 * _payload(d, d)) + _payload(d, v)
@@ -783,7 +826,8 @@ def phase_streamed(torch):
     torch.cuda.synchronize()
     assert store.total_bytes == tier > stream_cfg.device_budget_bytes
     rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
-    log(f"  init + program the store ({cfg.n_layers} layers, full width): "
+    log(f"  init + program the store ({cfg.n_layers} of 32 layers, full "
+        "width): "
         f"{time.perf_counter() - t0:.1f} s; store {store.n_pages} pages, "
         f"{store.image_bytes / 2**30:.2f} GiB image ({tier / 2**30:.2f} GiB "
         f"payload; numpy array {store._data.nbytes / 2**30:.2f} GiB), "
@@ -4024,6 +4068,501 @@ def phase_moe_stream(torch, reference) -> dict:
     return dict(kernels=kernels, full=full, spec=spec)
 
 
+# --- phase 14: the other model families on the offline path ------------------
+
+FAMILY_ARCHS = ("rwkv6-3b", "recurrentgemma-9b", "seamless-m4t-medium")
+# each family's distinct flash (K, N) at full width (core/tiering's
+# patterns): RWKV-6's time-mix projections and w_rgate, its channel mix and
+# lm_head; RecurrentGemma's RG-LRU in/out projections, SwiGLU and lm_head;
+# seamless's GELU FFN and lm_head (N 256206, not a multiple of 16: the
+# narrow loads)
+FAMILY_ECDP = {
+    "rwkv6-3b": {"tmix/w_rkvgo, w_rgate": (2560, 2560),
+                 "w_up": (2560, 8960), "w_down": (8960, 2560),
+                 "lm_head": (2560, 65536)},
+    "recurrentgemma-9b": {"mix/w_in_xy, w_out": (4096, 4096),
+                          "w_gate/w_up": (4096, 12288),
+                          "w_down": (12288, 4096),
+                          "lm_head": (4096, 256000)},
+    "seamless-m4t-medium": {"w_up": (1024, 4096), "w_down": (4096, 1024),
+                            "lm_head": (1024, 256206)},
+}
+# 14(b): 4 prompts of 128 tokens (seamless: 128 source frames and a
+# 16-token target prompt, its self-KV padded to 96 rows), 32 greedy decode
+# steps, then 8 more timed and 8 traced on the captured step
+FAMILY_B, FAMILY_PROMPT, FAMILY_STEPS, FAMILY_TRACE = 4, 128, 32, 8
+FAMILY_TGT, FAMILY_PAD, FAMILY_SEED = 16, 96, 24
+FAMILY_WORK = ROOT / "build" / "chip_smoke_phase14"
+# decode attention at the path's shapes, (B, S_max, KV, rep, Dh, lengths
+# checked, lengths timed): recurrentgemma's ring (MQA, Dh 256: the
+# CUDA-core body) at lengths on its edges, timed at 14(b)'s mid-run live
+# count and at a full ring; seamless's self-KV (timed mid-run) and its
+# cross-KV, always at its full length
+FAMILY_DECODE = {
+    "recurrentgemma ring": (4, 2048, 1, 16, 256, [1, 700, 2047, 2048],
+                            [FAMILY_PROMPT + FAMILY_STEPS // 2 + 1] * 4),
+    "recurrentgemma full ring": (4, 2048, 1, 16, 256, None, [2048] * 4),
+    "seamless self": (4, FAMILY_PAD, 16, 1, 64, [1, 33, 64, 96],
+                      [FAMILY_TGT + FAMILY_STEPS // 2] * 4),
+    "seamless cross": (4, FAMILY_PROMPT, 16, 1, 64, [FAMILY_PROMPT] * 4,
+                       [FAMILY_PROMPT] * 4),
+}
+# 14(c): full width at cut depth, card against CPU; recurrentgemma's prompt
+# is longer than its window, so the card's captured decode wraps the ring
+FAMILY_CUT = {"rwkv6-3b": dict(n_layers=2),
+              "recurrentgemma-9b": dict(n_layers=5),
+              "seamless-m4t-medium": dict(n_layers=2, n_enc_layers=2)}
+FAMILY_PARITY_IN = {"rwkv6-3b": (2, 64, 8), "recurrentgemma-9b": (1, 2056, 4),
+                    "seamless-m4t-medium": (2, 64, 8)}   # B, prompt, steps
+
+
+def family_cfg(arch: str, cut: bool = False):
+    """The registry's config of ``arch`` (full width and depth), or its
+    depth cut to FAMILY_CUT's."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if cut:
+        cfg = dataclasses.replace(cfg, name=f"{cfg.name}-cut",
+                                  **FAMILY_CUT[arch])
+    return cfg
+
+
+def family_per_step(cfg) -> dict:
+    """A decode step's ECDP and decode-attention launches: RWKV-6 8 flash
+    projections a layer; RG-LRU 6 a recurrent layer (w_in_x, w_in_y, w_out
+    and the SwiGLU) and 3 an attention layer (its SwiGLU) and one ring
+    attention; seamless 2 a decoder layer (its FFN; the cross projections
+    are DRAM-tier) and two attentions (self, cross); and lm_head."""
+    if cfg.family == "rwkv6":
+        return {"ecdp": cfg.n_layers * 8 + 1, "decode_attn": 0}
+    if cfg.family == "rglru":
+        n_super, n_tail = cfg.n_layers // 3, cfg.n_layers % 3
+        return {"ecdp": (2 * n_super + n_tail) * 6 + n_super * 3 + 1,
+                "decode_attn": n_super}
+    return {"ecdp": cfg.n_layers * 2 + 1, "decode_attn": 2 * cfg.n_layers}
+
+
+def expect_counts(got, want, what: str) -> None:
+    """A launch count or a capture count against the path's."""
+    if got != want:
+        raise AssertionError(f"{what}: {got}, want {want}")
+
+
+def tree_to(tree, device):
+    """A deployed param tree (FlashWeight leaves too) on ``device``."""
+    from repro_torch.core.tiering import FlashWeight
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, FlashWeight):
+        return FlashWeight(tree.q.to(device), tree.parity.to(device),
+                           tree.scale.to(device))
+    return tree.to(device)
+
+
+def family_inputs(torch, cfg, gen, b: int, s: int, device="cuda"):
+    """(batch, kv_len after the prompt, pad_to): ``s`` prompt tokens, or
+    for the encoder-decoder ``s`` source frames (bf16, normal) and a
+    FAMILY_TGT-token target prompt, its self-KV padded to FAMILY_PAD."""
+    n_tok = FAMILY_TGT if cfg.family == "encdec" else s
+    toks = torch.randint(0, cfg.vocab_size, (b, n_tok), generator=gen,
+                         device=gen.device).to(device)
+    if cfg.family != "encdec":
+        return {"tokens": toks}, s, None
+    src = torch.randn((b, s, cfg.d_model), generator=gen, device=gen.device)
+    return ({"src_embeds": src.to(device=device, dtype=torch.bfloat16),
+             "tgt_tokens": toks}, FAMILY_TGT, FAMILY_PAD)
+
+
+def family_ecdp(torch, timer, arch: str) -> dict:
+    """14(a): the ECDP against its plain version at ``arch``'s flash
+    shapes, M 4 (a decode step) and 512 (the prefill), RBER 0 and 2e-3,
+    ECC on and off; each timed at both M beside its plain version,
+    torch.matmul on the dequantised bf16 weights and its byte bound."""
+    from repro_torch.core.quant import dequantize_int8
+    from repro_torch.core.tiering import encode_flash
+    from repro_torch.kernels.ecdp import ecdp_matmul, ecdp_matmul_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    worst, per_launch = 0.0, {}
+    for name, (k, n) in FAMILY_ECDP[arch].items():
+        w = torch.randn((k, n), generator=gen, device="cuda")
+        flash = {r: encode_flash(w, rber=r, seed=k + n) for r in (0.0, 2e-3)}
+        del w
+        w_deq = dequantize_int8(flash[0.0].q, flash[0.0].scale)
+        for m in (4, PREFILL_M):
+            a = torch.randn((m, k), generator=gen, device="cuda"
+                            ).to(torch.bfloat16)
+            for rber, fw in flash.items():
+                for ecc_on in (True, False):
+                    worst = max(worst, ecdp_case(
+                        torch, a, fw, ecc_on,
+                        f"{arch} {name} M={m} rber={rber}")[0])
+            fw = flash[2e-3]
+            t_kernel = timer(lambda: ecdp_matmul(a, fw.q, fw.parity,
+                                                 fw.scale, True))
+            t_plain = timer(lambda: ecdp_matmul_plain(a, fw.q, fw.parity,
+                                                      fw.scale, True), reps=3)
+            t_lib = timer(lambda: torch.matmul(a, w_deq))
+            b_ms, b_by = bound_ms(k * n * 9 / 8 + 4 * n + 2 * m * k
+                                  + 4 * m * n, 2.0 * m * k * n)
+            per_launch[f"{name}@M{m}"] = dict(
+                m=m, k=k, n=n, ms=t_kernel, plain_ms=t_plain,
+                library_ms=t_lib, bound_ms=b_ms, bound_by=b_by,
+                wide=n % 16 == 0)
+            log(f"  ecdp {arch} {name:22s} M={m:3d} K={k:5d} N={n:6d}: "
+                f"kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, "
+                f"torch.matmul bf16 {t_lib:.4f} ms, bound {b_ms:.4f} ms "
+                f"({b_by})")
+        del flash, w_deq
+        torch.cuda.empty_cache()
+    log(f"  ecdp at {arch}'s shapes vs plain: max abs err {worst:.3e} "
+        f"({len(FAMILY_ECDP[arch]) * 8} cases)")
+    return dict(max_abs_err=worst, per_launch=per_launch)
+
+
+def time_decode_case(torch, timer, shape, lengths) -> dict:
+    """Decode attention at ``shape`` (B, S_max, KV, rep, Dh) with
+    ``lengths``, bf16: the kernel, its plain version and SDPA on the same
+    cache under the length mask (the query group as SDPA's query rows),
+    all on the same grouped queries; and the bound: the live K/V rows, q
+    and the state at 3.35 TB/s."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attn import (decode_attn,
+                                                 decode_attn_plain,
+                                                 group_decode_queries)
+
+    b, s_max, n_kv, rep, dh = shape
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    q, kc, vc = _decode_inputs(torch, gen, b, s_max, n_kv, rep, dh,
+                               torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    qs = group_decode_queries(q, n_kv, kc.dtype)
+    t_kernel = timer(lambda: decode_attn(qs, kc, vc, lens))
+    t_plain = timer(lambda: decode_attn_plain(qs, kc, vc, lens), reps=3)
+    kt, vt = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+    mask = (torch.arange(s_max, device="cuda")[None, :] < lens[:, None]
+            )[:, None, None, :]
+    t_lib = timer(lambda: F.scaled_dot_product_attention(
+        qs, kt, vt, attn_mask=mask, scale=1.0))
+    live = sum(min(x, s_max) for x in lengths)
+    nbytes = (live * n_kv * dh * 2 * 2 + qs.numel() * 2
+              + b * n_kv * rep * (dh + 2) * 4 + b * 4)
+    b_ms, b_by = bound_ms(nbytes, 4.0 * rep * dh * n_kv * live)
+    return dict(lengths=list(lengths), ms=t_kernel, plain_ms=t_plain,
+                library_ms=t_lib, bound_ms=b_ms, bound_by=b_by)
+
+
+def family_decode_attn(torch, timer) -> dict:
+    """14(a): the decode-attention kernel against its plain versions (the
+    bounds at kernel_errors in kernels/decode_attn.py) at recurrentgemma's
+    ring and seamless's self- and cross-KV shapes, bf16, and timed beside
+    SDPA and its bound; the shared memory of the ring's CUDA-core block."""
+    from repro_torch.kernels.decode_attn import (_MAX_SMEM,
+                                                 decode_attention_state,
+                                                 group_decode_queries,
+                                                 kernel_errors, smem_bytes,
+                                                 uses_mma)
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    out = {}
+    for name, (b, s_max, n_kv, rep, dh, lengths, timed) in \
+            FAMILY_DECODE.items():
+        row = dict(b=b, s_max=s_max, kv=n_kv, rep=rep, dh=dh)
+        if lengths is not None:
+            q, kc, vc = _decode_inputs(torch, gen, b, s_max, n_kv, rep, dh,
+                                       torch.bfloat16)
+            lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+            qg = group_decode_queries(q, n_kv, kc.dtype)
+            mma = uses_mma(qg, kc, vc)
+            smem = smem_bytes(rep, dh, n_kv=n_kv, mma=mma)
+            if smem > _MAX_SMEM:
+                raise AssertionError(f"decode attention {name}: {smem} B")
+            acc, m, l = decode_attention_state(q, kc, vc, lens)
+            torch.cuda.synchronize()
+            errs = kernel_errors(qg, kc, vc, lens, acc, m, l)
+            max_abs = errs.pop("max_abs_err")
+            if not all(v <= 1 for v in errs.values()):
+                raise AssertionError(f"decode attention {name}: error / "
+                                     f"bound {errs}")
+            row.update(checked_lengths=lengths, max_abs_err=max_abs,
+                       body="tensor-core" if mma else "CUDA-core",
+                       smem_bytes=smem)
+            log(f"  decode_attn {name} B={b} S_max={s_max} KV={n_kv} "
+                f"rep={rep} Dh={dh} ({row['body']} body, {smem} B shared "
+                f"memory a block) lengths {lengths}: error / bound "
+                + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + f"; max abs err {max_abs:.3e}")
+        row.update(time_decode_case(torch, timer, (b, s_max, n_kv, rep, dh),
+                                    timed))
+        log(f"  decode_attn {name} lengths {timed}: kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, SDPA "
+            f"{row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+        out[name] = row
+    return out
+
+
+def family_full(torch, arch: str) -> dict:
+    """14(b): ``arch`` at full width and depth: deployed by run_deploy at
+    RBER 1e-4 from a seeded init on the card (the checkpoint written under
+    FAMILY_WORK and restored onto the card, then removed), 4 prompts x 128
+    tokens prefilled, 32 greedy decode steps through
+    make_decode_step(compiled=True) (one capture), then the same eagerly:
+    tokens and logits bit-equal; launch counters zeroed just before each
+    run and read just after; then 8 captured steps timed and 8 traced (the
+    device time and idle share; a kernel record the profiler loses is
+    printed, not gated: the eager run's counters and the bit-equal logits
+    hold the launches)."""
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.tiering import deploy
+    from repro_torch.kernels import decode_attn, ecdp
+    from repro_torch.launch.deploy import run_deploy
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import family_module
+
+    cfg = family_cfg(arch)
+    mod = family_module(cfg.family)
+    per_step = family_per_step(cfg)
+    n_prefill = (per_step["ecdp"] if cfg.family != "encdec"
+                 else (cfg.n_enc_layers + cfg.n_layers) * 2 + 1)
+    work = FAMILY_WORK / arch
+    shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats = run_deploy(arch, False, None, str(work), rber=1e-4,
+                       seed=FAMILY_SEED, device="cuda")
+    torch.cuda.synchronize()
+    deploy_s = time.perf_counter() - t0
+    deploy_peak = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a checkpoint's template is its tree, not its shapes: the smoke
+    # config's deployed tree has the full config's
+    template, _ = deploy(mod.init(get_config(arch, smoke=True),
+                                  torch.Generator().manual_seed(0),
+                                  device="cpu"))
+    t0 = time.perf_counter()
+    params, extras = CheckpointManager(work).restore(template, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    assert extras["arch"] == arch and extras["rber"] == 1e-4, extras
+    shutil.rmtree(work)
+    del template
+    resident = torch.cuda.memory_allocated()
+    n_params = cfg.param_count()
+    log(f"  {arch} ({cfg.n_layers} layers"
+        + (f" + {cfg.n_enc_layers} encoder" if cfg.n_enc_layers else "")
+        + f", d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}; {n_params / 1e9:.2f} B params): run_deploy "
+        f"{deploy_s:.1f} s (flash tier {stats['flash_gib']:.2f} GiB, DRAM "
+        f"tier {stats['dram_gib']:.2f} GiB), peak {deploy_peak / 2**30:.2f} "
+        f"GiB while deploying; checkpoint restored onto the card in "
+        f"{restore_s:.1f} s, {resident / 2**30:.2f} GiB resident")
+    gen = torch.Generator(device="cuda").manual_seed(FAMILY_SEED)
+    batch, start, pad_to = family_inputs(torch, cfg, gen, FAMILY_B,
+                                         FAMILY_PROMPT)
+    prefill = make_prefill_step(cfg, pad_to=pad_to)
+    traced = {k: n for k, n in per_step.items() if n}
+    runs = {}
+    for compiled in (True, False):
+        what = "compiled" if compiled else "eager"
+        decode = make_decode_step(cfg, compiled=compiled)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ecdp.ecdp_matmul.launches = 0
+        decode_attn.decode_attention_state.launches = 0
+        t0 = time.perf_counter()
+        last, cache = prefill(params, batch)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        expect_counts((ecdp.ecdp_matmul.launches,
+                       decode_attn.decode_attention_state.launches),
+                      (n_prefill, 0), f"{arch} prefill launches")
+        ecdp.ecdp_matmul.launches = 0
+        out, logits = [last.argmax(-1)], []
+        t0 = time.perf_counter()
+        for i in range(FAMILY_STEPS):
+            last, cache = decode(params, cache, {"token": out[-1],
+                                                 "kv_len": start + i})
+            out.append(last.argmax(-1))
+            logits.append(last)
+            if i == 0:
+                torch.cuda.synchronize()
+                first_ms = (time.perf_counter() - t0) * 1e3
+                t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        rest = time.perf_counter() - t1
+        launches = {"ecdp": ecdp.ecdp_matmul.launches,
+                    "decode_attn": decode_attn.decode_attention_state.launches}
+        bodies = 2 if compiled else FAMILY_STEPS      # warm-up + capture
+        expect_counts(launches, {k: n * bodies for k, n in per_step.items()},
+                      f"{arch} {what} decode launches")
+        if compiled:
+            expect_counts(decode.captures, 1, f"{arch} captures")
+        gen_toks = torch.stack(out, 1).cpu()
+        assert bool(torch.isfinite(torch.stack(logits)).all())
+        assert bool(((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all())
+        peak = torch.cuda.max_memory_allocated()
+        ms_step = rest / (FAMILY_STEPS - 1) * 1e3
+        prof = None
+        if compiled:
+            kv = [start + FAMILY_STEPS]
+
+            def step():
+                nonlocal last, cache
+                last, cache = decode(params, cache, {
+                    "token": last.argmax(-1), "kv_len": kv[0]})
+                kv[0] += 1
+            prof = trace_steps(torch, step, FAMILY_TRACE, traced,
+                               captured=decode.captured,
+                               require_records=False)
+            expect_counts(decode.captures, 1, f"{arch} captures")
+        log(f"  {arch} {what}: prefill {FAMILY_B} x {FAMILY_PROMPT} "
+            + ("frames, " + f"{FAMILY_TGT}-token targets"
+               if cfg.family == "encdec" else "tokens")
+            + f" {t_prefill * 1e3:.1f} ms; {FAMILY_STEPS} greedy decode "
+            f"steps: the first {first_ms:.1f} ms, then {ms_step:.2f} "
+            f"ms/step, {FAMILY_B / ms_step * 1e3:.1f} generated tokens/s; "
+            + (f"device {prof['device_ms_per_step']:.2f} ms/step, idle "
+               f"share {prof['idle_share']:.3f}; " if prof else "")
+            + f"peak {peak / 2**30:.2f} GiB; launches {launches}")
+        runs[compiled] = dict(tokens=gen_toks,
+                              logits=torch.stack(logits).cpu(),
+                              launches=launches, prefill_ms=t_prefill * 1e3,
+                              first_ms=first_ms, ms_per_step=ms_step,
+                              tokens_per_s=FAMILY_B / ms_step * 1e3,
+                              peak_bytes=peak, profile=prof)
+        del cache, last, logits, out, decode
+        gc.collect()
+        torch.cuda.empty_cache()
+    comp, eager = runs[True], runs[False]
+    assert torch.equal(comp["tokens"], eager["tokens"]), arch
+    for i, (a, b) in enumerate(zip(comp["logits"], eager["logits"])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{arch} decode step {i}: replayed logits "
+                                 "differ from the eager step's by "
+                                 f"{float((a - b).abs().max())}")
+    log(f"  {arch}: compiled vs eager, {FAMILY_STEPS} decode steps, logits "
+        f"and greedy tokens bit-equal, 1 capture; first prompt's tokens "
+        f"{eager['tokens'][0, :12].tolist()}")
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(
+        per_step=per_step, prefill_launches=n_prefill,
+        launches=eager["launches"], params=n_params,
+        deploy_s=deploy_s, restore_s=restore_s, deploy_peak_bytes=deploy_peak,
+        resident_bytes=resident, flash_gib=stats["flash_gib"],
+        dram_gib=stats["dram_gib"],
+        profile={k: comp["profile"][k] for k in (
+            "ms_per_step", "device_ms_per_step", "idle_share", "groups_ms",
+            "records")},
+        **{w: {k: r[k] for k in ("prefill_ms", "first_ms", "ms_per_step",
+                                 "tokens_per_s", "peak_bytes")}
+           for w, r in (("compiled", comp), ("eager", eager))})
+
+
+def family_parity(torch, arch: str) -> dict:
+    """14(c): ``arch`` at full width, depth cut to FAMILY_CUT's, seeded and
+    deployed at RBER 1e-4 on the card; the CPU runs the port's plain path
+    on the card's params (copied). Prefill and FAMILY_PARITY_IN's decode
+    steps (both fed the CPU's greedy tokens; the card's through
+    make_decode_step(compiled=True), one capture): logits within 2^-6 of
+    each row's largest |logit|, greedy tokens equal wherever the top-2
+    margin exceeds twice that (phase 5's rule)."""
+    from repro_torch.core.tiering import deploy
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import family_module
+
+    cfg = family_cfg(arch, cut=True)
+    mod = family_module(cfg.family)
+    b, s, n_dec = FAMILY_PARITY_IN[arch]
+    t0 = time.perf_counter()
+    raw = mod.init(cfg, torch.Generator(device="cuda").manual_seed(17),
+                   device="cuda")
+    p_gpu, _ = deploy(raw, rber=1e-4, seed=3)
+    del raw
+    p_cpu = tree_to(p_gpu, "cpu")
+    batch, start, pad_to = family_inputs(
+        torch, cfg, torch.Generator().manual_seed(18), b, s, device="cpu")
+    max_rel, compared = 0.0, 0
+
+    def compare(lg_cpu, lg_gpu, what):
+        nonlocal max_rel, compared
+        lg_gpu = lg_gpu.cpu()
+        row_max = lg_cpu.abs().amax(-1)
+        rel = float(((lg_cpu - lg_gpu).abs().amax(-1) / row_max).max())
+        if rel > PARITY_REL_TOL:
+            raise AssertionError(f"{arch} {what}: logits differ by "
+                                 f"{rel:.3e} of the row's largest")
+        max_rel = max(max_rel, rel)
+        top2 = torch.topk(lg_cpu, 2).values
+        sure = (top2[:, 0] - top2[:, 1]) > 2 * PARITY_REL_TOL * row_max
+        assert torch.equal(lg_cpu.argmax(-1)[sure], lg_gpu.argmax(-1)[sure]), \
+            (arch, what)
+        compared += int(sure.sum())
+
+    lg_c, c_cpu = mod.prefill(cfg, p_cpu, batch, pad_to=pad_to)
+    lg_g, c_gpu = make_prefill_step(cfg, pad_to=pad_to)(
+        p_gpu, {k: v.cuda() for k, v in batch.items()})
+    compare(lg_c, lg_g, "prefill")
+    decode = make_decode_step(cfg, compiled=True)
+    for i in range(n_dec):
+        tok = lg_c.argmax(-1).int()
+        lg_c, c_cpu = mod.decode_step(cfg, p_cpu, c_cpu,
+                                      {"token": tok, "kv_len": start + i})
+        lg_g, c_gpu = decode(p_gpu, c_gpu, {"token": tok.cuda(),
+                                            "kv_len": start + i})
+        compare(lg_c, lg_g, f"decode step {i}")
+    expect_counts(decode.captures, 1, f"{arch} parity captures")
+    wrap = ""
+    if cfg.family == "rglru":
+        w = cfg.local_window
+        assert start > w, (start, w)
+        wrap = (f"; ring slots {start % w}..{(start + n_dec - 1) % w} of "
+                f"{w} (positions {start}..{start + n_dec - 1})")
+    log(f"  {cfg.name} ({cfg.n_layers} layers"
+        + (f" + {cfg.n_enc_layers} encoder" if cfg.n_enc_layers else "")
+        + f" at full width), {b} x {s} prompt, {n_dec} decode steps, "
+        f"{time.perf_counter() - t0:.1f} s: card vs CPU max |logit diff| "
+        f"{max_rel:.3e} of the row's max (tol {PARITY_REL_TOL:.3e}), "
+        f"{compared} greedy tokens compared{wrap}")
+    del p_gpu, p_cpu, c_gpu, c_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(max_rel=max_rel, tokens_compared=compared, batch=b, prompt=s,
+                steps=n_dec, layers=cfg.n_layers)
+
+
+def phase_families(torch) -> dict:
+    """Phase 14: (a) the ECDP and decode attention at the three families'
+    shapes, (b) each at full width and depth, (c) card against CPU at cut
+    depth."""
+    timer = Timer(torch)
+    ecdp_res = {arch: family_ecdp(torch, timer, arch)
+                for arch in FAMILY_ARCHS}
+    da_res = family_decode_attn(torch, timer)
+    del timer
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = {}
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        full[arch] = family_full(torch, arch)
+        log(f"  14(b) {arch} in {time.perf_counter() - t0:.1f} s")
+    parity = {}
+    for arch in FAMILY_ARCHS:
+        parity[arch] = family_parity(torch, arch)
+    return dict(ecdp=ecdp_res, decode_attn=da_res, full=full, parity=parity)
+
+
 def main() -> int:
     import torch
 
@@ -4140,10 +4679,19 @@ def main() -> int:
     t0 = time.perf_counter()
     ms_res = phase_moe_stream(torch, moe_res["full"].pop("reference"))
     log(f"  phase 13 in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 14: the other families (rwkv6-3b, recurrentgemma-9b, "
+        "seamless-m4t-medium) on the offline path")
+    t0 = time.perf_counter()
+    fam = phase_families(torch)
+    log(f"  phase 14 in {time.perf_counter() - t0:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"spec": spec}), flush=True)
     print(json.dumps({"moe_stream": dict(full=ms_res["full"],
                                          spec=ms_res["spec"])}), flush=True)
+    print(json.dumps({"families": dict(full=fam["full"],
+                                       parity=fam["parity"])}), flush=True)
 
     step = serve["ecdp_step"]
     kernels = [
@@ -4172,6 +4720,13 @@ def main() -> int:
                               per_step=moe_res["full"]["per_step"]["ecdp"],
                               at="lm_head alone (the MoE step's one ECDP "
                                  "call)"),
+         "at_families": {
+             arch: dict(fam["ecdp"][arch],
+                        launches=fam["full"][arch]["launches"]["ecdp"],
+                        per_step=fam["full"][arch]["per_step"]["ecdp"],
+                        at=f"14(b): {FAMILY_STEPS} eager decode steps at "
+                           "full width and depth")
+             for arch in FAMILY_ARCHS},
          "bf16_instances": mma_res["ecdp"]},
         {"name": "paged_attn", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_attn.cu",
@@ -4229,6 +4784,14 @@ def main() -> int:
              launches=moe_res["offline"]["launches"]["decode_attn"],
              at="12(d): 2 layers, 8 decode steps (warm-up + capture + 8 "
                 "eager bodies)"),
+         "at_families": dict(
+             fam["decode_attn"],
+             launches={arch: fam["full"][arch]["launches"]["decode_attn"]
+                       for arch in FAMILY_ARCHS},
+             per_step={arch: fam["full"][arch]["per_step"]["decode_attn"]
+                       for arch in FAMILY_ARCHS},
+             at=f"14(b): {FAMILY_STEPS} eager decode steps at full width "
+                "and depth"),
          "instances": da_inst},
         {"name": "grouped_ecdp_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/grouped_ecdp.cu",

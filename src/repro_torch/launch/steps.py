@@ -37,7 +37,12 @@ def make_decode_step(cfg, compiled: bool = False):
     a fresh logits tensor. ``step.captures`` counts the captures: a new
     cache, even at the same shape, is a new capture (a cache is never
     copied into a static one); ``step.captured`` is the current one
-    (``graphs.Captured``). The kernel launch counters tick at the
+    (``graphs.Captured``). The cache is any family's dict of tensors,
+    written in place (dense K/V; RWKV-6's state; the RG-LRU states and
+    ring; the encoder-decoder's self- and cross-KV): a capture holds
+    every tensor's address; a family's ``RECURRENT_STATE`` entries
+    (advanced, not only written, by a step) are put back after the
+    capture's warm-up. The kernel launch counters tick at the
     warm-up and the capture, not at a replay (``repro_torch.graphs``). On
     the CPU the body runs eagerly and nothing is captured. A failed
     capture raises."""
@@ -57,11 +62,12 @@ def make_decode_step(cfg, compiled: bool = False):
         key = (id(params), tuple(token.shape))
         live = held.get("cache")
         if (held.get("key") != key or live is None
-                or any(live[k]() is not cache[k] for k in ("k", "v"))):
+                or live.keys() != cache.keys()
+                or any(live[k]() is not t for k, t in cache.items())):
             held.clear()             # drops the old graph and its pool
             step.captured = None
             held.update(key=key, params=params,
-                        cache={k: weakref.ref(cache[k]) for k in ("k", "v")},
+                        cache={k: weakref.ref(t) for k, t in cache.items()},
                         tok=torch.empty(token.shape, dtype=torch.int64,
                                         device=token.device),
                         pos=torch.empty((1,), dtype=torch.int64,
@@ -71,8 +77,16 @@ def make_decode_step(cfg, compiled: bool = False):
         pos.fill_(kv_len)
         with torch.no_grad():
             if step.captured is None:
+                # the capture's eager warm-up runs the body once: a KV row
+                # it wrote is written again, the same, by the replay, but
+                # a recurrent state it advanced would be advanced twice
+                kept = {k: cache[k].clone()
+                        for k in getattr(mod, "RECURRENT_STATE", ())
+                        if k in cache}
                 step.captured = graphs.capture(
                     lambda: mod.decode_body(cfg, params, cache, tok, pos))
+                for k, t in kept.items():
+                    cache[k].copy_(t)
                 step.captures += 1
             logits = step.captured.replay()
         return logits.clone(), cache

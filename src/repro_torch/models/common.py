@@ -44,6 +44,43 @@ def embed_init(gen: torch.Generator, v: int, d: int, dtype=torch.bfloat16,
     return w.to(device=device, dtype=dtype)
 
 
+def normal_init(gen: torch.Generator, shape: tuple, std: float,
+                mean: float = 0.0, dtype=torch.bfloat16,
+                device=None) -> torch.Tensor:
+    """``N(mean, std^2)`` drawn in f32, then cast (the reference's
+    ``jax.random.normal(...) * std + mean``)."""
+    w = torch.randn(shape, generator=gen, device=gen.device) * std + mean
+    return w.to(device=device, dtype=dtype)
+
+
+def stack_layers(n: int, make) -> dict:
+    """``make(i)`` -> layer i's param tree; returns the n trees stacked
+    along a leading (n,) dim. Filled one layer at a time, so no second copy
+    of the stack exists (the reference vmaps its layer init)."""
+    first = make(0)
+
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        out = torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                          device=t.device)
+        out[0] = t
+        return out
+
+    def fill(dst, src, i):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                fill(dst[k], v, i)
+            else:
+                dst[k][i] = v
+
+    out = alloc(first)
+    del first
+    for i in range(1, n):
+        fill(out, make(i), i)
+    return out
+
+
 # --- norms ------------------------------------------------------------------
 
 def rms_norm(x, gamma, eps=1e-6):
@@ -300,6 +337,21 @@ class AttnConfig:
     window: int | None = None
 
 
+def attn_init(gen: torch.Generator, cfg: AttnConfig, dtype=torch.bfloat16,
+              device=None) -> dict:
+    """One attention block's params (``wq``/``wk``/``wv``/``wo``, and the
+    qk-norm gammas, zeros): the reference's shapes and scales."""
+    d, h, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {"wq": dense_init(gen, d, h * dh, dtype, device),
+         "wk": dense_init(gen, d, kv * dh, dtype, device),
+         "wv": dense_init(gen, d, kv * dh, dtype, device),
+         "wo": dense_init(gen, h * dh, d, dtype, device)}
+    if cfg.qk_norm:
+        p["q_norm"] = torch.zeros((dh,), dtype=dtype, device=device)
+        p["k_norm"] = torch.zeros((dh,), dtype=dtype, device=device)
+    return p
+
+
 def qkv_project(p, x, cfg: AttnConfig, positions):
     """x: (B, S, D) -> q (B,S,H,Dh), k/v (B,S,KV,Dh) with rope + qk-norm;
     the projections through ``maybe_flash_matmul`` (DRAM or flash tier)."""
@@ -320,6 +372,19 @@ def qkv_project(p, x, cfg: AttnConfig, positions):
 
 
 # --- FFN variants ------------------------------------------------------------
+
+def swiglu_init(gen: torch.Generator, d: int, f: int, dtype=torch.bfloat16,
+                device=None) -> dict:
+    return {"w_gate": dense_init(gen, d, f, dtype, device),
+            "w_up": dense_init(gen, d, f, dtype, device),
+            "w_down": dense_init(gen, f, d, dtype, device)}
+
+
+def gelu_ffn_init(gen: torch.Generator, d: int, f: int, dtype=torch.bfloat16,
+                  device=None) -> dict:
+    return {"w_up": dense_init(gen, d, f, dtype, device),
+            "w_down": dense_init(gen, f, d, dtype, device)}
+
 
 def swiglu_apply(p, x):
     g = maybe_flash_matmul(x, p["w_gate"])

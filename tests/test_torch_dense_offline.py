@@ -285,8 +285,12 @@ def test_step_builders_call_the_family_functions():
     want, _ = tdense.decode_step(OPT_TINY, tp, want_cache, batch)
     assert torch.equal(lg, want)
     assert family_module("dense") is tdense
-    with pytest.raises(KeyError, match="ROADMAP"):
-        family_module("rwkv6")
+    for family in ("dense", "moe", "rwkv6", "rglru", "encdec"):
+        mod = family_module(family)
+        assert mod.__name__ == f"repro_torch.models.{family}"
+        for fn in ("init", "prefill", "decode_step", "decode_check",
+                   "decode_body", "cache_shape"):
+            assert callable(getattr(mod, fn)), (family, fn)
     with pytest.raises(KeyError):
         family_module("no-such-family")
 

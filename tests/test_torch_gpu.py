@@ -89,6 +89,32 @@ def test_ecdp_kernel_matches_plain(cuda, m, k, n, rber, ecc_on, adtype):
     assert bool((err <= bound).all()), float((err - bound).max())
 
 
+# the other families' flash shapes the serving shapes above leave out:
+# K 8960 and 12288 (split-K plans of rwkv6-3b's and recurrentgemma-9b's
+# w_down) and seamless-m4t-medium's lm_head, N 256206 (not a multiple of
+# 16: the narrow loads), at a decode step's M 4 and the prefill's M 512
+FAMILY_SHAPES = [(4, 8960, 2560), (512, 8960, 2560), (4, 12288, 4096),
+                 (512, 12288, 4096), (4, 1024, 256206), (512, 1024, 256206)]
+
+
+@pytest.mark.parametrize("m,k,n", FAMILY_SHAPES)
+@pytest.mark.parametrize("rber", [0.0, 2e-3])
+def test_ecdp_at_the_family_shapes_matches_plain(cuda, m, k, n, rber):
+    """The ECDP sweep's bound at the families' shapes, ECC on and off."""
+    rng = np.random.default_rng(m + k + n)
+    wq, parity, scale = (t.to(cuda) for t in _flash(rng, k, n, rber,
+                                                    seed=k + n))
+    a = torch.from_numpy(rng.standard_normal((m, k), dtype=np.float32)
+                         ).to(cuda, torch.bfloat16)
+    mag = (a.float().abs() @ wq.float().abs()) * scale
+    bound = 1e-4 + 4 * math.sqrt(k) * EPS32 * mag
+    for ecc_on in (True, False):
+        want = ecdp.ecdp_matmul_plain(a, wq, parity, scale, ecc_on)
+        got = ecdp.ecdp_matmul(a, wq, parity, scale, ecc_enabled=ecc_on)
+        err = (got - want).abs()
+        assert bool((err <= bound).all()), float((err - bound).max())
+
+
 def test_ecdp_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     rng = np.random.default_rng(0)
     wq, parity, scale = (t.to(cuda) for t in _flash(rng, 64, 32, 0.0, 0))
@@ -658,6 +684,13 @@ DECODE_EDGE_CASES = [
     (4, 2048, 32, 1, 80, [0, 1, 513, 2048], torch.float32),
     (8, 130, 2, 3, 80, EDGE_LENS + [130], torch.bfloat16),
     (8, 130, 2, 3, 80, EDGE_LENS + [130], torch.float32),
+    # the other families' shapes: recurrentgemma-9b's ring (MQA, 16 query
+    # heads on one KV head, Dh 256: the CUDA-core body at rep 16) at its
+    # edges, seamless-m4t-medium's self-KV (96 rows) and its cross-KV at
+    # its full length
+    (4, 2048, 1, 16, 256, [1, 700, 2047, 2048], torch.bfloat16),
+    (4, 96, 16, 1, 64, [1, 33, 64, 96], torch.bfloat16),
+    (4, 128, 16, 1, 64, [128] * 4, torch.bfloat16),
 ]
 
 
@@ -1306,6 +1339,67 @@ def test_moe_engine_replays_one_graph_bit_equal_to_eager(cuda):
     assert comp["launches"] == [2 * n for n in per_step]
     for i, (got, want) in enumerate(zip(comp["logits"], eager["logits"])):
         assert torch.equal(got, want), (i, float((got - want).abs().max()))
+
+
+# the other families' offline decode, (arch, prompt tokens, decode steps):
+# recurrentgemma's smoke window is 16, so its steps wrap the ring
+FAMILY_DECODE = [("rwkv6-3b", 9, 6), ("recurrentgemma-9b", 12, 8),
+                 ("seamless-m4t-medium", 6, 6)]
+
+
+@pytest.mark.parametrize("arch,prompt,steps", FAMILY_DECODE)
+def test_family_compiled_decode_replays_bit_equal_to_eager(cuda, arch,
+                                                           prompt, steps):
+    """make_decode_step(compiled=True) on each of the other families'
+    smoke configs, deployed at RBER 1e-4: one capture for the cache (every
+    tensor of it), every replay's logits and the cache after them
+    bit-equal to the eager step's; the capture's warm-up and capture tick
+    the counters twice the eager step's launches, a replay none, and its
+    profile holds the kernels the eager step launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tiering import deploy
+    from repro_torch.launch import steps as tsteps
+    from repro_torch.models import family_module
+
+    cfg = get_config(arch, smoke=True)
+    mod = family_module(cfg.family)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    p, _ = deploy(mod.init(cfg, gen, device=cuda), rber=1e-4, seed=1)
+    toks = torch.randint(0, cfg.vocab_size, (2, prompt), generator=gen,
+                         device=cuda)
+    batch = {"tokens": toks}
+    if cfg.family == "encdec":
+        batch = {"src_embeds": torch.randn((2, 10, cfg.d_model),
+                                           generator=gen, device=cuda
+                                           ).to(torch.bfloat16),
+                 "tgt_tokens": toks}
+    prefill = tsteps.make_prefill_step(cfg, pad_to=32)
+    eager = tsteps.make_decode_step(cfg)
+    comp = tsteps.make_decode_step(cfg, compiled=True)
+    last, c_e = prefill(p, batch)
+    _, c_c = prefill(p, batch)
+    tok = last.argmax(-1)
+    for i in range(steps):
+        b = {"token": tok, "kv_len": prompt + i}
+        before = _counts()
+        lg_e, c_e = eager(p, c_e, b)
+        n_eager = _since(before)
+        before = _counts()
+        if i == 0:
+            lg_c, c_c = comp(p, c_c, b)
+            assert _since(before) == {k: 2 * n for k, n in n_eager.items()}
+        else:
+            (lg_c, c_c), records = _profiled(lambda: comp(p, c_c, b))
+            assert _since(before) == {k: 0 for k in MAIN_KERNELS}
+            assert records == n_eager
+        assert torch.equal(lg_c, lg_e), i
+        tok = lg_e.argmax(-1)
+    torch.cuda.synchronize()
+    assert comp.captures == 1
+    assert all(torch.equal(c_c[k], c_e[k]) for k in c_e)
+    per_layer = {"rwkv6": 0, "rglru": cfg.n_layers // 3,
+                 "encdec": 2 * cfg.n_layers}[cfg.family]
+    assert n_eager["decode_attn"] == per_layer
 
 
 # --- the paged ECDP's expert axis and the streamed MoE plane --------------------
