@@ -13,7 +13,9 @@ serves MoE on the resident plane at qwen3-moe-30b-a3b's width through the
 expert-grouped ECDP, and serves it streamed, expert-paged from a host page
 store through the paged ECDP's expert axis; and runs the other model
 families' offline path (rwkv6-3b, recurrentgemma-9b, seamless-m4t-medium)
-at full width and depth.
+at full width (recurrentgemma-9b at 14 of 38 layers); and trains: granite-8b at full width (16 of its
+36 layers), the training entry point through checkpoint, deploy and
+serve, and the train step card against CPU.
 
     python3 chip_smoke.py
 
@@ -308,9 +310,43 @@ Phases (any failure exits non-zero; nothing is caught):
                 window, so the card's captured decode writes the ring's
                 slots past the wrap. Its figures are the ``families`` JSON
                 line.
+ 15. train    — training, as ``train()`` builds it (no kernel of the
+                port's: the products are cuBLAS, the chunked attention and
+                the optimizer plain torch, as the reference trains through
+                XLA alone). (a) granite-8b at full width, 16 of its 36
+                layers (the f32 AdamW moments of all 36 pass the card's
+                memory), AdamW(lr=warmup_cosine(3e-3, 2, 10)),
+                make_train_step at n_micro 2 over SyntheticLM batches of 2 x
+                4096 tokens through a Prefetcher: 10 steps between CUDA
+                events (ms a step from step 2, tokens/s), the peak memory
+                (8 GiB under the card's), the loss and grad-norm
+                trajectory (all finite, the params finite after), and one
+                more step profiled: device time by where it ran (the
+                attention chunk loop, forward, recompute and backward; the
+                optimizer; GEMM and elementwise elsewhere), cut by marker
+                kernels, and the idle share. (b) ``train("granite-8b",
+                smoke=True, steps=80, batch=8, seq=32, lr=1e-2)``: the
+                reference's loss-drop gate (last 5 below the first 5 by more
+                than 0.1); a second call resumes at step 80; a fault_hook
+                raising at step 4 is retried; run_deploy of that (params,
+                AdamW) checkpoint into a die image (its DRAM tier the
+                trained params bit for bit) served by build_engine (2
+                requests); ``python -m repro_torch.launch.train`` on the
+                card (its default, 40 steps) and ``--production``
+                refused. The straggler detector is live throughout
+                (train() reads each step's loss inside the timed call, so
+                a step's time is the device's). (c) card vs CPU: one
+                make_train_step step (n_micro 2, 2 x 128) at full width of
+                granite-8b (2 layers), rwkv6-3b (2), seamless-m4t-medium
+                (2 + 2) and qwen3-moe-30b-a3b (2; the CPU takes the card's
+                routes; recurrentgemma-9b is left out for the script's
+                time, see TRAIN_PARITY) from the same params:
+                the loss, the first moments and the params under the
+                bounds stated at TRAIN_LOSS_TOL and TRAIN_GRAD_TOL. Its
+                figures are the ``train`` JSON line.
 
-The ``spec``, ``moe_stream`` and ``families`` lines come before the card's
-name; the second-to-last line is the ``kernels`` JSON; the last line is
+The ``spec``, ``moe_stream``, ``families`` and ``train`` lines come before
+the card's name; the second-to-last line is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Times are CUDA-event medians with the
 L2 cache flushed before each timed call (the serving step streams more
 weight bytes than L2 holds) and the card held while the call is enqueued
@@ -1326,7 +1362,7 @@ class RouteWitness:
         torch = self.torch
         idx, lg = self.queue.pop(0)
         e = logits.shape[-1]
-        lc, lg = logits.reshape(-1, e), lg.reshape(-1, e)
+        lc, lg = logits.detach().reshape(-1, e), lg.reshape(-1, e)
         ok = (torch.ones(lc.shape[0], dtype=torch.bool) if valid is None
               else valid.reshape(-1))
         big = lc.abs().amax(-1)
@@ -4563,6 +4599,535 @@ def phase_families(torch) -> dict:
     return dict(ecdp=ecdp_res, decode_attn=da_res, full=full, parity=parity)
 
 
+# --- phase 15: training ---------------------------------------------------------
+
+TRAIN_ARCH = "granite-8b"
+# 16 of granite-8b's 36 layers: 3.89 B parameters, whose bf16 params and
+# f32 AdamW moments and accumulated gradients (n_micro 2) hold 50.7 GiB;
+# at 36 layers (8.25 B) the moments alone pass one card's memory
+TRAIN_LAYERS = 16
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4096, 2, 2, 10
+TRAIN_LR = 3e-3                         # warmup_cosine(TRAIN_LR, 2, 10)
+TRAIN_TIMED_FROM = 2                    # steps 0, 1 warm the allocator up
+TRAIN_SPARE_GIB = 8
+TRAIN_WORK = ROOT / "build" / "chip_smoke_phase15"
+# 15(b): python -m repro_torch.launch.train's step count, its straggler
+# detector live (it needs 4 timed steps before it can fire)
+TRAIN_CLI_STEPS = 40
+# 15(c): full width, depth cut; one n_micro-2 step of (batch, seq).
+# recurrentgemma-9b (3 layers: one (r, r, a) group; its first moments
+# 2.6-2.9 % apart, within 2^-4) is left out for the script's time: its CPU
+# step costs 57-65 s (2.8 B params, most of them its 256000-row embedding
+# and lm_head), and run in a thread beside 15(a) it cost as much (15(a)'s
+# first step 12.7-17.6 s instead of 2.9, the thread's step 104-107 s)
+TRAIN_PARITY = {"granite-8b": dict(n_layers=2),
+                "rwkv6-3b": dict(n_layers=2),
+                "seamless-m4t-medium": dict(n_layers=2, n_enc_layers=2),
+                "qwen3-moe-30b-a3b": dict(n_layers=2)}
+TRAIN_PARITY_IN = (2, 128)
+# 15(c)'s bounds, card vs CPU after one step: the loss within
+# TRAIN_LOSS_TOL of it (relative); each first moment m (0.1 x the clipped
+# gradient g) within TRAIN_GRAD_TOL[arch] of its leaf's largest |m|; and
+# each param whose m has one sign on both devices within a bf16 ulp of it
+# and one of the update (2^-7 (|p| + lr): the update is rounded to bf16
+# before it is added) plus lr eps (1/|g_card| + 1/|g_cpu|). At step 1 an
+# update is -lr g / (|g| + eps) (+ decay): lr x the gradient's sign, less
+# lr eps / |g|, so where g is far above eps = 1e-8 the devices' updates
+# agree to an ulp, and near eps (lm_head's columns of tokens the batch
+# lacks, a sum over tokens near 0) they part by up to that term; a sign
+# the devices' roundings split moves the param by lr the other way
+# (counted, printed).
+TRAIN_LOSS_TOL = 2.0 ** -10
+# per arch, the power of two at about twice its reading (granite-8b
+# 1.44e-2, seamless 1.25e-2, qwen3-moe 1.30e-2), and rwkv6-3b's at 1.34x
+# its 4.67e-2 (tmix.w_k): there the bf16 gradients of either device lie
+# 6.3-6.4 % from an f32 one and the devices' f32 gradients 0.66 % apart,
+# so the gap is the model's sensitivity to rounding, not the card
+# (scripts/train_diagnostics.py rwkv6; cuBLAS's reduced-precision bf16
+# reductions change no bit)
+TRAIN_GRAD_TOL = {"granite-8b": 2.0 ** -5, "seamless-m4t-medium": 2.0 ** -5,
+                  "qwen3-moe-30b-a3b": 2.0 ** -5, "rwkv6-3b": 2.0 ** -4}
+
+
+def train_cfg(arch: str, **cut):
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return (dataclasses.replace(cfg, name=f"{cfg.name}-cut", **cut) if cut
+            else cfg)
+
+
+def train_profile(torch, run) -> dict:
+    """One call of ``run`` (a train step) traced with torch.profiler, its
+    kernels split by where they ran: the attention chunk loop (every
+    ``common.chunked_attention`` call, forward, its recompute and its
+    backward: from the grad reaching its output to the grads of q, k and
+    v), the optimizer (``AdamW.apply_``), and the rest by kernel name (GEMM,
+    elementwise / reduction / copy). The windows are cut by marker kernels
+    on the one stream (a bitwise_not of an int16 around each attention
+    window, a bitwise_xor before the optimizer), so each kernel's place
+    comes from the device's own order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import common as cm
+    from repro_torch.optim.adamw import AdamW
+
+    marks = torch.zeros(2, dtype=torch.int16, device="cuda")
+
+    def mark():
+        marks[:1].bitwise_not_()
+
+    attn, apply_ = cm.chunked_attention, AdamW.apply_
+
+    def traced_attn(q, k, v, **kw):
+        mark()
+        out = attn(q, k, v, **kw)
+        mark()
+        if out.requires_grad:
+            left = [sum(t.requires_grad for t in (q, k, v))]
+
+            def last(_):
+                left[0] -= 1
+                if left[0] == 0:
+                    mark()
+            out.register_hook(lambda _: mark())
+            for t in (q, k, v):
+                if t.requires_grad:
+                    t.register_hook(last)
+        return out
+
+    def traced_apply(self, *args):
+        marks[1:].bitwise_xor_(1)
+        return apply_(self, *args)
+
+    cm.chunked_attention, AdamW.apply_ = traced_attn, traced_apply
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        cm.chunked_attention, AdamW.apply_ = attn, apply_
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    groups: dict[str, float] = {}
+    counts: dict[str, int] = {}
+    in_attn, in_opt, n_marks = False, False, 0
+    for e in kernels:
+        name = e.name.lower().replace("_", "")   # BitwiseXorFunctor, ...
+        if "bitwisenot" in name:
+            in_attn, n_marks = not in_attn, n_marks + 1
+            continue
+        if "bitwisexor" in name:
+            in_opt = True
+            continue
+        group = ("optimizer (AdamW.apply_)" if in_opt
+                 else "attention chunk loop" if in_attn
+                 else "GEMM" if _group(e.name).startswith("GEMM")
+                 else _group(e.name))
+        groups[group] = groups.get(group, 0.0) + e.time_range.elapsed_us()
+        counts[group] = counts.get(group, 0) + 1
+    if in_attn or not in_opt or n_marks == 0:
+        raise AssertionError(f"profile markers: {n_marks} attention marks "
+                             f"(open at the end: {in_attn}), optimizer mark "
+                             f"seen: {in_opt}")
+    busy = sum(groups.values()) / 1e3
+    return dict(wall_ms=wall * 1e3, device_ms=busy,
+                groups_ms={g: us / 1e3 for g, us in groups.items()},
+                groups_count=counts, attention_windows=n_marks // 2)
+
+
+def train_full(torch, lr: float = TRAIN_LR, profiled: bool = True,
+               fixed_batch: bool = False) -> dict:
+    """15(a): granite-8b at full width, TRAIN_LAYERS layers, as ``train()``
+    builds its step: AdamW(lr=warmup_cosine(lr, 2, 10)), make_train_step
+    at n_micro TRAIN_MICRO, SyntheticLM batches through a Prefetcher;
+    TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens, each between CUDA
+    events, then (``profiled``) one more step profiled
+    (``train_profile``). Every loss and global grad norm finite, the params
+    finite after the last step, and the peak device memory TRAIN_SPARE_GIB
+    under the card's. ``fixed_batch``: every step on batch 0."""
+    from repro_torch.data.pipeline import DataConfig, Prefetcher, make_source
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import family_module
+    from repro_torch.optim import adamw as adamw_mod
+    from repro_torch.optim.adamw import AdamW, tree_leaves
+    from repro_torch.optim.schedule import warmup_cosine
+
+    cfg = train_cfg(TRAIN_ARCH, n_layers=TRAIN_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = family_module(cfg.family).init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    opt = AdamW(lr=warmup_cosine(lr, 2, TRAIN_STEPS))
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    state_gib = torch.cuda.memory_allocated() / 2**30
+    log(f"  {cfg.name}: {TRAIN_LAYERS} of 36 layers at full width, "
+        f"{n_params / 1e9:.3f} B params; params + AdamW state "
+        f"{state_gib:.2f} GiB, made in {time.perf_counter() - t0:.1f} s")
+    step = make_train_step(cfg, opt, n_micro=TRAIN_MICRO)
+    norms = []
+    global_norm = adamw_mod.global_norm
+
+    def recorded(tree):
+        out = global_norm(tree)
+        norms.append(out)
+        return out
+
+    pf = Prefetcher(make_source(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=0)))
+    adamw_mod.global_norm = recorded
+    losses, spans = [], []
+    try:
+        for i in range(TRAIN_STEPS + 1):
+            got, host = pf.next()
+            assert got == i, (got, i)
+            if not (fixed_batch and i):
+                batch = {k: torch.from_numpy(v).cuda()
+                         for k, v in host.items()}
+            if i == TRAIN_STEPS:
+                break
+            span = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            span[0].record()
+            params, state, met = step(params, state, batch)
+            span[1].record()
+            spans.append(span)
+            losses.append(met["loss"])
+        torch.cuda.synchronize()
+
+        def one():
+            nonlocal params, state
+            params, state, met = step(params, state, batch)
+            losses.append(met["loss"])
+        prof = train_profile(torch, one) if profiled else None
+    finally:
+        adamw_mod.global_norm = global_norm
+        pf.close()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    total = torch.cuda.get_device_properties(0).total_memory / 2**30
+    losses = [float(x) for x in losses]
+    norms = [float(x) for x in norms]
+    ms = [a.elapsed_time(b) for a, b in spans]
+    timed = sorted(ms[TRAIN_TIMED_FROM:])
+    med = timed[len(timed) // 2]
+    mean = sum(timed) / len(timed)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    finite = all(bool(torch.isfinite(p).all()) for p in tree_leaves(params))
+    log(f"  {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+        f"(n_micro {TRAIN_MICRO}): {med:.1f} ms a step (median of steps "
+        f"{TRAIN_TIMED_FROM}..{TRAIN_STEPS - 1}, CUDA events; mean {mean:.1f};"
+        f" every step {[round(x, 1) for x in ms]}), {tokens / med * 1e3:.0f} "
+        f"tokens/s; peak {peak:.2f} GiB of {total:.2f}")
+    log(f"  loss {[round(x, 4) for x in losses]}")
+    log(f"  grad norm {[round(x, 4) for x in norms]}")
+    busy = prof["device_ms"] if prof else math.nan
+    if prof:
+        log(f"  profiled step: wall {prof['wall_ms']:.1f} ms (traced), "
+            f"device {busy:.1f} ms; idle share {1 - busy / med:.3f} of the "
+            f"untraced median step, {1 - busy / prof['wall_ms']:.3f} of the "
+            f"traced one; {prof['attention_windows']} attention windows")
+        for g, v in sorted(prof["groups_ms"].items(), key=lambda kv: -kv[1]):
+            log(f"    {g:32s} {v:9.2f} ms {v / busy:6.1%} "
+                f"{prof['groups_count'][g]:6d} kernels")
+    bad = [x for x in losses + norms if not math.isfinite(x)]
+    if bad or not finite:
+        raise AssertionError(f"15(a): non-finite losses / grad norms {bad}; "
+                             f"params finite: {finite}")
+    if peak + TRAIN_SPARE_GIB > total:
+        raise AssertionError(f"15(a): peak {peak:.2f} GiB leaves less than "
+                             f"{TRAIN_SPARE_GIB} GiB of the card's "
+                             f"{total:.2f}: take fewer layers")
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(layers=TRAIN_LAYERS, lr=lr, params_b=n_params / 1e9,
+                state_gib=state_gib, ms_per_step=med, mean_ms=mean,
+                step_ms=ms, tokens_per_s=tokens / med * 1e3, peak_gib=peak,
+                card_gib=total, losses=losses, grad_norms=norms,
+                profile=prof, idle_share=1 - busy / med if prof else None,
+                seconds=time.perf_counter() - t0)
+
+
+def train_entry(torch) -> dict:
+    """15(b): the entry point on the card. ``train("granite-8b", smoke=True,
+    steps=80, batch=8, seq=32, lr=1e-2)`` with a checkpoint directory: the
+    mean of the last 5 losses below the first 5's by more than 0.1 (the
+    reference's gate); a second call at 84 steps resumes at step 80 and
+    runs 4; a fault_hook raising StepFault at step 4 is retried (8 steps,
+    all finite); then run_deploy of the (params, AdamW) checkpoint into a
+    die image, whose DRAM tier is the trained params bit for bit, and
+    build_engine serving 2 requests from it; then ``python -m
+    repro_torch.launch.train`` (TRAIN_CLI_STEPS steps, on the card by
+    default, its checkpoint written) and ``--production`` refused. The
+    straggler detector is live throughout (train() reads each step's loss
+    inside the timed call, so a step's time is the device's): a
+    StepFault it raises fails the phase; the executors' step times and
+    flagged steps are printed."""
+    import shutil
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.tiering import dram_tier
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.deploy import run_deploy
+    from repro_torch.launch.serve import build_engine
+    from repro_torch.runtime.fault import StepFault
+    from repro_torch.serving.sampler import SampleConfig
+
+    shutil.rmtree(TRAIN_WORK, ignore_errors=True)
+    ckpt = TRAIN_WORK / "ckpt"
+    executors = []
+    executor_cls = train_mod.FaultTolerantExecutor
+
+    class Seen(executor_cls):             # read, not changed
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            executors.append(self)
+
+    train_mod.FaultTolerantExecutor = Seen
+    hits = {"n": 0}
+
+    def hook(step, retries):
+        if step == 4 and retries == 0:
+            hits["n"] += 1
+            raise StepFault("injected device loss")
+
+    t0 = time.perf_counter()
+    try:
+        r1 = train_mod.train(TRAIN_ARCH, smoke=True, steps=80, batch=8,
+                             seq=32, lr=1e-2, ckpt_dir=str(ckpt))
+        t1 = time.perf_counter() - t0
+        r2 = train_mod.train(TRAIN_ARCH, smoke=True, steps=84, batch=8,
+                             seq=32, lr=1e-2, ckpt_dir=str(ckpt))
+        r3 = train_mod.train(TRAIN_ARCH, smoke=True, steps=8, batch=2,
+                             seq=16, lr=1e-3, seed=1, ckpt_every=3,
+                             ckpt_dir=str(TRAIN_WORK / "fault"),
+                             fault_hook=hook)
+    finally:
+        train_mod.FaultTolerantExecutor = executor_cls
+    first = sum(r1["losses"][:5]) / 5
+    last = sum(r1["losses"][-5:]) / 5
+    times = sorted(executors[0].times)
+    flagged = [h.step for h in executors[0].history if h.straggler]
+    log(f"  train(smoke, 80 steps of 8 x 32) on the card in {t1:.1f} s: "
+        f"loss {first:.4f} -> {last:.4f} (means of the first / last 5); "
+        f"the executor's step times (the loss read inside): median "
+        f"{times[len(times) // 2] * 1e3:.2f} ms, max {times[-1] * 1e3:.2f} "
+        f"ms; steps past {executors[0].policy.straggler_factor:g}x the "
+        f"trailing median: {flagged} (a StepFault at "
+        f"{executors[0].policy.straggler_tolerance} in a row)")
+    if not last < first - 0.1:
+        raise AssertionError(f"15(b): no learning: {first} -> {last}")
+    if r2["start_step"] != 80 or len(r2["losses"]) != 4:
+        raise AssertionError(f"15(b): resume at {r2['start_step']} with "
+                             f"{len(r2['losses'])} losses, want 80 and 4")
+    if hits["n"] != 1 or len(r3["losses"]) != 8 or not all(
+            math.isfinite(x) for x in r3["losses"]):
+        raise AssertionError(f"15(b): fault hook hits {hits['n']}, losses "
+                             f"{r3['losses']}")
+    out = TRAIN_WORK / "deploy"
+    img = str(out / "nand.img")
+    run_deploy(TRAIN_ARCH, True, str(ckpt), str(out), store_path=img)
+    dram, _ = CheckpointManager(out).restore(dram_tier(r2["params"]))
+    for name in ("embed", "final_norm"):
+        if not torch.equal(dram[name], r2["params"][name]):
+            raise AssertionError(f"15(b): the deployed {name} is not the "
+                                 "trained one")
+    eng = build_engine(TRAIN_ARCH, store_image=img, ckpt=str(out),
+                       sample_cfg=SampleConfig())
+    rids = [eng.submit(p, max_new=8) for p in ([1, 2, 3], [7, 8, 9, 10])]
+    served = eng.run()
+    if any(len(served[r]) != 8 for r in rids):
+        raise AssertionError(f"15(b): served {served}")
+    del eng
+    # the command line as a user runs it: on the card by default, the
+    # straggler detector live for TRAIN_CLI_STEPS steps
+    import os
+    cli = TRAIN_WORK / "cli"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t_cli = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--steps",
+         str(TRAIN_CLI_STEPS), "--batch", "2", "--seq", "16", "--ckpt",
+         str(cli)], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=300)
+    t_cli = time.perf_counter() - t_cli
+    if run.returncode != 0 or not run.stdout.startswith("loss: "):
+        raise AssertionError(f"python -m repro_torch.launch.train exited "
+                             f"{run.returncode}: {run.stderr[-2000:]}")
+    if CheckpointManager(cli).latest_step() != TRAIN_CLI_STEPS - 1:
+        raise AssertionError("python -m repro_torch.launch.train: no "
+                             f"checkpoint at step {TRAIN_CLI_STEPS - 1}")
+    import logging
+    argv, root = sys.argv, logging.getLogger()
+    handlers, level = root.handlers[:], root.level
+    sys.argv = ["repro_torch.launch.train", "--production"]
+    try:                                 # main()'s parser, in this process
+        train_mod.main()
+        refused = ""
+    except SystemExit as e:
+        refused = str(e)
+    finally:
+        sys.argv = argv
+        root.handlers[:], root.level = handlers, level
+    if "§A.4" not in refused:
+        raise AssertionError(f"--production: {refused!r}")
+    log(f"  python -m repro_torch.launch.train --steps {TRAIN_CLI_STEPS} (on "
+        f"the card, its default; the straggler detector live) in "
+        f"{t_cli:.1f} s: {run.stdout.strip()}; --production refused")
+    log(f"  resumed at step {r2['start_step']} ({len(r2['losses'])} steps); "
+        f"fault at step 4 retried ({len(r3['losses'])} steps, loss "
+        f"{r3['losses'][0]:.4f} -> {r3['losses'][-1]:.4f}); deployed the "
+        f"(params, AdamW) checkpoint into a die image and served "
+        f"{[served[r] for r in rids]}; 15(b) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(TRAIN_WORK, ignore_errors=True)
+    return dict(first5=first, last5=last, resumed_at=r2["start_step"],
+                fault_hits=hits["n"], step_ms_median=times[len(times) // 2]
+                * 1e3, step_ms_max=times[-1] * 1e3, flagged_steps=flagged,
+                cli_steps=TRAIN_CLI_STEPS, cli_s=t_cli,
+                seconds=time.perf_counter() - t0)
+
+
+def parity_inputs(torch, arch: str):
+    """15(c)'s config of ``arch`` (full width, TRAIN_PARITY's depth), its
+    params from a seeded init on the card, the batch (on the CPU) and the
+    step (n_micro 2, as ``train()`` builds it)."""
+    import numpy as np
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import family_module
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.schedule import warmup_cosine
+
+    cfg = train_cfg(arch, **TRAIN_PARITY[arch])
+    params = family_module(cfg.family).init(
+        cfg, torch.Generator(device="cuda").manual_seed(21), device="cuda")
+    b, s = TRAIN_PARITY_IN
+    rng = np.random.default_rng(22)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s + 1),
+                                         dtype=np.int32))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "encdec":
+        batch = {"src_embeds": torch.from_numpy(rng.standard_normal(
+                     (b, s, cfg.d_model), dtype=np.float32)),
+                 "tgt_tokens": batch["tokens"], "labels": batch["labels"]}
+    opt = AdamW(lr=warmup_cosine(3e-3, 2, 10))
+    return cfg, params, batch, opt, make_train_step(cfg, opt, n_micro=2)
+
+
+def train_parity(torch, arch: str) -> dict:
+    """15(c): one make_train_step step (n_micro 2) of ``arch`` at full
+    width, depth cut to TRAIN_PARITY's, on the card and on the CPU from the
+    same params (a seeded init on the card, copied) and the same batch:
+    the loss, the first moments and the params under 15(c)'s bounds. MoE:
+    the CPU takes the card's routes (``RouteWitness``; forward and
+    recompute alike)."""
+    from repro_torch.models import moe
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    cfg, p_gpu, batch, opt, step = parity_inputs(torch, arch)
+    p_cpu = tree_map(lambda t: t.to("cpu", copy=True), p_gpu)
+    wit, side, route = RouteWitness(torch, cfg.top_k), [None], moe._route
+
+    def witness_route(xt, router, k):
+        lg = xt.float() @ router.float()
+        if side[0] == "card":
+            gates, idx = route(xt, router, k)
+            wit.record(lg.detach(), idx)
+            return gates, idx
+        return wit.hand_over(lg)
+
+    moe._route = witness_route
+    try:
+        wit.step(f"{arch} train step")
+        side[0] = "card"
+        p_gpu, st_gpu, m_gpu = step(p_gpu, opt.init(p_gpu),
+                                    {k: v.cuda() for k, v in batch.items()})
+        side[0] = "cpu"
+        p_cpu, st_cpu, m_cpu = step(p_cpu, opt.init(p_cpu), batch)
+        wit.step("end")
+    finally:
+        moe._route = route
+    loss_c, loss_g = float(m_cpu["loss"]), float(m_gpu["loss"])
+    loss_rel = abs(loss_c - loss_g) / abs(loss_c)
+    lr = float(opt._lr(st_cpu.step))
+    names = leaf_names(p_cpu)
+    grad_tol = TRAIN_GRAD_TOL[arch]
+    grad_rel, p_over, split, n_all = (0.0, ""), (0.0, ""), 0, 0
+    for name, mc, mg, pc, pg in zip(names, tree_leaves(st_cpu.m),
+                                    tree_leaves(st_gpu.m), tree_leaves(p_cpu),
+                                    tree_leaves(p_gpu)):
+        mc, pc, pg = mc.cuda(), pc.cuda().float(), pg.float()   # compared
+        # on the card, the CPU copies carried over
+        grad_rel = max(grad_rel, (float((mg - mc).abs().max()
+                                        / mc.abs().max().clamp_min(1e-30)),
+                                  name))
+        same = mc.sign() == mg.sign()
+        # eps (1 - b1) / |m| = eps / |g|
+        tol = ((torch.maximum(pc.abs(), pg.abs()) + lr) * 2.0 ** -7
+               + lr * 1e-9 * (1 / mc.abs() + 1 / mg.abs()))
+        over = ((pc - pg).abs() / tol)[same]
+        if over.numel():
+            p_over = max(p_over, (float(over.max()), name))
+        split += int((~same).sum())
+        n_all += same.numel()
+    b, s = TRAIN_PARITY_IN
+    log(f"  {cfg.name} ({cfg.n_layers} layers"
+        + (f" + {cfg.n_enc_layers} encoder" if cfg.n_enc_layers else "")
+        + f" at full width), one step of {b} x {s} (n_micro 2), "
+        f"{time.perf_counter() - t0:.1f} s ({torch.get_num_threads()} CPU "
+        f"threads): loss {loss_c:.5f} (CPU) / {loss_g:.5f} (card), rel "
+        f"{loss_rel:.2e} (tol {TRAIN_LOSS_TOL:.2e});"
+        f" first moments {grad_rel[0]:.3e} of their leaf's max ({grad_rel[1]};"
+        f" tol {grad_tol:.3e}); params whose m has one sign at "
+        f"{p_over[0]:.3f} of their bound at most ({p_over[1]}), "
+        f"{split / n_all:.2e} of them with m's sign split"
+        + (f"; {wit.summary()}" if cfg.family == "moe" else ""))
+    if (loss_rel > TRAIN_LOSS_TOL or grad_rel[0] > grad_tol
+            or p_over[0] > 1):
+        raise AssertionError(f"15(c) {arch}: card vs CPU past the bounds")
+    del p_gpu, p_cpu, st_gpu, st_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(loss_rel=loss_rel, grad_rel=grad_rel[0],
+                grad_rel_leaf=grad_rel[1], grad_tol=grad_tol,
+                param_over_bound=p_over[0], param_over_leaf=p_over[1],
+                sign_split_share=split / n_all, layers=cfg.n_layers,
+                seconds=time.perf_counter() - t0)
+
+
+def leaf_names(tree, prefix="") -> list[str]:
+    """A param tree's leaf paths in sorted-key (pytree) order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}/{k}")]
+    return [prefix]
+
+
+def phase_train(torch) -> dict:
+    """Phase 15: (a) granite-8b at full width, TRAIN_LAYERS layers; (b) the
+    entry point, resume, retry and train -> deploy -> serve; (c) card vs
+    CPU at cut depth."""
+    t0 = time.perf_counter()
+    full = train_full(torch)
+    log(f"  15(a) in {time.perf_counter() - t0:.1f} s")
+    entry = train_entry(torch)
+    parity = {}
+    for arch in TRAIN_PARITY:
+        parity[arch] = train_parity(torch, arch)
+    return dict(full=full, entry=entry, parity=parity)
+
+
 def main() -> int:
     import torch
 
@@ -4686,12 +5251,20 @@ def main() -> int:
     t0 = time.perf_counter()
     fam = phase_families(torch)
     log(f"  phase 14 in {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("phase 15: training (granite-8b at full width; the entry point; "
+        "card vs CPU)")
+    t0 = time.perf_counter()
+    train_res = phase_train(torch)
+    log(f"  phase 15 in {time.perf_counter() - t0:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"spec": spec}), flush=True)
     print(json.dumps({"moe_stream": dict(full=ms_res["full"],
                                          spec=ms_res["spec"])}), flush=True)
     print(json.dumps({"families": dict(full=fam["full"],
                                        parity=fam["parity"])}), flush=True)
+    print(json.dumps({"train": train_res}), flush=True)
 
     step = serve["ecdp_step"]
     kernels = [

@@ -18,8 +18,9 @@ Guarantees:
     writes in a background thread.
   * retention: keep the last ``keep`` checkpoints.
 
-A state is a tree of nested dicts, tuples, lists, ``None`` and
-``FlashWeight``s over tensor (or numpy, or Python scalar) leaves. Leaves
+A state is a tree of nested dicts, tuples, NamedTuples (the optimizer's
+``AdamWState``), lists, ``None`` and ``FlashWeight``s over tensor (or
+numpy, or Python scalar) leaves. Leaves
 are stored in JAX's pytree order (dict keys sorted; a FlashWeight's
 children ``(q, parity, scale)``), and the manifest's ``treedef`` is the
 string ``str(jax.tree_util.tree_structure(tree))`` would give, built here
@@ -66,6 +67,9 @@ def _flatten(tree: Any) -> tuple[list, str]:
         if isinstance(t, dict):
             keys = sorted(t)
             return "{" + ", ".join(f"{k!r}: {rec(t[k])}" for k in keys) + "}"
+        if isinstance(t, tuple) and hasattr(t, "_fields"):   # NamedTuple
+            inner = ", ".join(rec(v) for v in t)
+            return f"CustomNode(namedtuple[{type(t).__name__}], [{inner}])"
         if isinstance(t, tuple):
             inner = ", ".join(rec(v) for v in t)
             return "(" + inner + ("," if len(t) == 1 else "") + ")"
@@ -87,9 +91,11 @@ def _treedef_token(tree: Any) -> str:
 
 def _to_host(leaf, widen: bool) -> tuple[np.ndarray, str]:
     """One leaf -> (the array npz stores, the manifest's dtype name);
-    ``widen``: a parity plane, stored as uint32."""
+    ``widen``: a parity plane, stored as uint32. Always a copy: ``.cpu()``
+    of a CPU tensor is the tensor itself, and a train step updates its
+    params and moments in place while ``save_async`` writes them."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().contiguous().cpu()
+        t = leaf.detach().to("cpu", copy=True).contiguous()
         if t.dtype in _VIEW_AS:
             name, np_view, t_view = _VIEW_AS[t.dtype]
             return t.view(t_view).numpy().view(np_view), name
@@ -136,6 +142,8 @@ def _unflatten(template: Any, host: list, dtypes: list, device) -> Any:
             for k in sorted(t):
                 out[k] = rec(t[k])
             return out
+        if isinstance(t, tuple) and hasattr(t, "_fields"):   # NamedTuple
+            return type(t)(*(rec(v) for v in t))
         if isinstance(t, (tuple, list)):
             return type(t)(rec(v) for v in t)
         if isinstance(t, FlashWeight):
@@ -168,7 +176,10 @@ class CheckpointManager:
         return host, token
 
     def save(self, step: int, state: Any, extras: dict | None = None):
-        """Blocking save. ``state`` is any tree of tensors (see above)."""
+        """Blocking save. ``state`` is any tree of tensors (see above).
+        Joins a pending ``save_async`` first, so an older step's write never
+        lands after this one's (LATEST would go back to it)."""
+        self.wait()
         host, token = self._snapshot(state)
         self._write(step, host, token, extras or {})
 

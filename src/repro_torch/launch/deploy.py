@@ -17,9 +17,10 @@ serves it. The image, its page table and the checkpoint are the JAX
 package's formats: given the same params, the two packages write the same
 bytes.
 
-Params come from ``--ckpt`` (a params checkpoint in the JAX package's
-format) or, without it, from the family's ``init`` seeded by ``seed``
-(random: the two packages draw different numbers). Encoding runs on
+Params come from ``--ckpt`` (a training checkpoint of (params, AdamW
+state), or a params checkpoint, in the JAX package's format) or, without
+it, from the family's ``init`` seeded by ``seed`` (random: the two
+packages draw different numbers). Encoding runs on
 ``--device`` (``cuda`` unless ``--device cpu``).
 """
 from __future__ import annotations
@@ -33,6 +34,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core.tiering import deploy, flash_bytes
 from repro_torch.models import family_module
+from repro_torch.optim.adamw import AdamWState
 
 
 def run_deploy(arch: str, smoke: bool, ckpt_dir: str | None, out_dir: str,
@@ -43,16 +45,17 @@ def run_deploy(arch: str, smoke: bool, ckpt_dir: str | None, out_dir: str,
     params = mod.init(cfg, torch.Generator(device=device).manual_seed(seed),
                       device=device)
     if ckpt_dir:
+        # a training checkpoint holds (params, AdamW state); a deploy's
+        # own, params alone. The template's leaves are read for their
+        # place only, so the AdamW state's is the params tree itself (the
+        # tree of AdamW().init(params), without its moments' memory)
+        mgr = CheckpointManager(ckpt_dir)
+        state = AdamWState(step=torch.zeros((), dtype=torch.int32),
+                           m=params, v=params)
         try:
-            params, _ = CheckpointManager(ckpt_dir).restore(params,
-                                                            device=device)
-        except ValueError as e:
-            # the reference first tries a (params, AdamW state) training
-            # checkpoint; the port has no optimizer yet
-            raise ValueError(
-                f"{ckpt_dir} does not hold a {arch} params tree; a (params, "
-                f"optimizer state) training checkpoint needs the optimizer "
-                f"port (ROADMAP §A.6)") from e
+            (params, _), _ = mgr.restore((params, state), device=device)
+        except ValueError:
+            params, _ = mgr.restore(params, device=device)
     store = None
     if store_path is not None:
         from repro_torch.store import PageStore

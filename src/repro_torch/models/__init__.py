@@ -1,11 +1,10 @@
 """Model families behind one functional API — the port of
 ``repro/models/__init__.py``.
 
-A family module exposes ``init``, ``prefill(cfg, params, batch, pad_to)``,
-``decode_step(cfg, params, cache, batch)`` (split into ``decode_check``
-and ``decode_body``, which ``launch.steps`` captures) and
-``cache_shape(cfg, batch, max_seq)``. Training (``train_loss``) waits for
-the training slice (ROADMAP §A.6).
+A family module exposes ``init``, ``train_loss(cfg, params, batch)``,
+``prefill(cfg, params, batch, pad_to)``, ``decode_step(cfg, params,
+cache, batch)`` (split into ``decode_check`` and ``decode_body``, which
+``launch.steps`` captures) and ``cache_shape(cfg, batch, max_seq)``.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""Shared functional layers — the port of the parts of
-``repro/models/common.py`` the serving and offline paths use.
+"""Shared functional layers — the port of ``repro/models/common.py``
+(serving, offline and training paths).
 
 Plain functions over tensors and dicts of tensors. bf16 contractions are
 written as f32 ops on upcast operands: a bf16 value is exact in f32, so
@@ -14,6 +14,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.erdpe import maybe_flash_matmul
 from repro_torch.kernels.decode_attn import (decode_attention_state,
@@ -397,3 +398,26 @@ def gelu_ffn_apply(p, x):
     """GELU FFN; ``jax.nn.gelu`` is the tanh approximation by default."""
     h = F.gelu(maybe_flash_matmul(x, p["w_up"]).float(), approximate="tanh")
     return maybe_flash_matmul(h.to(x.dtype), p["w_down"])
+
+
+# --- losses and rematerialization ----------------------------------------------
+
+def softmax_xent(logits, labels):
+    """Mean token cross-entropy in f32; logits (B, S, V) any float dtype;
+    labels (B, S)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return torch.mean(logz - gold)
+
+
+def remat(fn, *args):
+    """``fn(*args)``, its activations recomputed in the backward instead of
+    kept (the reference's ``jax.checkpoint`` with ``nothing_saveable``):
+    only ``fn``'s inputs are saved. Active only while grad is enabled, so
+    serving and prefill run ``fn`` as it is. ``fn`` draws no random
+    numbers, so no RNG state is stashed."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False)

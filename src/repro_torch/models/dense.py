@@ -2,14 +2,16 @@
 ``repro/models/dense.py``: the norm and FFN dispatch, ``attn_cfg``, an
 ``init`` of the port's own, and the offline inference API — ``forward``,
 ``prefill``, ``decode_step`` (a host check and a device body, which
-``launch.steps`` captures in a CUDA graph), ``cache_shape``. The layer
+``launch.steps`` captures in a CUDA graph), ``cache_shape`` — and
+training's ``train_loss`` over a rematerialized ``forward``. The layer
 bodies take the FFN as a hook (``dense_ffn``), which the MoE family
 replaces with its expert FFN.
 
 Params are plain nested dicts of tensors with the JAX package's names and
 layout: per-layer weights (bf16 tensors or stacked ``FlashWeight``s) are
 stacked along a leading (L,) dim and indexed in a Python layer loop —
-there is no scan. Cache layout: K/V (L, B, S, KV, Dh).
+there is no scan (``layer_slice`` also takes a list of per-layer
+tensors in a stacked tensor's place: the train step's per-layer leaves). Cache layout: K/V (L, B, S, KV, Dh).
 """
 from __future__ import annotations
 
@@ -18,6 +20,11 @@ import torch.nn.functional as F
 
 from repro_torch.core.erdpe import maybe_flash_matmul
 from repro_torch.models import common as cm
+
+# the top-level params whose leaves carry a leading layer axis: the train
+# step hands each layer's slice to the loss as its own autograd leaf
+# (launch/steps.py)
+STACKED = ("layers",)
 
 
 def _norm(cfg, x, p, name):
@@ -47,7 +54,8 @@ def dense_ffn(cfg, lp, h):
 
 
 def layer_slice(tree, li):
-    """Layer ``li`` of a stacked param tree (views, no copies)."""
+    """Layer ``li`` of a stacked param tree (views, no copies); a stacked
+    leaf may also be a list of per-layer tensors."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, li) for k, v in tree.items()}
     return tree[li]
@@ -81,27 +89,61 @@ def _embed(cfg, params, tokens, positions, extra_embeds=None):
     return x
 
 
-def forward(cfg, params, tokens, extra_embeds=None, return_cache=False,
-            ffn=dense_ffn):
-    """Prefill forward. tokens (B, S) -> logits (B, S_tot, V) f32, and with
-    ``return_cache`` the cache {"k"/"v": (L, B, S_tot, KV, Dh)}. ``ffn``
-    is each layer's FFN (``dense_ffn``'s signature)."""
+def forward(cfg, params, tokens, extra_embeds=None, remat=True,
+            return_cache=False, ffn=dense_ffn):
+    """Train / prefill forward. tokens (B, S) -> logits (B, S_tot, V) f32,
+    and with ``return_cache`` the cache {"k"/"v": (L, B, S_tot, KV, Dh)}.
+    ``ffn`` is each layer's FFN (``dense_ffn``'s signature).
+
+    ``remat`` (while grad is enabled, ``common.remat``): each layer's
+    activations are recomputed in the backward; with ``cfg.remat_groups``
+    G > 1 dividing L (and no cache), sqrt-remat: G groups of L/G layers,
+    each group itself rematerialized, so the stash is about G + L/G layer
+    inputs, not L."""
     b, s = tokens.shape
     n_extra = extra_embeds.shape[1] if extra_embeds is not None else 0
     positions = torch.arange(s + n_extra, device=tokens.device)
     x = _embed(cfg, params, tokens, positions[n_extra:], extra_embeds)
+
+    def layer(x, li):
+        return _layer_fwd(cfg, x, layer_slice(params["layers"], li),
+                          positions, collect_kv=False, ffn=ffn)[0]
+
     ks, vs = [], []
-    for li in range(cfg.n_layers):
-        x, kv = _layer_fwd(cfg, x, layer_slice(params["layers"], li),
-                           positions, collect_kv=return_cache, ffn=ffn)
-        if return_cache:
-            ks.append(kv[0])
-            vs.append(kv[1])
+    g, n_l = cfg.remat_groups, cfg.n_layers
+    if remat and not return_cache and g > 1 and n_l % g == 0:
+        def group(x, first):
+            for li in range(first, first + n_l // g):
+                x = cm.remat(layer, x, li)
+            return x
+        for first in range(0, n_l, n_l // g):
+            x = cm.remat(group, x, first)
+    elif remat and not return_cache:
+        for li in range(n_l):
+            x = cm.remat(layer, x, li)
+    else:
+        for li in range(n_l):
+            x, kv = _layer_fwd(cfg, x, layer_slice(params["layers"], li),
+                               positions, collect_kv=return_cache, ffn=ffn)
+            if return_cache:
+                ks.append(kv[0])
+                vs.append(kv[1])
     x = _final_norm(cfg, params, x)
     logits = maybe_flash_matmul(x, params["lm_head"], out_dtype=torch.float32)
     if return_cache:
         return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
     return logits
+
+
+def train_loss(cfg, params, batch, ffn=dense_ffn):
+    """Mean next-token cross-entropy of batch {"tokens", "labels" (B, S)[,
+    "patch_embeds" (B, P, D)]}; the patch frontend's P positions are
+    dropped from the logits before the loss. Layers rematerialized."""
+    extra = batch.get("patch_embeds")
+    logits = forward(cfg, params, batch["tokens"], extra_embeds=extra,
+                     remat=True, ffn=ffn)
+    n_extra = extra.shape[1] if extra is not None else 0
+    return cm.softmax_xent(logits[:, n_extra:], batch["labels"])
 
 
 def prefill(cfg, params, batch, pad_to: int | None = None, ffn=dense_ffn):

@@ -1,7 +1,8 @@
 """Encoder-decoder transformer backbone (seamless-m4t-medium) — the port of
-``repro/models/encdec.py``'s inference path: ``init``, ``encode``,
-``forward``, ``prefill``, ``decode_step`` (a host check and a device body,
-which ``launch.steps`` captures in a CUDA graph) and ``cache_shape``.
+``repro/models/encdec.py``'s inference and training paths: ``init``,
+``encode``, ``forward``, ``train_loss``, ``prefill``, ``decode_step`` (a
+host check and a device body, which ``launch.steps`` captures in a CUDA
+graph) and ``cache_shape``.
 
 The modality frontend is a stub, as in the reference: the caller hands
 precomputed frame embeddings ``src_embeds`` (B, S_src, D). The backbone:
@@ -27,6 +28,11 @@ from repro_torch.core.erdpe import maybe_flash_matmul
 from repro_torch.models import common as cm
 from repro_torch.models import dense
 from repro_torch.models.dense import layer_slice
+
+# the top-level params whose leaves carry a leading layer axis: the train
+# step hands each layer's slice to the loss as its own autograd leaf
+# (launch/steps.py)
+STACKED = ("enc", "dec")
 
 
 # --- init ------------------------------------------------------------------------
@@ -76,12 +82,15 @@ def init(cfg, generator: torch.Generator, device="cuda") -> dict:
 
 # --- encoder -----------------------------------------------------------------------
 
-def encode(cfg, params, src_embeds):
+def encode(cfg, params, src_embeds, remat=True):
     """src_embeds (B, S_src, D) precomputed frame embeddings (the stub
-    frontend) -> the encoder output (B, S_src, D) bf16."""
+    frontend) -> the encoder output (B, S_src, D) bf16. ``remat`` (while
+    grad is enabled): each layer's activations are recomputed in the
+    backward."""
     x = cm.rms_norm(src_embeds.to(torch.bfloat16), params["src_norm"])
     positions = torch.arange(x.shape[1], device=x.device)
-    for li in range(cfg.n_enc_layers):
+
+    def layer(x, li):
         lp = layer_slice(params["enc"], li)
         h = cm.rms_norm(x, lp["ln1"])
         q, k, v = cm.qkv_project(lp["attn"], h, dense.attn_cfg(cfg),
@@ -89,7 +98,10 @@ def encode(cfg, params, src_embeds):
         attn = cm.chunked_attention(q, k, v, causal=False)
         b, s = attn.shape[:2]
         x = x + maybe_flash_matmul(attn.reshape(b, s, -1), lp["attn"]["wo"])
-        x = x + cm.gelu_ffn_apply(lp["ffn"], cm.rms_norm(x, lp["ln2"]))
+        return x + cm.gelu_ffn_apply(lp["ffn"], cm.rms_norm(x, lp["ln2"]))
+
+    for li in range(cfg.n_enc_layers):
+        x = cm.remat(layer, x, li) if remat else layer(x, li)
     return cm.rms_norm(x, params["enc_norm"])
 
 
@@ -125,14 +137,26 @@ def _dec_layer(cfg, x, lp, enc_out, positions):
     return x, (k, v) + enc_kv
 
 
-def forward(cfg, params, src_embeds, tgt_tokens, return_cache=False):
+def forward(cfg, params, src_embeds, tgt_tokens, remat=True,
+            return_cache=False):
     """(src_embeds (B, S_src, D), tgt_tokens (B, St)) -> logits (B, St, V)
-    f32, and with ``return_cache`` the self- and cross-KV caches."""
-    enc_out = encode(cfg, params, src_embeds)
+    f32, and with ``return_cache`` the self- and cross-KV caches.
+    ``remat`` (while grad is enabled, without a cache): each encoder and
+    decoder layer's activations are recomputed in the backward."""
+    remat = remat and not return_cache
+    enc_out = encode(cfg, params, src_embeds, remat=remat)
     positions = torch.arange(tgt_tokens.shape[1], device=tgt_tokens.device)
     x = params["embed"][tgt_tokens.long()]
+
+    def layer(x, li):
+        return _dec_layer(cfg, x, layer_slice(params["dec"], li), enc_out,
+                          positions)[0]
+
     kvs = []
     for li in range(cfg.n_layers):
+        if remat:
+            x = cm.remat(layer, x, li)
+            continue
         x, kv = _dec_layer(cfg, x, layer_slice(params["dec"], li), enc_out,
                            positions)
         if return_cache:
@@ -143,6 +167,13 @@ def forward(cfg, params, src_embeds, tgt_tokens, return_cache=False):
         ks, vs, cks, cvs = (torch.stack(t) for t in zip(*kvs))
         return logits, {"k": ks, "v": vs, "ck": cks, "cv": cvs}
     return logits
+
+
+def train_loss(cfg, params, batch):
+    """Mean next-token cross-entropy of batch {"src_embeds", "tgt_tokens",
+    "labels"}."""
+    logits = forward(cfg, params, batch["src_embeds"], batch["tgt_tokens"])
+    return cm.softmax_xent(logits, batch["labels"])
 
 
 def cache_shape(cfg, batch: int, max_seq: int,

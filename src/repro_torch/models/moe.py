@@ -39,6 +39,11 @@ from repro_torch.core.erdpe import flash_matmul_grouped
 from repro_torch.core.tiering import FlashWeight, PagedWeight
 from repro_torch.models import dense
 
+# the top-level params whose leaves carry a leading layer axis: the train
+# step hands each layer's slice to the loss as its own autograd leaf
+# (launch/steps.py)
+STACKED = ("layers",)
+
 
 # --- init ---------------------------------------------------------------------
 
@@ -260,11 +265,18 @@ def _decode_ffn(cfg, lp, h):
     return moe_apply(cfg, lp["moe"], h, capacity_factor=2.0)
 
 
-def forward(cfg, params, tokens, return_cache=False):
-    """Prefill forward: tokens (B, S) -> logits (B, S, V) f32 (and the
-    cache with ``return_cache``); the MoE FFN at capacity factor 1.25."""
-    return dense.forward(cfg, params, tokens, return_cache=return_cache,
-                         ffn=_ffn)
+def forward(cfg, params, tokens, remat=True, return_cache=False):
+    """Train / prefill forward: tokens (B, S) -> logits (B, S, V) f32 (and
+    the cache with ``return_cache``); the MoE FFN at capacity factor 1.25,
+    layers rematerialized while grad is enabled (``dense.forward``)."""
+    return dense.forward(cfg, params, tokens, remat=remat,
+                         return_cache=return_cache, ffn=_ffn)
+
+
+def train_loss(cfg, params, batch):
+    """Mean next-token cross-entropy of batch {"tokens", "labels"}. The
+    gradient reaches the router through the combine's gate weights."""
+    return dense.train_loss(cfg, params, batch, ffn=_ffn)
 
 
 def prefill(cfg, params, batch, pad_to: int | None = None):

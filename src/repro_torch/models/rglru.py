@@ -1,7 +1,8 @@
 """RecurrentGemma / Griffin hybrid — the port of ``repro/models/rglru.py``'s
-inference path: RG-LRU recurrent blocks and local attention, ``init``,
-``forward``, ``prefill``, ``decode_step`` (a host check and a device body,
-which ``launch.steps`` captures in a CUDA graph) and ``cache_shape``.
+inference and training paths: RG-LRU recurrent blocks and local
+attention, ``init``, ``forward``, ``train_loss``, ``prefill``,
+``decode_step`` (a host check and a device body, which ``launch.steps``
+captures in a CUDA graph) and ``cache_shape``.
 
 The layers repeat (recurrent, recurrent, local attention), the 1:2 ratio
 of arXiv:2402.19427; ``n_layers`` not a multiple of 3 ends with a tail of
@@ -37,6 +38,10 @@ RG_LRU_C = 8.0
 # slot is only written): the step builder restores them after a capture's
 # warm-up (launch/steps.py)
 RECURRENT_STATE = ("conv1", "h1", "conv2", "h2", "conv_t", "h_t")
+# the top-level params whose leaves carry a leading layer axis: the train
+# step hands each layer's slice to the loss as its own autograd leaf
+# (launch/steps.py)
+STACKED = ("blocks", "tail")
 
 
 # --- init -----------------------------------------------------------------------
@@ -210,25 +215,43 @@ def _attn_layer_seq(cfg, x, lp, positions):
 
 # --- model API -----------------------------------------------------------------------
 
-def forward(cfg, params, tokens, return_cache=False):
+def forward(cfg, params, tokens, remat=True, return_cache=False):
     """tokens (B, S) -> logits (B, S, V) f32, and with ``return_cache`` the
-    cache after the last token (``_pack_cache``)."""
+    cache after the last token (``_pack_cache``). ``remat`` (while grad is
+    enabled, without a cache): each (r, r, a) super-block's and each tail
+    layer's activations are recomputed in the backward, as the
+    reference's checkpointed scan bodies."""
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)
     x = params["embed"][tokens.long()]
     n_super, n_tail = block_counts(cfg)
-    st1, st2, kv, tail = [], [], [], []
-    for i in range(n_super):
+
+    def superblock(x, i):
         bp = layer_slice(params["blocks"], i)
         x, a = _rec_layer_seq(cfg, x, bp["r1"])
         x, b = _rec_layer_seq(cfg, x, bp["r2"])
         x, c = _attn_layer_seq(cfg, x, bp["a"], positions)
+        return x, (a, b, c)
+
+    def tail_layer(x, j):
+        return _rec_layer_seq(cfg, x, layer_slice(params["tail"], j))
+
+    remat = remat and not return_cache
+    st1, st2, kv, tail = [], [], [], []
+    for i in range(n_super):
+        if remat:
+            x = cm.remat(lambda x, i: superblock(x, i)[0], x, i)
+            continue
+        x, (a, b, c) = superblock(x, i)
         if return_cache:
             st1.append(a)
             st2.append(b)
             kv.append(c)
     for j in range(n_tail):
-        x, st = _rec_layer_seq(cfg, x, layer_slice(params["tail"], j))
+        if remat:
+            x = cm.remat(lambda x, j: tail_layer(x, j)[0], x, j)
+            continue
+        x, st = tail_layer(x, j)
         if return_cache:
             tail.append(st)
     x = cm.rms_norm(x, params["final_norm"])
@@ -241,6 +264,13 @@ def forward(cfg, params, tokens, return_cache=False):
     return logits, _pack_cache(cfg, (stacked(st1), stacked(st2)),
                                stacked(kv), stacked(tail) if n_tail else None,
                                s)
+
+
+def train_loss(cfg, params, batch):
+    """Mean next-token cross-entropy of batch {"tokens", "labels"},
+    through ``rg_lru_seq`` and the local-window attention layers."""
+    logits = forward(cfg, params, batch["tokens"], remat=True)
+    return cm.softmax_xent(logits, batch["labels"])
 
 
 # --- cache layout ----------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """RWKV-6 "Finch" (arXiv:2404.05892) — the port of ``repro/models/rwkv6.py``'s
-inference path: ``init``, ``forward``, ``prefill``, ``decode_step`` (a host
-check and a device body, which ``launch.steps`` captures in a CUDA graph)
-and ``cache_shape``.
+inference and training paths: ``init``, ``forward``, ``train_loss``,
+``prefill``, ``decode_step`` (a host check and a device body, which
+``launch.steps`` captures in a CUDA graph) and ``cache_shape``.
 
 Time mixing (per head, head_dim K):
     S_t = diag(w_t) S_{t-1} + k_t^T v_t          (state S in R^{KxV})
@@ -34,6 +34,10 @@ from repro_torch.models.dense import layer_slice
 # the cache entries a decode step advances (reads and rewrites): the step
 # builder restores them after a capture's warm-up (launch/steps.py)
 RECURRENT_STATE = ("tmix_x", "wkv", "cmix_x")
+# the top-level params whose leaves carry a leading layer axis: the train
+# step hands each layer's slice to the loss as its own autograd leaf
+# (launch/steps.py)
+STACKED = ("layers",)
 TS_LORA = 32      # token-shift LoRA rank
 DEC_LORA = 64     # decay LoRA rank
 DEFAULT_CHUNK = 64
@@ -227,12 +231,21 @@ def _layer(cfg, x, lp, wkv_mode, tx=None, ts=None, cx=None):
 
 # --- model API ---------------------------------------------------------------------
 
-def forward(cfg, params, tokens, return_cache=False, wkv_mode="chunked"):
+def forward(cfg, params, tokens, remat=True, return_cache=False,
+            wkv_mode="chunked"):
     """tokens (B, S) -> logits (B, S, V) f32, and with ``return_cache`` the
-    state after the last token."""
+    state after the last token. ``remat`` (while grad is enabled, without
+    a cache): each layer's activations are recomputed in the backward."""
     x = cm.rms_norm(params["embed"][tokens.long()], params["ln_in"])
+
+    def layer(x, li):
+        return _layer(cfg, x, layer_slice(params["layers"], li), wkv_mode)[0]
+
     states = []
     for li in range(cfg.n_layers):
+        if remat and not return_cache:
+            x = cm.remat(layer, x, li)
+            continue
         x, st = _layer(cfg, x, layer_slice(params["layers"], li), wkv_mode)
         if return_cache:
             states.append(st)
@@ -242,6 +255,14 @@ def forward(cfg, params, tokens, return_cache=False, wkv_mode="chunked"):
         tx, ts, cx = (torch.stack(t) for t in zip(*states))
         return logits, {"tmix_x": tx, "wkv": ts, "cmix_x": cx}
     return logits
+
+
+def train_loss(cfg, params, batch, wkv_mode="chunked"):
+    """Mean next-token cross-entropy of batch {"tokens", "labels"}, the
+    time mix through ``wkv_chunked`` (or ``wkv_scan``)."""
+    logits = forward(cfg, params, batch["tokens"], remat=True,
+                     wkv_mode=wkv_mode)
+    return cm.softmax_xent(logits, batch["labels"])
 
 
 def cache_shape(cfg, batch: int, max_seq: int) -> dict:

@@ -1559,3 +1559,89 @@ def test_streamed_moe_engine_logits_equal_resident_on_the_card(cuda):
     for i, (got, want, live) in enumerate(zip(st["logits"], res["logits"],
                                               st["lanes"])):
         assert torch.equal(got[live], want[live]), i
+
+
+# --- training (no kernel of the port's: cuBLAS products, plain torch) ---------
+
+def test_adamw_update_on_the_card_matches_the_cpu(cuda):
+    """Three AdamW steps (clipping on, warmup_cosine) from the same bf16
+    params on the same f32 grads, on the card and the CPU: moments within
+    one f32 ulp plus 2^-18 of their leaf's largest (the global norm sums
+    in another order on the card, and the clip scale carries it), params
+    within one bf16 ulp."""
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    rng = np.random.default_rng(0)
+
+    def tree():
+        return {"layers": {"w": rng.normal(size=(3, 40, 50)),
+                           "ln": rng.normal(size=(3, 50))},
+                "head": rng.normal(size=(64, 33))}
+    p_cpu = tree_map(lambda a: torch.from_numpy(a).to(torch.bfloat16), tree())
+    p_gpu = tree_map(lambda t: t.to(cuda), p_cpu)
+    opt = AdamW(lr=warmup_cosine(1e-2, 3, 10))
+    s_cpu, s_gpu = opt.init(p_cpu), opt.init(p_gpu)
+    for _ in range(3):
+        g = tree_map(lambda a: torch.from_numpy(a.astype(np.float32)), tree())
+        s_cpu = opt.apply_(g, s_cpu, p_cpu)
+        s_gpu = opt.apply_(tree_map(lambda t: t.to(cuda), g), s_gpu, p_gpu)
+        for a, b in zip(tree_leaves(s_cpu.m) + tree_leaves(s_cpu.v),
+                        tree_leaves(s_gpu.m) + tree_leaves(s_gpu.v)):
+            b = b.cpu()
+            tol = (a.abs() * EPS32 + a.abs().max() * 2.0 ** -18)
+            assert bool(((a - b).abs() <= tol).all())
+        for a, b in zip(tree_leaves(p_cpu), tree_leaves(p_gpu)):
+            a, b = a.float(), b.cpu().float()
+            assert bool(((a - b).abs() <= a.abs() * 2.0 ** -7).all())
+
+
+def _step_params_agree(p_cpu, p_gpu, m_cpu, m_gpu, lr) -> None:
+    """chip_smoke's 15(c) rule: each param whose first moment has one sign
+    on both devices within 2^-7 (|p| + lr) + lr eps (1/|g_cpu| +
+    1/|g_card|) (an update is -lr g / (|g| + eps), rounded to bf16)."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    for pc, pg, mc, mg in zip(tree_leaves(p_cpu), tree_leaves(p_gpu),
+                              tree_leaves(m_cpu), tree_leaves(m_gpu)):
+        pc, pg, mg = pc.float(), pg.cpu().float(), mg.cpu()
+        same = mc.sign() == mg.sign()
+        tol = ((torch.maximum(pc.abs(), pg.abs()) + lr) * 2.0 ** -7
+               + lr * 1e-9 * (1 / mc.abs() + 1 / mg.abs()))
+        assert bool(((pc - pg).abs() <= tol)[same].all())
+        assert float((mc - mg).abs().max()) <= \
+            float(mc.abs().max()) * 2.0 ** -4
+
+
+@pytest.mark.parametrize("n_micro", [1, 2])
+def test_train_step_on_the_card_matches_the_cpu(cuda, n_micro):
+    """One make_train_step step of granite-8b smoke (4 x 16 tokens) on the
+    card and on the CPU from the same params: the loss within 1e-3, the
+    first moments within 2^-4 of their leaf's largest, the params under
+    _step_params_agree; the card's params are the tensors given, finite,
+    none requiring grad."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import family_module
+    from repro_torch.optim import AdamW, warmup_cosine
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    cfg = get_config("granite-8b", smoke=True)
+    p_cpu = family_module(cfg.family).init(
+        cfg, torch.Generator().manual_seed(0), device="cpu")
+    p_gpu = tree_map(lambda t: t.to(cuda), p_cpu)
+    given = tree_leaves(p_gpu)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (4, 17)).astype(np.int32))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    opt = AdamW(lr=warmup_cosine(1e-2, 2, 10))
+    step = make_train_step(cfg, opt, n_micro=n_micro)
+    p_gpu, s_gpu, m_gpu = step(p_gpu, opt.init(p_gpu),
+                               {k: v.to(cuda) for k, v in batch.items()})
+    p_cpu, s_cpu, m_cpu = step(p_cpu, opt.init(p_cpu), batch)
+    assert all(a is b for a, b in zip(tree_leaves(p_gpu), given))
+    assert all(bool(torch.isfinite(p).all()) and not p.requires_grad
+               for p in given)
+    assert abs(float(m_gpu["loss"]) - float(m_cpu["loss"])) <= 1e-3
+    _step_params_agree(p_cpu, p_gpu, s_cpu.m, s_gpu.m,
+                       float(opt._lr(s_cpu.step)))

@@ -113,11 +113,16 @@ def test_deploy_writes_the_reference_bytes(deployed, store):
 
 
 def test_deploy_refuses_a_training_checkpoint(tmp_path):
-    """The reference restores a (params, AdamW state) checkpoint; the port
-    has no optimizer yet and says where it comes."""
+    """A (params, optimizer state) checkpoint whose state is not AdamW's
+    restores as neither template, (params, AdamW state) nor params: both
+    packages' deploys refuse it. (An AdamW training checkpoint deploys:
+    tests/test_torch_train_launch.py.)"""
     jp = jdense.init(jget("granite-8b", smoke=True), jax.random.PRNGKey(0))
     JManager(tmp_path / "train").save(0, (jp, {"count": np.int32(0)}))
-    with pytest.raises(ValueError, match="§A.6"):
+    with pytest.raises(ValueError, match="tree structure mismatch"):
+        jdeploy.run_deploy("granite-8b", True, str(tmp_path / "train"),
+                           str(tmp_path / "jout"))
+    with pytest.raises(ValueError, match="tree structure mismatch"):
         tdeploy.run_deploy("granite-8b", True, str(tmp_path / "train"),
                            str(tmp_path / "out"), device="cpu")
 

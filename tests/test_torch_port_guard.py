@@ -34,7 +34,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "bad = sorted(k for k in sys.modules if k == 'jax' "
         "or k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 58, names\n"
+        "assert len(names) >= 68, names\n"
         "assert {'repro_torch.store.' + m for m in ('faults', 'nand', "
         "'page_pool', 'pagestore', 'streamer', 'expert_cache')} "
         "<= set(names), names\n"
@@ -54,6 +54,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "'rwkv6_3b')} <= set(names), names\n"
         "assert {'repro_torch.configs', 'repro_torch.checkpoint.manager', "
         "'repro_torch.launch.serve', 'repro_torch.launch.deploy'} "
+        "<= set(names), names\n"
+        "assert {'repro_torch.optim', 'repro_torch.optim.adamw', "
+        "'repro_torch.optim.schedule', 'repro_torch.optim.grad_compress', "
+        "'repro_torch.data.pipeline', 'repro_torch.launch.train'} "
         "<= set(names), names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
