@@ -13,9 +13,11 @@ serves MoE on the resident plane at qwen3-moe-30b-a3b's width through the
 expert-grouped ECDP, and serves it streamed, expert-paged from a host page
 store through the paged ECDP's expert axis; and runs the other model
 families' offline path (rwkv6-3b, recurrentgemma-9b, seamless-m4t-medium)
-at full width (recurrentgemma-9b at 14 of 38 layers); and trains: granite-8b at full width (16 of its
+at full width and depth; trains: granite-8b at full width (16 of its
 36 layers), the training entry point through checkpoint, deploy and
-serve, and the train step card against CPU.
+serve, and the train step card against CPU; and runs the cost tools: the
+dry-run of all 40 (arch x shape) cells, and the training cell's counted
+peak and bound against what the card measured.
 
     python3 chip_smoke.py
 
@@ -344,10 +346,24 @@ Phases (any failure exits non-zero; nothing is caught):
                 the loss, the first moments and the params under the
                 bounds stated at TRAIN_LOSS_TOL and TRAIN_GRAD_TOL. Its
                 figures are the ``train`` JSON line.
+ 16. dryrun   — the cost tools (``launch/dryrun.py``, ``launch/cost.py``,
+                ``launch/roofline.py``; no kernel runs: each cell is
+                built on fake and meta tensors, the kernels' plain versions
+                counted at their boundaries). (a) ``run_cell`` in this
+                process for all 40 full-size cells: 32 counted, 8 skipped
+                (the sub-quadratic rule), no error, and the card's
+                allocated and peak bytes unchanged across the run (the peak
+                reset first). (b) 15(a)'s own cell (granite-8b, 16 layers,
+                2 x 4096 tokens, n_micro 2, f32 moments) through
+                ``run_cell`` with that config, shape and knobs: its peak
+                live bytes within 20 % of 15(a)'s max_memory_allocated, its
+                step-time bound no larger than 15(a)'s median step (their
+                ratio printed: the cell's roofline fraction). Its figures
+                are the ``dryrun`` JSON line.
 
-The ``spec``, ``moe_stream``, ``families`` and ``train`` lines come before
-the card's name; the second-to-last line is the ``kernels`` JSON; the last line is
-``{"ok": true, "device": {...}}``. Times are CUDA-event medians with the
+The ``spec``, ``moe_stream``, ``families``, ``train`` and ``dryrun`` lines
+come before the card's name; the second-to-last line is the ``kernels``
+JSON; the last line is ``{"ok": true, "device": {...}}``. Times are CUDA-event medians with the
 L2 cache flushed before each timed call (the serving step streams more
 weight bytes than L2 holds) and the card held while the call is enqueued
 (``Timer``). bound_ms is the larger of the bytes a call
@@ -5128,6 +5144,123 @@ def phase_train(torch) -> dict:
     return dict(full=full, entry=entry, parity=parity)
 
 
+# --- phase 16: the cost tools ------------------------------------------------
+
+# 16(b) holds the dry-run of 15(a)'s own cell against what 15(a) measured:
+# its peak within DRYRUN_PEAK_TOL (relative) of the card's, its bound no
+# larger than the median step
+DRYRUN_PEAK_TOL = 0.2
+
+
+def dryrun_all(torch) -> dict:
+    """16(a): ``launch.dryrun.run_cell`` in this process for all 40
+    full-size (arch x shape) cells: 32 counted, 8 skipped, none an error,
+    and no byte allocated on the card (its allocated and peak bytes the
+    same before and after, the peak reset first)."""
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.launch import dryrun
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = (torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated())
+    t0 = time.perf_counter()
+    deployed: dict = {}
+    rows = [dryrun.run_cell(a, s, deployed=deployed) for a in ARCHS
+            for s in SHAPES]
+    seconds = time.perf_counter() - t0
+    after = (torch.cuda.memory_allocated(), torch.cuda.max_memory_allocated())
+    status = [r["status"] for r in rows]
+    errors = [(r["arch"], r["shape"], r.get("error")) for r in rows
+              if r["status"] == "error"]
+    log(f"  {len(rows)} cells in {seconds:.1f} s: {status.count('ok')} ok, "
+        f"{status.count('skipped')} skipped, {len(errors)} errors; the "
+        f"card's allocated / peak bytes {before} before, {after} after")
+    for r in rows:
+        if r["status"] == "ok":
+            m, rf = r["memory"], r["roofline"]
+            log(f"    {r['arch']:22s} {r['shape']:12s} args "
+                f"{m['argument_size_in_bytes'] / 2**30:9.2f} GiB, peak "
+                f"{m['peak_live_bytes'] / 2**30:9.2f} GiB, fits "
+                f"{'yes' if r['fits_card'] else 'no '}, "
+                f"{rf['dominant'].removesuffix('_s'):7s} bound "
+                f"{rf['step_time_lower_bound_s']:.4g} s "
+                f"({r['build_s'] + r['count_s']:.2f} s)")
+    if errors or status.count("ok") != 32 or status.count("skipped") != 8:
+        raise AssertionError(f"16(a): {status.count('ok')} ok, "
+                             f"{status.count('skipped')} skipped, errors "
+                             f"{errors}")
+    if after != before:
+        raise AssertionError(f"16(a): the dry-run allocated on the card: "
+                             f"{before} -> {after}")
+    return dict(seconds=seconds, ok=status.count("ok"),
+                skipped=status.count("skipped"), cuda_bytes=list(after),
+                cells={f"{r['arch']}/{r['shape']}": dict(
+                    status=r["status"], memory=r.get("memory"),
+                    fits_card=r.get("fits_card"),
+                    dominant=r.get("roofline", {}).get("dominant"),
+                    bound_s=r.get("roofline", {}).get(
+                        "step_time_lower_bound_s"),
+                    seconds=r.get("build_s", 0) + r.get("count_s", 0))
+                       for r in rows})
+
+
+def dryrun_train_cell(torch, full: dict) -> dict:
+    """16(b): 15(a)'s own cell (granite-8b at full width, TRAIN_LAYERS
+    layers, TRAIN_BATCH x TRAIN_SEQ tokens as TRAIN_MICRO microbatches,
+    f32 moments) through ``dryrun.run_cell`` with the config, shape and
+    knobs given: its peak live bytes against 15(a)'s
+    ``max_memory_allocated`` (within DRYRUN_PEAK_TOL), its step-time bound
+    against 15(a)'s median step (no larger); their ratio is the cell's
+    roofline fraction."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    cfg = train_cfg(TRAIN_ARCH, n_layers=TRAIN_LAYERS)
+    shape = ShapeSpec("train_4k", "train", TRAIN_SEQ, TRAIN_BATCH)
+    t0 = time.perf_counter()
+    r = dryrun.run_cell(TRAIN_ARCH, "train_4k", cfg=cfg, shape=shape,
+                        knobs=dict(n_micro=TRAIN_MICRO,
+                                   moment_dtype="float32"))
+    seconds = time.perf_counter() - t0
+    if r["status"] != "ok":
+        raise AssertionError(f"16(b): {r['status']}: {r.get('error')}")
+    peak = r["memory"]["peak_live_bytes"] / 2**30
+    rf = r["roofline"]
+    bound_ms = rf["step_time_lower_bound_s"] * 1e3
+    measured_ms = full["ms_per_step"]
+    log(f"  {cfg.name} at {TRAIN_BATCH} x {TRAIN_SEQ}, n_micro "
+        f"{TRAIN_MICRO}, counted in {seconds:.1f} s: args "
+        f"{r['memory']['argument_size_in_bytes'] / 2**30:.2f} GiB; peak "
+        f"{peak:.2f} GiB against 15(a)'s {full['peak_gib']:.2f} (ratio "
+        f"{peak / full['peak_gib']:.4f}, tol {DRYRUN_PEAK_TOL}); bound "
+        f"{bound_ms:.1f} ms ({rf['dominant']}; compute "
+        f"{rf['compute_s'] * 1e3:.1f} ms, memory {rf['memory_s'] * 1e3:.1f} "
+        f"ms) against 15(a)'s median step {measured_ms:.1f} ms: roofline "
+        f"fraction {bound_ms / measured_ms:.4f}")
+    if abs(peak / full["peak_gib"] - 1) > DRYRUN_PEAK_TOL:
+        raise AssertionError(f"16(b): dry-run peak {peak:.2f} GiB against "
+                             f"the card's {full['peak_gib']:.2f} GiB")
+    if bound_ms > measured_ms:
+        raise AssertionError(f"16(b): bound {bound_ms:.1f} ms above the "
+                             f"measured step {measured_ms:.1f} ms")
+    return dict(peak_gib=peak, card_peak_gib=full["peak_gib"],
+                bound_ms=bound_ms, measured_ms=measured_ms,
+                roofline_fraction=bound_ms / measured_ms,
+                dominant=rf["dominant"], compute_ms=rf["compute_s"] * 1e3,
+                memory_ms=rf["memory_s"] * 1e3, seconds=seconds,
+                argument_gib=r["memory"]["argument_size_in_bytes"] / 2**30)
+
+
+def phase_dryrun(torch, full: dict) -> dict:
+    """Phase 16: (a) the dry-run of all 40 cells, allocating nothing on the
+    card; (b) 15(a)'s cell counted, against what 15(a) measured."""
+    t0 = time.perf_counter()
+    cells = dryrun_all(torch)
+    train = dryrun_train_cell(torch, full)
+    return dict(all=cells, train_cell=train,
+                seconds=time.perf_counter() - t0)
+
+
 def main() -> int:
     import torch
 
@@ -5258,6 +5391,10 @@ def main() -> int:
     t0 = time.perf_counter()
     train_res = phase_train(torch)
     log(f"  phase 15 in {time.perf_counter() - t0:.1f} s")
+    log("phase 16: the cost tools (the dry-run of all 40 cells; 15(a)'s "
+        "cell against 15(a))")
+    dry_res = phase_dryrun(torch, train_res["full"])
+    log(f"  phase 16 in {dry_res['seconds']:.1f} s")
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"spec": spec}), flush=True)
     print(json.dumps({"moe_stream": dict(full=ms_res["full"],
@@ -5265,6 +5402,7 @@ def main() -> int:
     print(json.dumps({"families": dict(full=fam["full"],
                                        parity=fam["parity"])}), flush=True)
     print(json.dumps({"train": train_res}), flush=True)
+    print(json.dumps({"dryrun": dry_res}), flush=True)
 
     step = serve["ecdp_step"]
     kernels = [

@@ -1,9 +1,8 @@
 """Architecture registry — the port of ``repro/configs/__init__.py``:
 ``get_config("<arch-id>")`` / ``--arch <id>`` over the ten arch modules,
 each a copy of the reference's with ``CONFIG`` and ``SMOKE`` field for
-field. The paper's own models (``paper_models``) are exported here too.
-``configs/shapes.py`` (the dry-run tools' shapes) is not ported yet
-(ROADMAP §A.7).
+field. The paper's own models (``paper_models``) and the dry-run's input
+shapes (``shapes``) are exported here too.
 """
 from __future__ import annotations
 
@@ -13,6 +12,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.configs.paper_models import (LLAMA2_7B, OPT_1_3B, OPT_2_7B,
                                               OPT_6_7B, OPT_13B, OPT_30B,
                                               OPT_FAMILY, OPT_TINY)
+from repro_torch.configs.shapes import (SHAPES, ShapeSpec, applicable,
+                                        batch_specs, cache_specs)
 
 _MODULES = {
     "qwen3-32b": "repro_torch.configs.qwen3_32b",
@@ -37,6 +38,7 @@ def get_config(name: str, smoke: bool = False) -> ArchConfig:
     return mod.SMOKE if smoke else mod.CONFIG
 
 
-__all__ = ["ARCHS", "ArchConfig", "get_config", "LLAMA2_7B", "OPT_1_3B",
-           "OPT_2_7B", "OPT_6_7B", "OPT_13B", "OPT_30B", "OPT_FAMILY",
-           "OPT_TINY"]
+__all__ = ["ARCHS", "ArchConfig", "SHAPES", "ShapeSpec", "applicable",
+           "batch_specs", "cache_specs", "get_config", "LLAMA2_7B",
+           "OPT_1_3B", "OPT_2_7B", "OPT_6_7B", "OPT_13B", "OPT_30B",
+           "OPT_FAMILY", "OPT_TINY"]

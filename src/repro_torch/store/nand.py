@@ -1,25 +1,24 @@
-"""NAND constants of the page store — the port's copy of the parts of
-``repro/simulator/hw.py`` and ``repro/core/scheduler.py`` the store uses.
+"""NAND constants of the page store, from the analytic model
+(``simulator/hw.py``) as the reference's store takes them from
+``repro/simulator/hw.py``, and the plane split of a sharded store (the
+port of ``repro/core/scheduler.shard_planes``).
 
 A page is 16 KiB (one 128x128 int8 weight tile); a plane reads one page in
 5.12 us; the NVLLM configuration of the paper (Table 3, ``NVLLM_8C``) has
 32 planes. Planes read in parallel, so the array time of a batch of reads
-is set by the busiest plane.
+is set by the busiest plane (``nand_read_seconds``).
 """
 from __future__ import annotations
 
 import numpy as np
 
-PAGE_BYTES = 16 * 1024
-PLANE_READ_S = 5.12e-6
-N_PLANES = 32                    # NVLLM_8C.n_planes
+from repro_torch.simulator.hw import (NVLLM_8C, PAGE_BYTES, PLANE_READ_S,
+                                      nand_read_seconds)
 
+N_PLANES = NVLLM_8C.n_planes
 
-def nand_read_seconds(plane_reads) -> float:
-    """Analytical NAND time of a per-plane page-read histogram: the
-    slowest plane's reads times the plane read latency."""
-    reads = list(plane_reads)
-    return (max(reads) * PLANE_READ_S) if reads else 0.0
+__all__ = ["N_PLANES", "PAGE_BYTES", "PLANE_READ_S", "nand_read_seconds",
+           "shard_planes"]
 
 
 def shard_planes(n_planes: int, n_shards: int) -> np.ndarray:

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``repro_torch`` (nor chip_smoke.py)
-imports JAX or the JAX package, its configs and NAND constants equal the
+imports JAX or the JAX package, its configs and analytic model's
+constants (which the page store's NAND constants come from) equal the
 reference's, and the CUDA ECDP kernels' codec constants equal the codec's
 tables."""
 from __future__ import annotations
@@ -34,7 +35,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "bad = sorted(k for k in sys.modules if k == 'jax' "
         "or k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 68, names\n"
+        "assert len(names) >= 77, names\n"
         "assert {'repro_torch.store.' + m for m in ('faults', 'nand', "
         "'page_pool', 'pagestore', 'streamer', 'expert_cache')} "
         "<= set(names), names\n"
@@ -59,6 +60,11 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "'repro_torch.optim.schedule', 'repro_torch.optim.grad_compress', "
         "'repro_torch.data.pipeline', 'repro_torch.launch.train'} "
         "<= set(names), names\n"
+        "assert {'repro_torch.simulator', 'repro_torch.simulator.hw', "
+        "'repro_torch.simulator.system', 'repro_torch.simulator.baselines', "
+        "'repro_torch.configs.shapes', 'repro_torch.launch.roofline', "
+        "'repro_torch.launch.cost', 'repro_torch.launch.dryrun', "
+        "'repro_torch.launch.report'} <= set(names), names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
@@ -129,14 +135,21 @@ def test_ecdp_kernel_constants_equal_the_codec_tables():
 
 
 def test_nand_constants_equal_the_reference():
+    """Every constant of the port's analytic model equals the reference's,
+    and the page store takes its NAND constants from it."""
     from repro.core.scheduler import shard_planes
-    from repro.simulator import hw
+    from repro.simulator import hw as jhw
+    from repro_torch.simulator import hw
     from repro_torch.store import nand
-    assert nand.PAGE_BYTES == hw.PAGE_BYTES
-    assert nand.PLANE_READ_S == hw.PLANE_READ_S
-    assert nand.N_PLANES == hw.NVLLM_8C.n_planes
+    def consts(mod):                     # configs as their fields
+        return {k: dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
+                for k, v in vars(mod).items() if k.isupper()}
+    assert consts(hw) == consts(jhw) and "NVLLM_8C" in consts(hw)
+    assert (nand.PAGE_BYTES, nand.PLANE_READ_S, nand.N_PLANES) == \
+        (jhw.PAGE_BYTES, jhw.PLANE_READ_S, jhw.NVLLM_8C.n_planes)
+    assert nand.nand_read_seconds is hw.nand_read_seconds
     for reads in ([], [0, 3, 1], [7] * 32):
-        assert nand.nand_read_seconds(reads) == hw.nand_read_seconds(reads)
+        assert nand.nand_read_seconds(reads) == jhw.nand_read_seconds(reads)
     for planes, shards in ((32, 1), (32, 4), (8, 8)):
         np.testing.assert_array_equal(nand.shard_planes(planes, shards),
                                       shard_planes(planes, shards))
