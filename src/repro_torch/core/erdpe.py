@@ -11,6 +11,10 @@ layer consumes a stacked (E, K, N) expert bank: one grouped ECDP
 of pool-paged experts, one grouped paged ECDP (``kernels/paged_ecdp.py``).
 There is no ``ExecMode``: the device of the tensors picks the kernel
 (CUDA) or its plain version (CPU).
+
+Under tensor parallelism a row-parallel flash matmul (``out_dtype``
+f32) yields each shard's partial, and ``all_reduce_sum`` completes it in
+f32 before the cast, where the reference psums inside ``flash_matmul``.
 """
 from __future__ import annotations
 
@@ -56,6 +60,18 @@ def flash_matmul(x: torch.Tensor, w, ecc_enabled: bool = True,
         out = ecdp_matmul(x2, w.q, w.parity, w.scale,
                           ecc_enabled=ecc_enabled)
     return out.reshape(lead + (n,)).to(out_dtype)
+
+
+def all_reduce_sum(partials, mesh) -> torch.Tensor:
+    """The tensor-parallel all-reduce: the shards' f32 partials summed in
+    f32, in shard order, on the mesh's first device (the reference's
+    ``psum`` before ``out_dtype``). The one collective of a layer; a
+    multi-process backend would replace this function alone."""
+    first = mesh.devices[0]
+    out = partials[0].to(first, torch.float32)
+    for p in partials[1:]:
+        out = out + p.to(first, torch.float32)
+    return out
 
 
 def flash_matmul_grouped(x: torch.Tensor, w, row_start: torch.Tensor,

@@ -31,9 +31,13 @@ The engine serves dense- and MoE-family archs (``--arch
 qwen3-moe-30b-a3b``, ``phi3.5-moe-42b-a6.6b``), resident or, with
 ``--stream`` / ``--store-image``, streamed: a MoE arch then pages only its
 routed experts out of the store (the expert cache and its prefetcher).
-Tensor-parallel ``--shards`` (ROADMAP §A.4) is not ported yet. Like the
-reference, ``--smoke`` is always on at the command line: full width is
-``build_engine(arch, smoke=False)``.
+``--shards S`` (with ``--stream`` / ``--store-image``; dense archs) serves
+the streamed plane tensor-parallel over S distinct devices of ``--device``
+(the page pool and every FFN sharded, one f32 all-reduce a layer); a host
+with fewer devices is refused. From Python, ``build_engine(...,
+mesh=[dev] * S)`` runs the shards on the devices listed, which may repeat
+one. Like the reference, ``--smoke`` is always on at the command line:
+full width is ``build_engine(arch, smoke=False)``.
 """
 from __future__ import annotations
 
@@ -63,7 +67,7 @@ def build_engine(arch: str = "opt-tiny", smoke: bool = True,
                  shards: int = 1, prefix_cache: bool = False,
                  max_waiting: int | None = None,
                  sample_cfg: SampleConfig | None = None,
-                 fault_cfg=None, device="cuda") -> Engine:
+                 fault_cfg=None, device="cuda", mesh=None) -> Engine:
     """Deploy ``arch`` into the tiered form and construct the serving
     engine on ``device`` — shared by the burst loop (``serve``) and the
     HTTP frontend (``--serve-http``). Params are the family's ``init``
@@ -72,14 +76,25 @@ def build_engine(arch: str = "opt-tiny", smoke: bool = True,
     from ``ckpt``. ``fault_cfg`` (a store.faults FaultConfig) arms
     read-time NAND fault injection on the streamed page store — attached
     AFTER programming, so program-time rber and injected read faults
-    compose."""
+    compose. ``shards`` > 1 serves the streamed plane tensor-parallel over
+    ``mesh`` (a device list, which may repeat one) or, by default, over
+    ``shards`` distinct devices of ``device``'s type."""
     cfg = OPT_TINY if arch == "opt-tiny" else get_config(arch, smoke=smoke)
     if cfg.family not in ("dense", "moe"):
         raise SystemExit("engine serves dense- and moe-family archs")
-    if shards > 1:
-        raise SystemExit(f"--shards {shards}: the port serves on one device; "
-                         f"tensor-parallel serving is not ported yet "
-                         f"(ROADMAP §A.4)")
+    if shards > 1 and not (stream or store_image is not None):
+        raise SystemExit("--shards serves through the streamed planes; "
+                         "add --stream (or --store-image)")
+    if shards > 1 and cfg.family == "moe":
+        raise SystemExit(f"--shards {shards}: the port shards the streamed "
+                         "dense plane; the MoE expert axis under shards is "
+                         "the next slice of ROADMAP §A.4")
+    if shards > 1 and mesh is None:
+        from repro_torch.launch.mesh import make_model_mesh
+        try:
+            mesh = make_model_mesh(shards, device)
+        except ValueError as e:
+            raise SystemExit(f"--shards {shards}: {e}") from None
     mod = family_module(cfg.family)
 
     def init(c, s):
@@ -102,7 +117,8 @@ def build_engine(arch: str = "opt-tiny", smoke: bool = True,
             raise SystemExit("--rber applies at flash-programming time; a "
                              "die image already carries its own injected "
                              "errors (re-run deploy --store with --rber)")
-        store = PageStore.open(store_image)
+        store = PageStore.open(
+            store_image, n_shards=(shards if shards > 1 else None))
         template = dram_tier(init(cfg, seed))
         params, _ = CheckpointManager(ckpt).restore(template, device=device)
         del template
@@ -120,7 +136,7 @@ def build_engine(arch: str = "opt-tiny", smoke: bool = True,
                   else int(device_budget_mib * 2**20))
         stream_cfg = StreamConfig(device_budget_bytes=budget,
                                   group_size=group_size,
-                                  auto_depth=auto_depth)
+                                  auto_depth=auto_depth, n_shards=shards)
     spec_cfg = draft_cfg = draft_params = None
     if spec_k > 0:
         from repro_torch.serving.spec import SpecConfig
@@ -146,7 +162,7 @@ def build_engine(arch: str = "opt-tiny", smoke: bool = True,
                  weight_store=store, stream_cfg=stream_cfg,
                  spec_cfg=spec_cfg, draft_cfg=draft_cfg,
                  draft_params=draft_params, prefix_cache=prefix_cache,
-                 max_waiting=max_waiting, device=device)
+                 max_waiting=max_waiting, device=device, mesh=mesh)
     if fault_cfg is not None:
         if not eng.streamed:
             raise SystemExit("--fault-* injects read-time NAND faults: "
@@ -183,7 +199,7 @@ def serve(arch: str = "opt-tiny", smoke: bool = True, n_requests: int = 6,
           adaptive_k: bool = False,
           store_image: str | None = None, ckpt: str | None = None,
           shards: int = 1, fault_cfg=None,
-          stats_interval: float = 0.0, device="cuda") -> dict:
+          stats_interval: float = 0.0, device="cuda", mesh=None) -> dict:
     eng = build_engine(arch, smoke=smoke, rber=rber, seed=seed,
                        kv_aware=kv_aware, stream=stream,
                        device_budget_mib=device_budget_mib,
@@ -191,7 +207,7 @@ def serve(arch: str = "opt-tiny", smoke: bool = True, n_requests: int = 6,
                        spec_k=spec_k, drafter=drafter,
                        adaptive_k=adaptive_k, store_image=store_image,
                        ckpt=ckpt, shards=shards, fault_cfg=fault_cfg,
-                       device=device)
+                       device=device, mesh=mesh)
     cfg = eng.cfg
     rng = np.random.default_rng(seed)
     # submit enqueues: the whole burst goes in up front and the engine's
@@ -308,8 +324,9 @@ def main():
     ap.add_argument("--group-size", type=int, default=1,
                     help="layers per streamed group (--stream)")
     ap.add_argument("--shards", type=int, default=1,
-                    help="tensor-parallel shards for --stream (not ported: "
-                         "the port serves on one device)")
+                    help="tensor-parallel shards for --stream: the page "
+                         "pool and every FFN partitioned over N devices, "
+                         "each holding 1/N of every window's FFN pages")
     ap.add_argument("--auto-depth", action="store_true",
                     help="re-pick prefetch depth from the first steps' "
                          "stall/stream telemetry (--stream)")

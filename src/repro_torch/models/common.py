@@ -387,17 +387,27 @@ def gelu_ffn_init(gen: torch.Generator, d: int, f: int, dtype=torch.bfloat16,
             "w_down": dense_init(gen, f, d, dtype, device)}
 
 
-def swiglu_apply(p, x):
+def swiglu_apply(p, x, partial: bool = False):
+    """``partial``: ``p`` is one tensor-parallel shard's FFN — w_gate /
+    w_up column-parallel (its d_ff columns, no collective), w_down
+    row-parallel over the same slice — and the result is that shard's f32
+    partial of w_down, summed over the shards by
+    ``core.erdpe.all_reduce_sum`` before the cast."""
     g = maybe_flash_matmul(x, p["w_gate"])
     u = maybe_flash_matmul(x, p["w_up"])
     h = F.silu(g.float()) * u.float()
-    return maybe_flash_matmul(h.to(x.dtype), p["w_down"])
+    return maybe_flash_matmul(h.to(x.dtype), p["w_down"],
+                              out_dtype=torch.float32 if partial
+                              else torch.bfloat16)
 
 
-def gelu_ffn_apply(p, x):
-    """GELU FFN; ``jax.nn.gelu`` is the tanh approximation by default."""
+def gelu_ffn_apply(p, x, partial: bool = False):
+    """GELU FFN; ``jax.nn.gelu`` is the tanh approximation by default.
+    ``partial``: one shard's f32 partial, as ``swiglu_apply``."""
     h = F.gelu(maybe_flash_matmul(x, p["w_up"]).float(), approximate="tanh")
-    return maybe_flash_matmul(h.to(x.dtype), p["w_down"])
+    return maybe_flash_matmul(h.to(x.dtype), p["w_down"],
+                              out_dtype=torch.float32 if partial
+                              else torch.bfloat16)
 
 
 # --- losses and rematerialization ----------------------------------------------

@@ -41,10 +41,12 @@ def attn_cfg(cfg) -> cm.AttnConfig:
     )
 
 
-def _ffn_apply(cfg, p, x):
+def _ffn_apply(cfg, p, x, partial: bool = False):
+    """``partial``: one tensor-parallel shard's f32 partial of the FFN
+    (``models.common.swiglu_apply``)."""
     if cfg.ffn_type == "swiglu":
-        return cm.swiglu_apply(p, x)
-    return cm.gelu_ffn_apply(p, x)
+        return cm.swiglu_apply(p, x, partial)
+    return cm.gelu_ffn_apply(p, x, partial)
 
 
 def dense_ffn(cfg, lp, h):

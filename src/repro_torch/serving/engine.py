@@ -82,6 +82,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import itertools
 import threading
 import time
@@ -91,7 +92,7 @@ import torch
 
 from repro_torch import graphs, obs
 from repro_torch.core import scheduler as sched
-from repro_torch.core.erdpe import flash_matmul
+from repro_torch.core.erdpe import all_reduce_sum, flash_matmul
 from repro_torch.core.tiering import (ATTN_FLASH_KEYS, PagedWeight, deploy,
                                       encode_flash, program_attn_flash)
 from repro_torch.kernels.paged_attn import _HEAD_DIMS, takes_head_dim
@@ -103,7 +104,8 @@ from repro_torch.serving.kvcache import PagedKVPool
 from repro_torch.serving.prefix import PrefixIndex, block_hashes
 from repro_torch.serving.sampler import SampleConfig, last_valid_hidden, sample
 from repro_torch.store.expert_cache import ExpertCache, ExpertPrefetcher
-from repro_torch.store.page_pool import WeightPagePool
+from repro_torch.store.page_pool import (ShardedWeightPagePool,
+                                         WeightPagePool)
 from repro_torch.store.pagestore import (StoreRef, drop_store_refs,
                                          graft_store_refs)
 from repro_torch.store.streamer import (LayerStreamer, ResidencyCache,
@@ -168,11 +170,14 @@ def _qkv(cfg, lp, fl, x, positions, bitmap):
     return q, k, v
 
 
-def _chunk_layer(cfg, bitmap, lengths, positions, block_tables, x, layer):
+def _chunk_layer(cfg, bitmap, lengths, positions, block_tables, x, layer,
+                 ffn=None):
     """One mixed-batch layer over all slots' chunk lanes. ``layer`` =
     (params slice, flash attn copy slice, read-only paged K/V pool slices).
     The pool is not written here: the chunk's own K/V enters through the
-    intra-chunk term, and the step writes all layers' rows afterwards."""
+    intra-chunk term, and the step writes all layers' rows afterwards.
+    ``ffn`` (normed input -> FFN output) stands in for the layer's own FFN:
+    the tensor-parallel one (``_sharded_ffn``)."""
     lp, fl, kc, vc = layer
     ap = lp["attn"]
     b, t, _ = x.shape
@@ -181,8 +186,19 @@ def _chunk_layer(cfg, bitmap, lengths, positions, block_tables, x, layer):
                                     window=cfg.local_window)
     out = _proj(attn.reshape(b, t, -1), ap["wo"], fl["wo"], bitmap)
     x = x + out
-    x = x + dense._ffn_apply(cfg, lp["ffn"], dense._norm(cfg, x, lp, "ln2"))
+    h = dense._norm(cfg, x, lp, "ln2")
+    x = x + (dense._ffn_apply(cfg, lp["ffn"], h) if ffn is None else ffn(h))
     return x, (k, v)
+
+
+def _sharded_ffn(cfg, shard_ffns, mesh, h):
+    """The tensor-parallel FFN: shard ``s`` runs its part on
+    ``mesh.devices[s]`` — its w_gate / w_up columns, the activation, the
+    same slice's w_down rows — to an f32 partial; ``all_reduce_sum`` sums
+    the partials and the cast comes after the sum."""
+    partials = [dense._ffn_apply(cfg, p, h.to(dev), partial=True)
+                for p, dev in zip(shard_ffns, mesh.devices)]
+    return all_reduce_sum(partials, mesh).to(h.dtype)
 
 
 def _moe_attn_router_body(cfg, lengths, positions, block_tables, x, lp, kc,
@@ -403,33 +419,52 @@ def _step_impl(cfg, sched_cfg, sample_cfg, kv_aware, params, layers,
                         positions, block_tables, generator, spec=fin)
 
 
-def _paged(pool_buf, tbl, kn):
-    """Bind one page-table dict (its device tables) to the pool tensor as a
-    PagedWeight — the flash weight the ERDPE consumes in place."""
-    q_tbl, p_slots, s_slots = tbl["dev"]
+def _paged(pool_buf, tbl, kn, shard=None):
+    """Bind one page-table dict (its device tables; shard ``shard``'s of a
+    sharded pool's table) to the pool tensor as a PagedWeight — the flash
+    weight the ERDPE consumes in place."""
+    q_tbl, p_slots, s_slots = (tbl["dev"] if shard is None
+                               else tbl["dev_shards"][shard])
     return PagedWeight(pool=pool_buf, q_tbl=q_tbl, p_slots=p_slots,
                        s_slots=s_slots, kn=tuple(kn))
 
 
 def _stream_group_impl(cfg, bitmap, shapes, layers_dram, window, pool_buf,
                        k_pool, v_pool, x, positions, ctx_lens, block_tables,
-                       lo, group_size):
+                       lo, group_size, mesh=None):
     """One STREAMED layer group: the resident step's per-layer math, with
     the group's flash weights grafted into each layer's DRAM params as
     PagedWeights over ``pool_buf``. Returns (x, [k per layer], [v per
-    layer])."""
+    layer]).
+
+    Under tensor parallelism (``mesh``) ``pool_buf`` is the shards'
+    partitions and ``shapes["ffn"]`` the shard-LOCAL (K, N): attention and
+    its projections run once, on the first device, over shard 0's
+    replicated copies (the reference computes them alike on every shard),
+    and each shard runs its part of the FFN (``_sharded_ffn``)."""
     ks, vs = [], []
     for i in range(group_size):
         li = lo + i
         lp = dict(layers_dram[li])
-        lp["ffn"] = {**lp.get("ffn", {}),
-                     **{k: _paged(pool_buf, t[i], shapes["ffn"][k])
-                        for k, t in window["ffn"].items()}}
-        fl = {k: _paged(pool_buf, t[i], shapes["attn"][k])
+        ffn = None
+        if mesh is None:
+            lp["ffn"] = {**lp.get("ffn", {}),
+                         **{k: _paged(pool_buf, t[i], shapes["ffn"][k])
+                            for k, t in window["ffn"].items()}}
+            attn_buf = pool_buf
+        else:
+            shard_ffns = [
+                {**lp.get("ffn", {}),
+                 **{k: _paged(pool_buf[s], t[i], shapes["ffn"][k], shard=s)
+                    for k, t in window["ffn"].items()}}
+                for s in range(mesh.n_shards)]
+            ffn = functools.partial(_sharded_ffn, cfg, shard_ffns, mesh)
+            attn_buf = pool_buf[0]
+        fl = {k: _paged(attn_buf, t[i], shapes["attn"][k])
               for k, t in window["attn"].items()}
         x, (kl, vl) = _chunk_layer(cfg, bitmap, ctx_lens, positions,
                                    block_tables, x,
-                                   (lp, fl, k_pool[li], v_pool[li]))
+                                   (lp, fl, k_pool[li], v_pool[li]), ffn)
         ks.append(kl)
         vs.append(vl)
     return x, ks, vs
@@ -561,6 +596,20 @@ class Engine:
     reference it needs the compiled data plane: ``compiled=False`` is
     refused (a streamed engine, eager by construction, is accepted).
 
+    ``StreamConfig(n_shards=S)`` with S > 1 serves the streamed dense
+    plane TENSOR-PARALLEL over a "model" mesh (``mesh``: a
+    ``launch.mesh.ModelMesh`` or a list of S devices, which may repeat one;
+    default ``make_model_mesh(S, device)``, S distinct devices, whose first
+    must be ``device``). The weight page pool is a
+    ``ShardedWeightPagePool``, one partition per shard on its device; the
+    DRAM tier, the KV pool, the bitmap, attention, lm_head and sampling
+    stay on the first device; each shard runs its column slice of w_gate /
+    w_up and the row slice of w_down, and ``core.erdpe.all_reduce_sum``
+    completes every FFN in f32 before the cast. ``device_budget_bytes``
+    stays the aggregate budget. A MoE engine refuses S > 1 (its expert axis
+    under shards is ROADMAP §A.4's next slice), and so does an engine with
+    no ``weight_store``.
+
     ``prefix_cache`` turns on hash-based prefix caching; ``registry`` is
     the ``obs.MetricsRegistry`` the step histogram and token counter live
     in (default: the process-wide one).
@@ -577,10 +626,21 @@ class Engine:
                  compiled: bool = True, prefix_cache: bool = False,
                  spec_cfg: spec_mod.SpecConfig | None = None,
                  draft_cfg=None, draft_params=None,
-                 registry: "obs.MetricsRegistry | None" = None):
+                 registry: "obs.MetricsRegistry | None" = None, mesh=None):
         if cfg.family not in ("dense", "moe"):
             raise ValueError("engine serves dense- and moe-family archs "
                              f"(got {cfg.family!r})")
+        n_shards = stream_cfg.n_shards if stream_cfg is not None else 1
+        if n_shards > 1 or mesh is not None:
+            if weight_store is None:
+                raise ValueError(
+                    f"n_shards={n_shards} shards the streamed plane's page "
+                    "pool and FFN: pass a weight_store")
+            if cfg.family == "moe":
+                raise ValueError(
+                    f"n_shards={n_shards}: the port shards the streamed "
+                    "dense plane only; the MoE expert axis under shards is "
+                    "the next slice of ROADMAP §A.4")
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not takes_head_dim(cfg.head_dim):
@@ -648,13 +708,14 @@ class Engine:
                 # the Q/O projections the bitmap can move columns to.
                 self.params, self.tier_map = deploy(
                     params, rber=rber, seed=seed, store=weight_store)
+            self.mesh = None
             if self.streamed:
                 self.stream_cfg = stream_cfg or StreamConfig()
                 self.attn_flash = None
                 if self.streamed_moe:
                     self._init_streamed_moe(max_slots)
                 else:
-                    self._init_streamed(params, rber, seed)
+                    self._init_streamed(params, rber, seed, mesh)
             else:
                 self.stream_cfg = None
                 # MoE keeps attention DRAM-only: the flash engine serves
@@ -767,15 +828,100 @@ class Engine:
                  for k in ("wq", "wo")}
                 for li in range(self.cfg.n_layers)]
 
+    # --- tensor-parallel streamed serving ------------------------------------
+
+    def _make_mesh(self, mesh):
+        """The "model" mesh behind ``StreamConfig.n_shards`` (None when
+        unsharded): ``mesh`` (a ModelMesh or a device list) or S distinct
+        devices of the engine's type. Its first device must be the
+        engine's."""
+        from repro_torch.launch.mesh import ModelMesh, make_model_mesh
+        n = self.stream_cfg.n_shards
+        if mesh is not None and not isinstance(mesh, ModelMesh):
+            mesh = make_model_mesh(len(mesh), devices=mesh)
+        if mesh is not None and mesh.n_shards != n:
+            raise ValueError(f"a mesh of {mesh.n_shards} devices for "
+                             f"StreamConfig(n_shards={n})")
+        if n <= 1:
+            return None
+        if mesh is None:
+            mesh = make_model_mesh(n, self.device)
+        first, dev = mesh.first, self.device
+        if first.type != dev.type or (
+                dev.type == "cuda" and (first.index or 0) != (
+                    dev.index if dev.index is not None
+                    else torch.cuda.current_device())):
+            raise ValueError(f"the mesh's first device ({first}) must be "
+                             f"the engine's ({dev}): the DRAM tier, "
+                             "attention and sampling live there")
+        return mesh
+
+    def _entry_plan(self, name: str):
+        """ShardPlan of one store entry (sharded mode), memoized — the
+        plan the ShardedWeightPagePool derives, needed here before the pool
+        exists to size it."""
+        plan = self._entry_plans.get(name)
+        if plan is None:
+            from repro_torch.launch.sharding import tp_shard_axis
+            plan = self.store.shard_entry(name, self.stream_cfg.n_shards,
+                                          tp_shard_axis(name))
+            self._entry_plans[name] = plan
+        return plan
+
+    def _entry_pages_local(self, name: str) -> int:
+        """Pool pages entry ``name`` occupies PER SHARD."""
+        if self.mesh is None:
+            return self.store.entry_pages(name)
+        p = self._entry_plan(name)
+        pb = self.store.page_bytes
+        return (len(p.q_pages[0]) + -(-p.parity_nbytes // pb)
+                + -(-p.scale_nbytes // pb))
+
+    def _entry_kn(self, name: str) -> tuple:
+        """The (K, N) the data plane binds for entry ``name``: the whole
+        matrix unsharded, the shard-LOCAL partition under TP."""
+        if self.mesh is None:
+            return tuple(self.store.table[name]["q"].shape)
+        return tuple(self._entry_plan(name).local_kn)
+
+    def _make_wpool(self, n_pages: int):
+        """The device weight page pool, partitioned over the mesh when TP
+        serving is on (``n_pages`` is then the slots PER SHARD)."""
+        if self.mesh is None:
+            return WeightPagePool(self.store, n_pages, device=self.device,
+                                  stream=self._stream)
+        return ShardedWeightPagePool(self.store, n_pages, self.mesh,
+                                     stream=self._stream)
+
+    def _check_shardable(self, names):
+        """Refuse a silent replication of the entries the TP rules shard:
+        the FFN's all-reduce is unconditional, so a replicated w_gate /
+        w_up / w_down would count the product n_shards times."""
+        if self.mesh is None:
+            return
+        from repro_torch.launch.sharding import tp_shard_axis
+        bad = sorted({n.partition("@")[0] for n in names
+                      if tp_shard_axis(n) is not None
+                      and self._entry_plan(n).axis is None})
+        if bad:
+            s = self.stream_cfg.n_shards
+            raise ValueError(
+                f"n_shards={s} cannot partition {bad}: the sharded matrix "
+                f"dim must divide into {s} whole 128-wide tile columns/rows "
+                "(make d_ff/d_model a multiple of 128*n_shards, or lower "
+                "n_shards)")
+
     # --- streamed mode (FlashStore weight tier) -----------------------------
 
-    def _init_streamed(self, raw_params, rber, seed):
+    def _init_streamed(self, raw_params, rber, seed, mesh=None):
         """Flash tier lives in the PageStore: program the per-layer attn
         flash copies next to deploy()'s FFN/lm_head entries, split the DRAM
         remainder out of the tiered tree, and stand up the page pool,
-        residency cache and layer streamer under the device weight
-        budget."""
+        residency cache and layer streamer under the device weight budget
+        (over the mesh's shards when ``StreamConfig.n_shards`` > 1)."""
         cfg, sc = self.cfg, self.stream_cfg
+        self.mesh = self._make_mesh(mesh)
+        self._entry_plans: dict = {}
         if cfg.n_layers % sc.group_size:
             raise ValueError(f"group_size={sc.group_size} must divide "
                              f"n_layers={cfg.n_layers}")
@@ -806,6 +952,7 @@ class Engine:
                              if k in self.params}
         self.n_groups = cfg.n_layers // sc.group_size
         group_names = [self._group_entries(g) for g in range(self.n_groups)]
+        self._check_shardable(group_names[0])
         group_nbytes = [sum(self.store.entry_nbytes(n) for n in names)
                         for names in group_names]
         self._group_bytes = max(group_nbytes)   # depth auto-tuning re-budgets
@@ -826,23 +973,35 @@ class Engine:
         # past their payload bytes): the worst pages-per-payload-byte ratio
         # over the groups converts the cache's payload budget, plus the
         # in-flight windows and one retiring transient; capped at the tier.
-        group_pages = [sum(self.store.entry_pages(n) for n in names)
+        # Sharded: the pages are PER SHARD (replicated attention copies keep
+        # their whole pages on every shard) while the cache budget stays
+        # AGGREGATE, so the ratio is local pages over global bytes, and the
+        # cache is clamped so one shard's backing fits its budget share.
+        group_pages = [sum(self._entry_pages_local(n) for n in names)
                        for names in group_names]
         pb = self.store.page_bytes
         worst = max(gp * pb / max(nb, 1)
                     for gp, nb in zip(group_pages, group_nbytes))
         self._pool_reserve_pages = \
             (sc.prefetch_depth + 1) * max(group_pages)
+        if cache_cap is not None and sc.n_shards > 1:
+            cache_cap = min(cache_cap, int(sc.device_budget_bytes
+                                           / (sc.n_shards * worst)))
+            if cache_cap < lm_bytes:
+                raise ValueError(
+                    f"device_budget_bytes={sc.device_budget_bytes} over "
+                    f"{sc.n_shards} shards leaves a per-device share too "
+                    f"small for the pinned lm_head ({lm_bytes}B); raise "
+                    "the budget")
         n_pages = sum(group_pages)
         if cache_cap is not None:
             n_pages = min(n_pages, -(-int(worst * cache_cap) // pb)
                           + self._pool_reserve_pages)
-        self.wpool = WeightPagePool(self.store, n_pages, device=self.device,
-                                    stream=self._stream)
+        self.wpool = self._make_wpool(n_pages)
         self._win_shapes = {
-            "ffn": {k: tuple(self.store.table[ref.entry(0)]["q"].shape)
+            "ffn": {k: self._entry_kn(ref.entry(0))
                     for k, ref in self._ffn_refs.items()},
-            "attn": {k: tuple(self.store.table[f"attn_flash/{k}@0"]["q"].shape)
+            "attn": {k: self._entry_kn(f"attn_flash/{k}@0")
                      for k in ATTN_FLASH_KEYS},
         }
         self.cache = ResidencyCache(cache_cap, on_evict=self._evict_window)
@@ -1260,12 +1419,11 @@ class Engine:
         try:
             for g, win in it:
                 t = self._phase("stream_wait", t)
-                if win["ready"] is not None:
-                    self._stream.wait_event(win["ready"])  # its pages are in
+                self.wpool.wait_ready(win["ready"])  # its pages are in
                 x, k_g, v_g = _stream_group_impl(
                     cfg, bitmap, self._win_shapes, self._layers, win,
                     self.wpool.buffer, state["k"], state["v"], x, positions,
-                    ctx_lens, block_tables, g * gs, gs)
+                    ctx_lens, block_tables, g * gs, gs, self.mesh)
                 ks += k_g
                 vs += v_g
                 t = self._phase("group_dispatch", t)

@@ -1,5 +1,5 @@
 """FlashStore page store: the flash tier as host-resident 16 KiB NAND pages —
-the port of ``repro/store/pagestore.py`` (unsharded).
+the port of ``repro/store/pagestore.py``.
 
 A deployed ``FlashWeight`` (raw INT8 codeword bytes + Hamming parity +
 dequant scales) is serialized into a PLANE-INTERLEAVED array of 16 KiB
@@ -17,6 +17,10 @@ The store is host numpy. ``save``/``open`` persist it as a raw die image +
 JSON page table in the JAX package's format: an image either package
 writes opens in the other, page for page. Reads count pages per plane;
 ``nand_seconds`` turns the counters into analytical array time.
+
+For tensor-parallel streamed serving, ``shard_entry`` partitions one
+entry's tiles round-robin over the "model" shards (``ShardPlan``) and
+``shard_host_slices`` cuts its parity and scale runs to follow them.
 
 The fault plane (``attach_injector``): with a ``faults.FaultInjector``
 armed, every read of an ECC-protected q page is perturbed by the injector,
@@ -102,6 +106,55 @@ def graft_store_refs(tree, refs: dict) -> dict:
     return out
 
 
+def shard_tiles(grid: tuple, n_shards: int, axis: int):
+    """Round-robin partition of a (kt, nt) q-tile grid along ``axis``:
+    tile column (axis=1) or row (axis=0) ``c`` goes to shard ``c %
+    n_shards``, so consecutive tiles of one param stripe across shards as
+    pages stripe across planes. Returns (per-shard flat tile-index arrays
+    in LOCAL row-major order, the local (kt, nt) grid). Raises when the
+    axis is not divisible (the caller replicates instead)."""
+    kt, nt = grid
+    if axis not in (0, 1):
+        raise ValueError(f"shard axis must be 0 or 1, got {axis}")
+    if grid[axis] % n_shards:
+        raise ValueError(
+            f"grid {grid} axis {axis} ({grid[axis]} tiles) is not "
+            f"divisible by n_shards={n_shards}")
+    flat = np.arange(kt * nt).reshape(kt, nt)
+    if axis == 1:
+        parts = [flat[:, s::n_shards].reshape(-1) for s in range(n_shards)]
+        local = (kt, nt // n_shards)
+    else:
+        parts = [flat[s::n_shards, :].reshape(-1) for s in range(n_shards)]
+        local = (kt // n_shards, nt)
+    return parts, local
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardPlan:
+    """How ONE store entry splits across ``n_shards`` pool partitions.
+
+    ``axis`` None = replicated (every shard stages the whole entry);
+    otherwise the q grid round-robins tile columns (axis=1, the N / d_ff
+    axis of w_gate / w_up) or tile rows (axis=0, the K axis of w_down),
+    and the parity / scale runs follow their tiles. ``q_pages[s]`` are
+    GLOBAL store page ids in shard ``s``'s local row-major order."""
+    axis: int | None
+    n_shards: int
+    kn: tuple                     # full logical (K, N)
+    local_kn: tuple               # per-shard logical (K, N)
+    local_grid: tuple             # per-shard (kt, nt)
+    q_pages: tuple                # per-shard arrays of global page ids
+    parity_nbytes: int            # per-shard parity payload bytes
+    scale_nbytes: int             # per-shard scale payload bytes
+
+    @property
+    def local_payload_bytes(self) -> int:
+        """Per-shard payload (q + parity + scale)."""
+        k, n = self.local_kn
+        return k * n + self.parity_nbytes + self.scale_nbytes
+
+
 @dataclasses.dataclass
 class _Component:
     """One serialized array of a parameter (q / parity / scale)."""
@@ -109,6 +162,11 @@ class _Component:
     dtype: str
     pages: list                  # page ids, tile-row-major (q) or flat runs
     grid: tuple = ()             # (k_tiles, n_tiles) — q only
+
+    @property
+    def nbytes(self) -> int:
+        """The array's payload bytes (its pages hold them, padded)."""
+        return int(np.prod(self.shape)) * np.dtype(self.dtype).itemsize
 
     def to_json(self):
         return {"shape": list(self.shape), "dtype": self.dtype,
@@ -529,10 +587,7 @@ class PageStore:
         return sum(len(c.pages) for c in self.table[name].values())
 
     def entry_nbytes(self, name: str) -> int:
-        e = self.table[name]
-        return (int(np.prod(e["q"].shape))
-                + int(np.prod(e["parity"].shape))
-                + int(np.prod(e["scale"].shape)) * 4)
+        return sum(c.nbytes for c in self.table[name].values())
 
     def param_refs(self, exclude_prefixes: tuple = ()) -> dict[str, StoreRef]:
         """Rebuild the ``StoreRef`` placeholders from the page table — the
@@ -563,6 +618,73 @@ class PageStore:
                 nbytes=sum(self.entry_nbytes(e) for e in entries.values()),
                 lead=lead)
         return refs
+
+    # --- shard partitioner (tensor-parallel streamed serving) ---------------
+
+    def shard_entry(self, name: str, n_shards: int,
+                    axis: int | None) -> ShardPlan:
+        """The shard-aware page table of ONE entry: the q grid partitioned
+        round-robin along ``axis`` (the parity / scale byte runs follow
+        their tiles: the (72, 64) Hamming codewords are local to 8-row
+        groups of one column). ``axis`` None, or an axis the shard count
+        does not split into whole tiles and whole logical columns / rows,
+        replicates the entry on every shard."""
+        comp = self.table[name]["q"]
+        kt, nt = comp.grid
+        k, n = comp.shape
+        if axis is not None:
+            # a padded edge tile would give shards unequal logical dims
+            if comp.grid[axis] % n_shards or comp.shape[axis] % n_shards \
+                    or comp.shape[axis] % TILE:
+                axis = None
+        parity_nb = self.table[name]["parity"].nbytes
+        scale_nb = self.table[name]["scale"].nbytes
+        pages = np.asarray(comp.pages, np.int64)
+        if axis is None:
+            return ShardPlan(
+                axis=None, n_shards=n_shards, kn=(k, n), local_kn=(k, n),
+                local_grid=(kt, nt),
+                q_pages=tuple(pages for _ in range(n_shards)),
+                parity_nbytes=parity_nb, scale_nbytes=scale_nb)
+        parts, local_grid = shard_tiles((kt, nt), n_shards, axis)
+        local_kn = ((k, n // n_shards) if axis == 1
+                    else (k // n_shards, n))
+        return ShardPlan(
+            axis=axis, n_shards=n_shards, kn=(k, n), local_kn=local_kn,
+            local_grid=local_grid,
+            q_pages=tuple(pages[p] for p in parts),
+            parity_nbytes=parity_nb // n_shards,
+            scale_nbytes=(scale_nb // n_shards if axis == 1 else scale_nb))
+
+    def shard_host_slices(self, name: str, plan: ShardPlan):
+        """Per-shard (parity, scale) host arrays of one entry, each in its
+        shard's LOCAL tile order (matching the q partition). One read per
+        component: the pages are counted once, not once per shard."""
+        e = self.table[name]
+        parity = self._get_flat(e["parity"])              # (K//8, N) uint8
+        scale = self._get_flat(e["scale"])                # (1, N) f32
+        if plan.axis is None:
+            return [(parity, scale)] * plan.n_shards
+        S = plan.n_shards
+        kt, nt = e["q"].grid
+        out = []
+        if plan.axis == 1:
+            p3 = parity.reshape(parity.shape[0], nt, TILE)
+            s3 = scale.reshape(scale.shape[0], nt, TILE)
+            for s in range(S):
+                out.append((
+                    np.ascontiguousarray(
+                        p3[:, s::S, :]).reshape(parity.shape[0], -1),
+                    np.ascontiguousarray(
+                        s3[:, s::S, :]).reshape(scale.shape[0], -1)))
+        else:
+            rows = TILE // 8                 # parity rows per k-tile
+            p3 = parity.reshape(kt, rows, parity.shape[1])
+            for s in range(S):
+                out.append((
+                    np.ascontiguousarray(p3[s::S]).reshape(-1, parity.shape[1]),
+                    scale))                  # row-parallel: scales replicate
+        return out
 
     # --- accounting ---------------------------------------------------------
 

@@ -59,15 +59,11 @@ class StreamConfig:
     # seen, return the slab's unused rows (e_slab vs the largest routed set
     # seen) to the expert cache's capacity; the slab itself is fixed
     auto_expert_budget: bool = False
-    # tensor-parallel streamed serving is not ported: 1 only
+    # tensor-parallel streamed serving: shard the page pool and the FFN
+    # over ``n_shards`` devices on the "model" mesh (the engine's ``mesh``).
+    # 1 = the single-device plane, unchanged. ``device_budget_bytes`` stays
+    # the AGGREGATE budget: each device holds about budget / n_shards.
     n_shards: int = 1
-
-    def __post_init__(self):
-        if self.n_shards != 1:
-            raise ValueError(
-                f"n_shards={self.n_shards}: the port serves the streamed "
-                "plane on one device only (tensor-parallel streaming is not "
-                "ported)")
 
 
 @dataclasses.dataclass

@@ -202,10 +202,12 @@ def test_refusals_carry_the_reference_messages(case):
     (dict(arch="qwen3-moe-30b-a3b", stream=True), "§A.3"),
     (dict(arch="phi3.5-moe-42b-a6.6b", store_image="nand.img", ckpt="d"),
      "§A.3"),
-    (dict(stream=True, shards=2), "§A.4")])
+    (dict(arch="qwen3-moe-30b-a3b", stream=True, shards=2), "§A.4")])
 def test_what_the_port_lacks_names_its_roadmap_item(kw, item, tmp_path):
-    """What the port lacks names its ROADMAP item: ``--shards > 1``
-    (§A.4). The streamed MoE plane (§A.3) is ported: ``stream=True`` and
+    """What the port lacks names its ROADMAP item: ``--shards > 1`` on a
+    MoE arch (§A.4: the dense streamed plane shards,
+    tests/test_torch_sharded_serving.py). The streamed MoE plane (§A.3)
+    is ported: ``stream=True`` and
     a MoE die image written by the port's ``deploy --store`` serve
     expert-paged, with the port's resident ``build_engine``'s greedy
     tokens (the same init; tests/test_torch_moe_engine.py holds them

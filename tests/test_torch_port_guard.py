@@ -35,7 +35,7 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "bad = sorted(k for k in sys.modules if k == 'jax' "
         "or k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
         "assert not bad, bad\n"
-        "assert len(names) >= 77, names\n"
+        "assert len(names) >= 79, names\n"
         "assert {'repro_torch.store.' + m for m in ('faults', 'nand', "
         "'page_pool', 'pagestore', 'streamer', 'expert_cache')} "
         "<= set(names), names\n"
@@ -65,6 +65,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "'repro_torch.configs.shapes', 'repro_torch.launch.roofline', "
         "'repro_torch.launch.cost', 'repro_torch.launch.dryrun', "
         "'repro_torch.launch.report'} <= set(names), names\n"
+        "assert {'repro_torch.launch.mesh', 'repro_torch.launch.sharding'} "
+        "<= set(names), names\n"
         "print(len(names))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,

@@ -269,11 +269,13 @@ def test_cache_takes_the_reference_decisions():
 
 
 def test_stream_config_refuses_shards():
+    """StreamConfig takes the reference's fields and a shard count (the
+    tensor-parallel streamed plane); a store refuses a shard count that
+    does not divide its planes."""
     from repro.store import StreamConfig as JStreamConfig
     ported = {f.name for f in dataclasses.fields(StreamConfig)}
     assert ported <= {f.name for f in dataclasses.fields(JStreamConfig)}
     assert StreamConfig().n_shards == 1
-    with pytest.raises(ValueError, match="n_shards"):
-        StreamConfig(n_shards=2)
+    assert StreamConfig(n_shards=2).n_shards == 2
     with pytest.raises(ValueError, match="n_shards"):
         PageStore(n_planes=32, n_shards=3)
