@@ -19,7 +19,8 @@ serve, and the train step card against CPU; runs the cost tools: the
 dry-run of all 40 (arch x shape) cells, and the training cell's counted
 peak and bound against what the card measured; and serves the streamed
 dense plane tensor-parallel at OPT-6.7B width over 1, 2 and 4 shards of
-the one card.
+the one card, and the streamed MoE plane at qwen3-moe-30b-a3b width over
+1, 2 and 3.
 
     python3 chip_smoke.py
 
@@ -237,10 +238,10 @@ Phases (any failure exits non-zero; nothing is caught):
                 tile; x 21 rows) against its plain version; lm_head
                 2048x151936 at M = 4; paged attention at B=4, KV=4,
                 TR=128, Dh=128. (b) build_engine at full width, cut to
-                8 of 48 layers (the script's time), RBER 1e-4, greedy: 6
+                4 of 48 layers (the script's time), RBER 1e-4, greedy: 6
                 requests x 16 tokens, compiled (one capture, the counters
-                twice 8 x 3 grouped ECDP + 1 ECDP and 8 paged attention),
-                6 steps profiled, the step's 24 grouped calls timed back
+                twice 4 x 3 grouped ECDP + 1 ECDP and 4 paged attention),
+                6 steps profiled, the step's 12 grouped calls timed back
                 to back (and with lm_head); then an eager engine on the same
                 seed, logits bit-equal at every step, those counts a
                 step. (c) phase 5's check at qwen3 width, 1 layer, with
@@ -265,15 +266,15 @@ Phases (any failure exits non-zero; nothing is caught):
                 at the path's plan; timed per launch beside its plain
                 version, the dense grouped kernel, torch.bmm over the
                 routed experts' dequantised weights and its byte bound.
-                (b) build_engine(stream=True) at full width, 8 of 48
+                (b) build_engine(stream=True) at full width, 4 of 48
                 layers (12(b)'s cut), RBER 1e-4, greedy, the device
                 budget half the store's flash tier: 12(b)'s 6 requests
                 x 16 tokens, every step's logits (slots with lanes) and
                 the tokens bit-equal
                 to 12(b)'s resident engine, the expert cache within its
                 capacity at every step, fewer expert bytes per token than
-                all-experts streaming, 8 x 3 grouped paged ECDP + 1 ECDP
-                + 8 paged attention launches a step (counters zeroed
+                all-experts streaming, 4 x 3 grouped paged ECDP + 1 ECDP
+                + 4 paged attention launches a step (counters zeroed
                 just before, read just after); ms per prefill / decode
                 step, the step-phase split, hit rate, misroute stalls,
                 prefetched bytes, device memory. (c) speculative serving
@@ -296,7 +297,7 @@ Phases (any failure exits non-zero; nothing is caught):
                 seamless's self-KV (S 96) and cross-KV (S 128, full),
                 timed beside SDPA on the same cache under the length mask
                 and its bound. (b) each arch at full width, rwkv6-3b cut
-                to 8 of 32 layers and recurrentgemma-9b to 8 of 38 (the
+                to 4 of 32 layers and recurrentgemma-9b to 4 of 38 (the
                 script's time), seamless-m4t-medium at full depth:
                 run_deploy at RBER 1e-4 from a seeded init on the card
                 (the checkpoint written under build/chip_smoke_phase14/,
@@ -306,9 +307,9 @@ Phases (any failure exits non-zero; nothing is caught):
                 through make_decode_step(compiled=True) (one capture),
                 then the same eagerly: tokens and logits bit-equal; the
                 counters zeroed just before and read just after: a
-                prefill, ECDP = 65 / 43 / 49 and no decode attention; a
-                decode step, ECDP 65 / 43 / 25 and decode attention 0 /
-                2 / 24 (eager: that a step; compiled: twice, the warm-up
+                prefill, ECDP = 33 / 22 / 49 and no decode attention; a
+                decode step, ECDP 33 / 22 / 25 and decode attention 0 /
+                1 / 24 (eager: that a step; compiled: twice, the warm-up
                 and the capture); 4 captured steps timed and 4 profiled
                 (device time, idle share). (c) full width at cut depth
                 (rwkv6 1 layer, recurrentgemma 3: one super-block,
@@ -392,9 +393,41 @@ Phases (any failure exits non-zero; nothing is caught):
                 check that the shards serve, not a scaling figure. Its
                 figures are the ``sharded`` JSON line and the paged ECDP's
                 ``sharded`` entry in the kernels line.
+ 18. sharded_moe — the streamed MoE plane tensor-parallel:
+                qwen3-moe-30b-a3b at full width cut to 4 of 48 layers
+                (the script's time), seeded init, RBER 1e-4, streamed from
+                PageStore(n_planes=32) under StreamConfig(
+                device_budget_bytes = half the flash tier, n_shards=S) for
+                S in 1, 2, 3 (d_ff 768 is 6 tiles: 4 shards cannot
+                partition it), S > 1 over a mesh of cuda:0 repeated
+                serving the store S=1 programmed; 4 requests of 128-token
+                prompts, 16 new each, token budget 1024 (the stall never
+                changes the plan). (a) at S = 2, 3 layer 0's expert FFN
+                over a real 64-lane route (layer 0's router, top-8): per
+                shard its slab of the routed experts' w_gate / w_up
+                columns and w_down rows through 3 grouped paged ECDP
+                launches to an f32 partial, then the f32 sum, against the
+                unsharded chain on the same pages: rtol 1e-5, atol 1e-3;
+                timed beside the chain, torch.bmm over each shard's routed
+                experts' bf16 slices and the byte bound. (b) S = 2, 3 with
+                S=1's routes handed over (RouteWitness: the router logits
+                within 2^-6 of the token's largest, the experts S=1 chose
+                within twice that of the k-th): every step's logits within
+                2^-6 of each row's largest of S=1's, the tokens equal. (c)
+                a free run at each S: the token match against S=1's at
+                least 0.85 (scripts/bench_gate.py's MoE floor), the first
+                flip with the logit and router margins at it. (d) every
+                step 4 x 3 x S grouped paged ECDP launches, 1 ECDP, 4 paged
+                attention, no dense grouped launch; pool_shard_transfers ==
+                S x pool_uploads; each shard's pool within budget / S +
+                the reserve + 8 pages (bench_gate's per-device bound); ms a
+                step beside the card's name and power limit (one card: a
+                check that the shards serve, not a scaling figure). Its
+                figures are the ``sharded_moe`` JSON line and the grouped
+                paged ECDP's ``sharded`` entry in the kernels line.
 
 The ``spec``, ``moe_stream``, ``families``, ``train``, ``dryrun``,
-``sharded`` and ``phase_seconds`` lines come before the card's name; the
+``sharded``, ``sharded_moe`` and ``phase_seconds`` lines come before the card's name; the
 second-to-last line is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Times are CUDA-event medians with the
 L2 cache flushed before each timed call (the serving step streams more
@@ -3121,10 +3154,10 @@ def phase_granite(torch) -> dict:
 # --- phase 12: MoE serving on the resident plane, qwen3-moe-30b-a3b ----------
 
 MOE_ARCH = "qwen3-moe-30b-a3b"
-# 8 of 48 layers, for the script's time (48 cannot be held anyway: the
-# deploy holds the bf16 tree beside its encoded tiers, about 97 GB at 48
-# layers, past the card's 80 GB)
-MOE_LAYERS = 8
+# 4 of 48 layers, for the script's time (8 until phase 18 came; 48 cannot
+# be held anyway: the deploy holds the bf16 tree beside its encoded tiers,
+# about 97 GB at 48 layers, past the card's 80 GB)
+MOE_LAYERS = 4
 # 12(c) and 12(d), the CPU's runs: 1 layer, for the script's time (the
 # CPU's steps at 2 layers took 84 s)
 MOE_CPU_LAYERS = 1
@@ -3409,13 +3442,13 @@ def moe_run(torch, eng, prompts) -> dict:
 
 
 def time_moe_step(torch, timer, eng) -> dict:
-    """One serving step's 72 grouped ECDP calls back to back on the engine's
+    """One serving step's L x 3 grouped ECDP calls back to back on the engine's
     own banks: per layer w_gate, w_up (the rows of a real 64-token route
     through the layer's router) and w_down (random bf16 rows on the same
     route). Kernel, plain version, and the library: torch.bmm over the
     capacity-padded (E, 64, K) rows on one layer's dequantised banks
-    (reused for every layer: 1.2 GB passes L2 anyway). Then the step's 73
-    flash matmuls (the 72 and lm_head at M = 4) for the log; lm_head's own
+    (reused for every layer: 1.2 GB passes L2 anyway). Then the step's
+    L x 3 + 1 flash matmuls (with lm_head at M = 4) for the log; lm_head's own
     numbers are 12(a)'s."""
     from repro_torch.core.quant import dequantize_int8
     from repro_torch.kernels.ecdp import ecdp_matmul
@@ -4233,9 +4266,10 @@ FAMILY_DECODE = {
     "seamless cross": (4, FAMILY_PROMPT, 16, 1, 64, [FAMILY_PROMPT] * 4,
                        [FAMILY_PROMPT] * 4),
 }
-# 14(b)'s depth, for the script's time; seamless-m4t-medium runs at its
-# full 12 + 12
-FAMILY_DEPTH = {"rwkv6-3b": 8, "recurrentgemma-9b": 8}
+# 14(b)'s depth, for the script's time (8 and 8 until phase 18 came;
+# recurrentgemma's 4 are one (r, r, a) super-block and a recurrent layer);
+# seamless-m4t-medium runs at its full 12 + 12
+FAMILY_DEPTH = {"rwkv6-3b": 4, "recurrentgemma-9b": 4}
 # 14(c): full width at cut depth, card against CPU; recurrentgemma's prompt
 # is longer than its window, so the card's captured decode wraps the ring;
 # its 3 layers are one (r, r, a) super-block; rwkv6-3b and seamless run 1
@@ -5590,6 +5624,416 @@ def phase_sharded(torch) -> dict:
     return dict(ffn=ffn, runs=runs, seconds=secs)
 
 
+# --- phase 18: tensor-parallel streamed MoE -----------------------------------
+
+SHARD_MOE_LAYERS = 4               # of qwen3-moe-30b-a3b's 48, at full width
+# d_ff 768 is 6 tiles of 128: S = 2 and 3 partition it, S = 4 cannot
+SHARD_MOE_COUNTS = (1, 2, 3)
+SHARD_MOE_PROMPT, SHARD_MOE_NEW = 128, 16      # 4 requests
+# scripts/bench_gate.py SHARDED_MATCH_FLOOR["moe"]: the reference's floor
+# on a free run's greedy-token match against the unsharded plane
+SHARD_MOE_MATCH_FLOOR = 0.85
+
+
+def _token_match(got, want) -> float:
+    """Per-position greedy-token agreement over all requests
+    (benchmarks/serve_sharded.py's ``_match_frac``)."""
+    n = hit = 0
+    for w, g in zip(want, got):
+        n += max(len(w), len(g))
+        hit += sum(a == b for a, b in zip(w, g))
+    return hit / max(n, 1)
+
+
+def sharded_moe_ffn_check(torch, timer, store, eng, experts,
+                          n_shards: int) -> dict:
+    """18(a): layer 0's expert FFN over a real 64-lane route (layer 0's
+    router on random bf16 lanes, top-8) at ``n_shards`` over the one card
+    repeated: each shard's slab of the routed experts' w_gate / w_up column
+    slices and w_down row slices, bound over a ShardedWeightPagePool's
+    partition, through 3 grouped paged ECDP launches to an f32 partial
+    (``serve_expert_ffn(partial=True)``, the dispatch computed once), then
+    the f32 all-reduce: against the unsharded chain on the same pages (the
+    f32 combine of the whole experts) within rtol 1e-5 / atol 1e-3, the
+    reference's psum bound; timed beside the unsharded chain, the byte
+    bound and torch.bmm over each shard's routed experts' bf16 slices
+    (``experts``: layer 0's bf16 banks, the weights before deployment)."""
+    import numpy as np
+
+    from repro_torch.core.erdpe import all_reduce_sum
+    from repro_torch.kernels import paged_ecdp
+    from repro_torch.launch.mesh import make_model_mesh
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import _paged
+    from repro_torch.store import ShardedWeightPagePool, WeightPagePool
+
+    cfg = eng.cfg
+    d, f, e, k = cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k
+    S = n_shards
+    mesh = make_model_mesh(S, devices=["cuda:0"] * S)
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    h = torch.randn((1, MOE_ROUTE_TOKENS, d), generator=gen, device="cuda"
+                    ).to(torch.bfloat16)
+    gates, idx = moe.serve_route(eng._layers[0]["moe"]["router"], h, k)
+    routed = np.unique(idx.cpu().numpy()).tolist()
+    names = {m: [ref.entry(0, x) for x in routed]
+             for m, ref in eng._expert_refs.items()}
+    every = [n for ns in names.values() for n in ns]
+    pages = sum(store.entry_pages(n) for n in every)
+    pool1 = WeightPagePool(store, pages, device="cuda")
+    poolS = ShardedWeightPagePool(store, pages // S + 8, mesh)
+    t1, tS = pool1.upload(every), poolS.upload(every)
+    torch.cuda.synchronize()
+    # the engine's slab: routed experts in id order, padded to e_slab rows
+    e_slab = eng._e_slab
+    slab_map = torch.full((e,), -1, dtype=torch.int32, device="cuda")
+    slab_map[torch.tensor(routed, device="cuda")] = torch.arange(
+        len(routed), dtype=torch.int32, device="cuda")
+
+    def bank(pool_buf, tbls, shard=None):
+        out = {}
+        for m, ns in names.items():
+            rows = ns + [ns[0]] * (e_slab - len(ns))
+            dev = [tbls[n]["dev"] if shard is None
+                   else tbls[n]["dev_shards"][shard] for n in rows]
+            tbl = {"dev": tuple(torch.stack([x[j] for x in dev])
+                                for j in range(3))}
+            out[m] = _paged(pool_buf, tbl, tbls[ns[0]]["kn"])
+        return out
+    whole = bank(pool1.buffer, t1)
+    shards = [bank(poolS.buffer[s], tS, s) for s in range(S)]
+    assert [shards[0][m].kn for m in ("w_gate", "w_down")] == \
+        [(d, f // S), (f // S, d)]
+
+    def unsharded():
+        return moe.serve_expert_ffn(whole, h, gates, idx, slab_map,
+                                    partial=True)
+
+    def sharded():
+        rows = moe.expert_rows(idx, slab_map, e_slab)
+        return all_reduce_sum([moe.serve_expert_ffn(
+            b, h, gates, idx, slab_map, partial=True, rows=rows)
+            for b in shards], mesh)
+
+    paged_ecdp.grouped_paged_ecdp_matmul.launches = 0
+    got = sharded()
+    launches = paged_ecdp.grouped_paged_ecdp_matmul.launches
+    assert launches == 3 * S, launches
+    want = unsharded()
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    bound = SHARD_TOL["atol"] + SHARD_TOL["rtol"] * want.abs()
+    if not bool((err <= bound).all()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"18(a): the S={S} sharded expert FFN is "
+                             f"{float(err.max())} from the unsharded chain")
+    ms = timer(sharded)
+    ms_whole = timer(unsharded)
+    # the library: per shard, torch.bmm over its routed experts' bf16
+    # w_gate / w_up column slices and w_down row slices, each expert's rows
+    # padded to the 64 an expert can get
+    sel = torch.tensor(routed, device="cuda")
+    exp = {m: w.index_select(0, sel) for m, w in experts.items()}
+    fs = f // S
+    xp = torch.zeros((len(routed), MOE_ROUTE_TOKENS, d), dtype=torch.bfloat16,
+                     device="cuda")
+    hp = torch.zeros((len(routed), MOE_ROUTE_TOKENS, fs),
+                     dtype=torch.bfloat16, device="cuda")
+    lib = [(exp["w_gate"][:, :, s * fs:(s + 1) * fs].contiguous(),
+            exp["w_up"][:, :, s * fs:(s + 1) * fs].contiguous(),
+            exp["w_down"][:, s * fs:(s + 1) * fs].contiguous())
+           for s in range(S)]
+
+    def library():
+        for wg, wu, wd in lib:
+            torch.bmm(xp, wg)
+            torch.bmm(xp, wu)
+            torch.bmm(hp, wd)
+    t_lib = timer(library)
+    del exp, lib, xp, hp
+    rows_n = MOE_ROUTE_TOKENS * k
+    r = len(routed)
+    # ECC off: the routed experts' q once and their scales (w_down's on
+    # every shard); per shard the rows in and the f32 rows out of the
+    # three launches, the bf16 activation; the partials and the sum
+    nbytes = (r * (3 * d * f + 4 * (2 * f + S * d))
+              + S * (2 * 2 * rows_n * d + 2 * 4 * rows_n * fs
+                     + 2 * rows_n * fs + 4 * rows_n * d)
+              + (S + 1) * 4 * MOE_ROUTE_TOKENS * d)
+    b_ms, b_by = bound_ms(nbytes, 2.0 * 3 * rows_n * d * f)
+    res = dict(n_shards=S, rows=rows_n, routed=r, launches=launches,
+               max_abs_err=float(err.max()),
+               of_bound=float((err / bound).max()),
+               max_abs_out=float(want.abs().max()), ms=ms,
+               unsharded_ms=ms_whole, library_ms=t_lib, bound_ms=b_ms,
+               bound_by=b_by, card=_smi())
+    log(f"  18(a) layer 0's expert FFN, S={S} over cuda:0 x {S}, a "
+        f"{MOE_ROUTE_TOKENS}-lane route ({rows_n} rows over {r} experts): "
+        f"max abs err {res['max_abs_err']:.3e} against the unsharded chain "
+        f"(at most {res['of_bound']:.3f} of the bound; outputs up to "
+        f"{res['max_abs_out']:.3g}); {launches} grouped paged ECDP launches "
+        f"+ the f32 sum {ms:.4f} ms, unsharded chain {ms_whole:.4f} ms, "
+        f"torch.bmm {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+        f"{res['card']}")
+    del pool1, poolS, t1, tS, whole, shards
+    return res
+
+
+def _sharded_moe_run(torch, eng, prompts, record=False, witness=None):
+    """Serve ``prompts`` (SHARD_MOE_NEW new tokens each) with the launch
+    counters zeroed just before and read after every step: the tokens,
+    every step's logits, slots with lanes, per-request output lengths and
+    host wall (synchronized). ``record`` keeps each router call's (idx,
+    logits) on the host, in call order; ``witness`` (a RouteWitness holding
+    such a record) hands those routes over instead of the engine's own,
+    the gates computed on the card over the engine's router logits."""
+    from repro_torch.models import moe as moe_mod
+
+    rids = [eng.submit(p, max_new=SHARD_MOE_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    moe_stream_zero_counts()
+    route, routes = moe_mod.serve_route, []
+
+    def hooked(router, x, top_k, **kw):
+        lg = torch.einsum("std,de->ste", x.float(), router.float())
+        if witness is None:
+            gates, idx = route(router, x, top_k, **kw)
+            routes.append((idx.cpu(), lg.cpu()))
+            return gates, idx
+        q = torch.from_numpy(eng._host_in["q_lens"].numpy().copy())
+        valid = torch.arange(x.shape[1])[None, :] < q[:, None]
+        _, idx = witness.hand_over(lg.cpu(), valid)
+        idx = idx.to(x.device)
+        return torch.softmax(lg.gather(-1, idx), dim=-1), idx.to(torch.int32)
+
+    logits, live, wall, outs, slots, per_step = [], [], [], [], [], []
+    before = moe_stream_counts()
+    if record or witness is not None:
+        moe_mod.serve_route = hooked
+    t_all = time.perf_counter()
+    try:
+        while True:
+            t0 = time.perf_counter()
+            if not eng.step():
+                break
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+            logits.append(eng.last_logits.cpu())
+            live.append(eng._host_in["q_lens"].numpy().copy())
+            outs.append([len(eng.requests[r].out) for r in rids])
+            slots.append([eng.requests[r].slot for r in rids])
+            now = moe_stream_counts()
+            per_step.append({k: now[k] - before[k] for k in now})
+            before = now
+    finally:
+        moe_mod.serve_route = route
+    total = time.perf_counter() - t_all
+    return dict(out=[list(eng.requests[r].out) for r in rids],
+                logits=logits, live=live, wall=wall, outs=outs, slots=slots,
+                per_step=per_step, launches=moe_stream_counts(),
+                total_s=total, routes=routes)
+
+
+def _first_flip(got, want):
+    """(request, position) of the first greedy token that differs, or
+    None."""
+    for r, (g, w) in enumerate(zip(got, want)):
+        for j, (a, b) in enumerate(zip(g, w)):
+            if a != b:
+                return r, j
+    return None
+
+
+def _flip_margins(torch, ref, r: int, j: int, n_layers: int, k: int):
+    """At the step where the unsharded run emitted request ``r``'s token
+    ``j``: that row's top-2 logit margin, and the smallest router k-th /
+    (k+1)-th margin over the request's lanes in every layer."""
+    step = next(i for i, n in enumerate(ref["outs"]) if n[r] > j)
+    slot = ref["slots"][step][r]
+    row = ref["logits"][step][slot]
+    top2 = torch.topk(row, 2).values
+    n_lanes = int(ref["live"][step][slot])
+    margins = []
+    for _, lg in ref["routes"][step * n_layers:(step + 1) * n_layers]:
+        top = torch.topk(lg[slot, :n_lanes], k + 1).values
+        margins.append(float((top[:, -2] - top[:, -1]).min()))
+    return dict(step=step, logit_margin=float(top2[0] - top2[1]),
+                router_margin=min(margins))
+
+
+def phase_sharded_moe(torch) -> dict:
+    """Phase 18: the streamed MoE plane tensor-parallel at qwen3-moe-30b-a3b
+    width (4 of 48 layers) under half its flash tier, at n_shards 1, 2 and
+    3 over a mesh of the one card repeated, every S served from the store
+    S=1 programmed: (a) layer 0's sharded expert FFN against the unsharded
+    chain at S = 2, 3; (b) S = 2 and 3 with S=1's routes handed over
+    (RouteWitness): every step's logits within 2^-6 of each row's largest
+    of S=1's, the greedy tokens equal; (c) a free run at each S, its token
+    match against S=1's at least the reference's floor of 0.85, the first
+    flip and the margins at it; (d) per step 4 x 3 x S grouped paged ECDP
+    launches, pool_shard_transfers == S x pool_uploads, each shard's pool
+    within budget / S + the reserve, ms a step beside the card's name and
+    power limit (one card: a check that the shards serve, not a scaling
+    figure)."""
+    import numpy as np
+
+    from repro_torch.core.scheduler import AdmissionConfig
+    from repro_torch.core.tiering import dram_tier
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import Engine
+    from repro_torch.store import PageStore, StreamConfig
+
+    t_phase = time.perf_counter()
+    cfg = moe_cfg(SHARD_MOE_LAYERS)
+    d, f, v = cfg.d_model, cfg.d_ff, cfg.vocab_size
+    n_layers, k = cfg.n_layers, cfg.top_k
+    expert = 2 * _payload(d, f) + _payload(f, d)
+    tier = n_layers * cfg.n_experts * expert + _payload(d, v)
+    budget = tier // 2
+    # token budget 1024: the misroute-stall contraction never changes the
+    # plan, so every S runs the same steps
+    kw = dict(max_slots=4, max_seq=256, seed=0,
+              admission_cfg=AdmissionConfig(chunk_tokens=16,
+                                            token_budget=1024),
+              device="cuda")
+    rng = np.random.default_rng(18)
+    prompts = [rng.integers(1, v, SHARD_MOE_PROMPT).tolist()
+               for _ in range(4)]
+    params = moe.init(cfg, torch.Generator(device="cuda").manual_seed(5),
+                      device="cuda")
+    experts0 = {m: w[0].clone()
+                for m, w in params["layers"]["moe"]["experts"].items()}
+    dram = dram_tier(params)
+    store = PageStore(n_planes=32)
+    smi = _smi()
+    runs, ffn, ref = {}, {}, None
+    for S in SHARD_MOE_COUNTS:
+        t0 = time.perf_counter()
+        sc = StreamConfig(device_budget_bytes=budget, n_shards=S)
+        if S == 1:       # programs the store (RBER 1e-4) the others serve
+            eng = Engine(cfg, params, rber=1e-4, weight_store=store,
+                         stream_cfg=sc, **kw)
+            del params
+            assert store.total_bytes == tier > budget, \
+                (store.total_bytes, tier)
+        else:
+            eng = Engine(cfg, dram, weight_store=store, stream_cfg=sc,
+                         mesh=["cuda:0"] * S, **kw)
+            assert eng.store_preprogrammed and eng.mesh.n_shards == S
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        assert eng.streamed_moe and eng._expert_kn == {
+            "w_gate": (d, f // S), "w_up": (d, f // S), "w_down": (f // S, d)}
+        res = {}
+        if S == 1:
+            run = ref = _sharded_moe_run(torch, eng, prompts, record=True)
+            assert len(ref["routes"]) == len(ref["wall"]) * n_layers
+            timer = Timer(torch)
+            for s2 in SHARD_MOE_COUNTS[1:]:
+                ffn[f"S={s2}"] = sharded_moe_ffn_check(torch, timer, store,
+                                                       eng, experts0, s2)
+            del timer, experts0
+        else:
+            wit = RouteWitness(torch, k)
+            wit.queue, wit.where = list(ref["routes"]), f"18(b) S={S}"
+            handed = _sharded_moe_run(torch, eng, prompts, witness=wit)
+            assert not wit.queue and len(handed["logits"]) == \
+                len(ref["logits"]), (len(wit.queue), len(handed["logits"]))
+            gap = 0.0
+            for i, (a, b, la, lb) in enumerate(zip(
+                    handed["logits"], ref["logits"], handed["live"],
+                    ref["live"])):
+                assert (la == lb).all(), i
+                rows = la > 0
+                g = float(((a[rows] - b[rows]).abs().amax(-1)
+                           / b[rows].abs().amax(-1)).max())
+                if not g <= PARITY_REL_TOL:
+                    raise AssertionError(f"18(b) S={S} step {i}: logits "
+                                         f"{g:.3e} of the row's largest "
+                                         "from S=1's")
+                gap = max(gap, g)
+            if handed["out"] != ref["out"]:
+                raise AssertionError(f"18(b) S={S}: tokens with S=1's routes "
+                                     f"{handed['out']} differ from S=1's "
+                                     f"{ref['out']}")
+            res.update(handed_logit_gap=gap, routes_taken=len(wit.taken),
+                       router_rel=wit.max_rel, route_ties=wit.ties)
+            run = _sharded_moe_run(torch, eng, prompts)
+            match = _token_match(run["out"], ref["out"])
+            flip = _first_flip(run["out"], ref["out"])
+            res.update(token_match=match, first_flip=None)
+            if flip is not None:
+                res["first_flip"] = dict(
+                    request=flip[0], position=flip[1],
+                    **_flip_margins(torch, ref, flip[0], flip[1], n_layers,
+                                    k))
+            if match < SHARD_MOE_MATCH_FLOOR:
+                raise AssertionError(f"18(c) S={S}: token match {match:.3f} "
+                                     f"below {SHARD_MOE_MATCH_FLOOR}")
+        steps = len(run["wall"])
+        per_step = {"grouped_paged_ecdp": n_layers * 3 * S,
+                    "grouped_ecdp": 0, "ecdp": 1, "paged_attn": n_layers}
+        for i, c in enumerate(run["per_step"]):
+            assert c == per_step, (S, i, c)
+        assert run["launches"] == {x: steps * n for x, n in
+                                   per_step.items()}, (S, run["launches"])
+        assert all(len(o) == SHARD_MOE_NEW and all(0 <= t < v for t in o)
+                   for o in run["out"])
+        assert all(bool(torch.isfinite(lg).all()) for lg in run["logits"])
+        eng.prefetcher.drain()
+        st = eng.expert_stats()
+        pb = store.page_bytes
+        local = st.get("pool_local_bytes", st["pool_pages"] * pb)
+        ceil = budget // S + st["pool_reserve_bytes"] + 8 * pb
+        # the per-shard clamp's contract (the unsharded pool is sized by
+        # the cache's budget alone)
+        assert S == 1 or local <= ceil, (S, local, ceil)
+        assert st["pool_grows"] == 0 and st["prefetch_failures"] == 0, st
+        assert st["expert_cache_bytes"] <= eng.expert_cache.capacity
+        if S > 1:
+            parts = eng.wpool.buffer
+            assert len(parts) == S and all(
+                b.device == torch.device(dev) and b.is_cuda
+                for b, dev in zip(parts, eng.mesh.devices))
+            assert st["pool_shards"] == S
+            assert st["pool_shard_transfers"] == S * st["pool_uploads"] > 0
+        res.update(steps=steps, ms_per_step=sum(run["wall"]) / steps * 1e3,
+                   tokens_per_s=SHARD_MOE_NEW * len(prompts) / run["total_s"],
+                   build_s=build_s, launches=run["launches"],
+                   per_step=per_step, pool_uploads=st["pool_uploads"],
+                   pool_shard_transfers=st.get("pool_shard_transfers",
+                                               st["pool_uploads"]),
+                   pool_local_bytes=local, per_device_ceiling_bytes=ceil,
+                   expert_hit_rate=st["expert_hit_rate"],
+                   misroute_stalls=st["misroute_stalls"],
+                   expert_bytes_per_token=st["expert_bytes_per_token"],
+                   pool_h2d_s=st["pool_h2d_s"], card=smi)
+        runs[f"S={S}"] = res
+        log(f"  S={S}: built in {build_s:.1f} s; {len(prompts)} requests "
+            f"({SHARD_MOE_PROMPT}-token prompts, {SHARD_MOE_NEW} new) in "
+            f"{steps} steps, {res['ms_per_step']:.1f} ms/step; launches "
+            f"{run['launches']} ({per_step['grouped_paged_ecdp']} grouped "
+            f"paged ECDP a step, every step); pool {local / 2**30:.3f} GiB "
+            f"a shard (ceiling {ceil / 2**30:.3f}), {st['pool_uploads']} "
+            f"uploads, {res['pool_shard_transfers']} transfers; hit rate "
+            f"{st['expert_hit_rate']:.3f}"
+            + (f"; with S=1's routes: logits {res['handed_logit_gap']:.3e} "
+               f"of the row's largest from S=1's, tokens equal "
+               f"({res['routes_taken']} routes its own router would have "
+               f"chosen otherwise); free run: token match "
+               f"{res['token_match']:.3f}, first flip {res['first_flip']}"
+               if S > 1 else "") + f"; {smi}")
+        eng.close()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    del store, dram
+    gc.collect()
+    secs = time.perf_counter() - t_phase
+    log(f"  phase 18 in {secs:.1f} s (one card: the ms a step are a check "
+        "that the shards serve, not a tensor-parallel scaling figure)")
+    return dict(ffn=ffn, runs=runs, seconds=secs)
+
+
 class PhaseClock:
     """The wall seconds of each phase, from its heading to the next one's
     (the ``phase_seconds`` JSON line): the script must end well inside its
@@ -5750,6 +6194,12 @@ def main() -> int:
     clock.start("17", "phase 17: tensor-parallel streamed serving OPT-6.7B "
                 "(4 layers) at 1, 2 and 4 shards on one card")
     shard_res = phase_sharded(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    clock.start("18", "phase 18: tensor-parallel streamed MoE, "
+                "qwen3-moe-30b-a3b (4 layers) at 1, 2 and 3 shards on one "
+                "card")
+    shard_moe = phase_sharded_moe(torch)
     clock.stop()
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s; seconds "
         f"a phase: {clock.seconds}")
@@ -5761,6 +6211,7 @@ def main() -> int:
     print(json.dumps({"train": train_res}), flush=True)
     print(json.dumps({"dryrun": dry_res}), flush=True)
     print(json.dumps({"sharded": shard_res}), flush=True)
+    print(json.dumps({"sharded_moe": shard_moe}), flush=True)
     print(json.dumps({"phase_seconds": clock.seconds}), flush=True)
 
     step = serve["ecdp_step"]
@@ -5923,6 +6374,20 @@ def main() -> int:
          "routed_rows": ms_res["kernels"]["route"],
          "at_spec": dict(launches=ms_res["spec"]["launches"][
              "grouped_paged_ecdp"], at="13(c): 2 layers, streamed spec"),
+         "sharded": dict(
+             launches={s: r["launches"]["grouped_paged_ecdp"]
+                       for s, r in shard_moe["runs"].items()},
+             per_step={s: r["per_step"]["grouped_paged_ecdp"]
+                       for s, r in shard_moe["runs"].items()},
+             ms_per_step={s: r["ms_per_step"]
+                          for s, r in shard_moe["runs"].items()},
+             layer=shard_moe["ffn"],
+             at=f"18: {MOE_ARCH} width, {SHARD_MOE_LAYERS} layers, "
+                f"streamed at 1, 2, 3 shards over one card (L x 3 x S a "
+                f"step); layer: 18(a), layer 0's expert FFN over a "
+                f"{MOE_ROUTE_TOKENS}-lane route at S = 2, 3 (3 S launches "
+                f"+ the f32 sum) against the unsharded chain, torch.bmm "
+                f"over each shard's routed experts' slices"),
          "bf16_instances": gp_inst},
     ]
     print(smi, flush=True)

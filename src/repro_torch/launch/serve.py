@@ -31,10 +31,13 @@ The engine serves dense- and MoE-family archs (``--arch
 qwen3-moe-30b-a3b``, ``phi3.5-moe-42b-a6.6b``), resident or, with
 ``--stream`` / ``--store-image``, streamed: a MoE arch then pages only its
 routed experts out of the store (the expert cache and its prefetcher).
-``--shards S`` (with ``--stream`` / ``--store-image``; dense archs) serves
-the streamed plane tensor-parallel over S distinct devices of ``--device``
-(the page pool and every FFN sharded, one f32 all-reduce a layer); a host
-with fewer devices is refused. From Python, ``build_engine(...,
+``--shards S`` (with ``--stream`` / ``--store-image``) serves the streamed
+plane tensor-parallel over S distinct devices of ``--device``: the page
+pool and every FFN sharded — a MoE arch's routed experts each split into
+S slices of d_ff, run through the grouped paged ECDP on each shard — and
+one f32 all-reduce a layer; a host with fewer devices is refused, and so
+is an FFN the shards cannot split into whole 128-wide tiles (the engine's
+"cannot partition"). From Python, ``build_engine(...,
 mesh=[dev] * S)`` runs the shards on the devices listed, which may repeat
 one. Like the reference, ``--smoke`` is always on at the command line:
 full width is ``build_engine(arch, smoke=False)``.
@@ -85,10 +88,6 @@ def build_engine(arch: str = "opt-tiny", smoke: bool = True,
     if shards > 1 and not (stream or store_image is not None):
         raise SystemExit("--shards serves through the streamed planes; "
                          "add --stream (or --store-image)")
-    if shards > 1 and cfg.family == "moe":
-        raise SystemExit(f"--shards {shards}: the port shards the streamed "
-                         "dense plane; the MoE expert axis under shards is "
-                         "the next slice of ROADMAP §A.4")
     if shards > 1 and mesh is None:
         from repro_torch.launch.mesh import make_model_mesh
         try:

@@ -75,29 +75,33 @@ def init(cfg, generator: torch.Generator, device="cuda") -> dict:
 
 # --- expert products ----------------------------------------------------------
 
-def _expert_matmul(x: torch.Tensor, w) -> torch.Tensor:
+def _expert_matmul(x: torch.Tensor, w,
+                   out_dtype=torch.bfloat16) -> torch.Tensor:
     """x: (E, C, K) bf16 — expert e's rows x[e] — @ w (E, K, N) -> (E, C, N)
-    bf16. A FlashWeight bank (or a PagedWeight slab of E paged experts)
-    runs the grouped ECDP (grouped paged ECDP) with ECC off over the E * C
-    rows (expert e's at e * C); a plain bank the f32 product of the bf16
-    operands, rounded to bf16."""
+    in ``out_dtype``. A FlashWeight bank (or a PagedWeight slab of E paged
+    experts) runs the grouped ECDP (grouped paged ECDP) with ECC off over
+    the E * C rows (expert e's at e * C); a plain bank the f32 product of
+    the bf16 operands."""
     e, c, k = x.shape
     if isinstance(w, (FlashWeight, PagedWeight)):
         row_start = torch.arange(0, (e + 1) * c, c, dtype=torch.int32,
                                  device=x.device)
         out = flash_matmul_grouped(x.reshape(e * c, k), w, row_start,
-                                   ecc_enabled=False, max_rows=c)
+                                   ecc_enabled=False, out_dtype=out_dtype,
+                                   max_rows=c)
         return out.reshape(e, c, -1)
-    return torch.bmm(x.float(), w.float()).to(torch.bfloat16)
+    return torch.bmm(x.float(), w.float()).to(out_dtype)
 
 
-def _swiglu_bank(bank, xb, dtype, matmul=_expert_matmul):
-    """The experts' SwiGLU on their rows: down(silu(gate) * up), each
-    product ``matmul(rows, bank matrix)`` rounded to bf16."""
+def _swiglu_bank(bank, xb, dtype, matmul=_expert_matmul,
+                 down_dtype=torch.bfloat16):
+    """The experts' SwiGLU on their rows: down(silu(gate) * up), the gate
+    and up products rounded to bf16, the down product to ``down_dtype``
+    (f32 for a tensor-parallel partial)."""
     h_g = matmul(xb, bank["w_gate"])
     h_u = matmul(xb, bank["w_up"])
     h = (F.silu(h_g.float()) * h_u.float()).to(dtype)
-    return matmul(h, bank["w_down"])
+    return matmul(h, bank["w_down"], out_dtype=down_dtype)
 
 
 # --- capacity dispatch (offline path) ----------------------------------------
@@ -203,7 +207,20 @@ def _grouped_rows(flat_row, ok, e_bank: int):
     return order, row_start.to(torch.int32)
 
 
-def serve_expert_ffn(bank, x, gates, idx, slab_map=None):
+def expert_rows(idx, slab_map, e_bank: int):
+    """The dispatch of a (S, T, k) route onto a bank of ``e_bank`` rows:
+    (flat_row (A,) int64, ok (A,) bool, order, row_start) with assignment
+    a = token * k + j (``_grouped_rows``'s order and row_start). Tensor-
+    parallel shards share one dispatch: it depends on the route, not on
+    the columns."""
+    row = idx if slab_map is None else slab_map[idx.long()]
+    flat_row = row.reshape(-1).long()
+    ok = flat_row >= 0
+    return (flat_row, ok) + _grouped_rows(flat_row, ok, e_bank)
+
+
+def serve_expert_ffn(bank, x, gates, idx, slab_map=None, partial=False,
+                     rows=None):
     """Batched-expert SwiGLU over a full or partial expert bank.
 
     bank     : {"w_gate","w_up","w_down"} each (E_bank, K, N) FlashWeight
@@ -212,6 +229,15 @@ def serve_expert_ffn(bank, x, gates, idx, slab_map=None):
     x        : (S, T, D) normed FFN input; gates/idx (S, T, k).
     slab_map : (n_experts,) int expert id -> bank row, -1 = not resident
                (those assignments contribute 0). None = identity.
+    partial  : the tensor-parallel expert FFN. Each shard's bank holds the
+               experts' d_ff/S columns (w_gate / w_up column-parallel,
+               w_down row-parallel over the same slice), so the down
+               product is a PARTIAL: it stays f32 (not rounded to bf16)
+               through the gate-weighted combine, and the output is
+               returned f32 and uncast for the caller's
+               ``core.erdpe.all_reduce_sum``, the cast after the sum.
+    rows     : ``expert_rows(idx, slab_map, E_bank)``, when the caller
+               computed it already (once for every shard).
 
     Assignment a = token * k + j owns row a. A FlashWeight bank or a
     PagedWeight slab: the rows sorted by bank row, one grouped (paged)
@@ -224,23 +250,24 @@ def serve_expert_ffn(bank, x, gates, idx, slab_map=None):
     s, t, d = x.shape
     k = idx.shape[-1]
     a = s * t * k
-    row = idx if slab_map is None else slab_map[idx.long()]
-    flat_row = row.reshape(a).long()
-    ok = flat_row >= 0
     w_gate = bank["w_gate"]
     e_bank = w_gate.shape[0]
+    if rows is None:
+        rows = expert_rows(idx, slab_map, e_bank)
+    flat_row, ok, order, row_start = rows
+    down_dtype = torch.float32 if partial else torch.bfloat16
     x2 = x.reshape(s * t, d)
     if isinstance(w_gate, (FlashWeight, PagedWeight)):
-        order, row_start = _grouped_rows(flat_row, ok, e_bank)
         xs = x2.index_select(0, torch.div(order, k, rounding_mode="floor"))
         plan_experts = None if slab_map is None else slab_map.shape[0]
 
-        def grouped(r, w):
+        def grouped_mm(r, w, out_dtype=torch.bfloat16):
             # an expert gets at most S * T rows: top-k picks distinct ones
             return flash_matmul_grouped(r, w, row_start, ecc_enabled=False,
-                                        max_rows=s * t,
+                                        out_dtype=out_dtype, max_rows=s * t,
                                         plan_experts=plan_experts)
-        ys = _swiglu_bank(bank, xs, x.dtype, grouped)            # (A, D)
+        ys = _swiglu_bank(bank, xs, x.dtype, grouped_mm,
+                          down_dtype)                         # (A, D)
         out_a = torch.empty_like(ys).index_copy_(0, order, ys).float()
     else:
         cols = torch.arange(a, device=x.device)
@@ -248,11 +275,12 @@ def serve_expert_ffn(bank, x, gates, idx, slab_map=None):
         xa = x2[:, None].expand(s * t, k, d).reshape(a, d)
         buf = torch.zeros((e_bank, a, d), dtype=x.dtype, device=x.device)
         buf[safe, cols] = torch.where(ok[:, None], xa, 0).to(x.dtype)
-        out_buf = _swiglu_bank(bank, buf, x.dtype)            # (E, A, D)
+        out_buf = _swiglu_bank(bank, buf, x.dtype,
+                               down_dtype=down_dtype)         # (E, A, D)
         out_a = out_buf[safe, cols].float()
     out_a = torch.where(ok[:, None], out_a, 0.0)
     out = (out_a * gates.reshape(a)[:, None]).reshape(s, t, k, d).sum(dim=2)
-    return out.to(x.dtype)
+    return out if partial else out.to(x.dtype)
 
 
 # --- offline inference API ----------------------------------------------------

@@ -33,6 +33,9 @@ request level, with the KV-cache-aware scheduler (Algorithm 2) in the loop.
     the embed rides layer 0's (``_moe_head_impl``) and the finish the last
     layer's experts (``_moe_tail_impl``). The ``ExpertPrefetcher``'s worker
     uploads the router-history predictor's picks ahead of the layers.
+    Tensor-parallel (``StreamConfig.n_shards`` > 1), each shard runs its
+    d_ff/S slice of the routed experts to an f32 partial and one
+    all-reduce a layer completes the expert FFN.
   * flash tier — FFN weights and ``lm_head`` are deployed as INT8 + parity
     (``core.tiering.deploy``) and read through the ECDP on every use; the
     Q and O projections also keep a flash copy, and Algorithm 2's bitmap
@@ -470,24 +473,44 @@ def _stream_group_impl(cfg, bitmap, shapes, layers_dram, window, pool_buf,
     return x, ks, vs
 
 
-def _moe_expert_paged_impl(kn, x, h, gates, idx, slab, slab_map, pool_buf):
+def _moe_expert_paged_impl(kn, x, h, gates, idx, slab, slab_map, pool_buf,
+                           mesh=None):
     """Expert half of one STREAMED MoE layer: the slab is page tables only,
     stacked (e_slab, ...) per bank matrix (``slab[name]["dev"]``); the
     routed experts' weights stay raw pages in ``pool_buf`` and one grouped
     paged ECDP per bank matrix reads them in place. ``kn`` is each
-    matrix's (K, N)."""
-    bank = {name: _paged(pool_buf, t, kn[name]) for name, t in slab.items()}
-    return x + moe_mod.serve_expert_ffn(bank, h, gates, idx, slab_map)
+    matrix's (K, N).
+
+    Under tensor parallelism (``mesh``) ``pool_buf`` is the shards'
+    partitions and ``kn`` the shard-LOCAL (K, N): the route's dispatch is
+    computed once, and shard ``s`` binds its slab tables
+    (``"dev_shards"[s]``) over its partition and runs its d_ff/S slice of
+    every routed expert on ``mesh.devices[s]`` to an f32 partial
+    (``serve_expert_ffn(partial=True)``); ``all_reduce_sum`` completes the
+    layer's expert FFN and the cast to bf16 comes after the sum."""
+    if mesh is None:
+        bank = {name: _paged(pool_buf, t, kn[name])
+                for name, t in slab.items()}
+        return x + moe_mod.serve_expert_ffn(bank, h, gates, idx, slab_map)
+    banks = [{name: _paged(pool_buf[s], t, kn[name], shard=s)
+              for name, t in slab.items()} for s in range(mesh.n_shards)]
+    rows = moe_mod.expert_rows(idx, slab_map, banks[0]["w_gate"].shape[0])
+    partials = [moe_mod.serve_expert_ffn(
+        bank, h.to(dev), gates.to(dev), idx.to(dev), slab_map.to(dev),
+        partial=True, rows=tuple(r.to(dev) for r in rows))
+        for bank, dev in zip(banks, mesh.devices)]
+    return x + all_reduce_sum(partials, mesh).to(x.dtype)
 
 
 def _moe_fused_impl(cfg, kn, layer, x, h, gates, idx, slab, slab_map,
-                    pool_buf, positions, ctx_lens, block_tables):
+                    pool_buf, positions, ctx_lens, block_tables, mesh=None):
     """The expert half of layer l - 1 chained into the attention + router
     half of layer l (``layer`` = its DRAM params and K/V pool slices): the
     host's expert-id read sits between two such calls. Returns
-    ``_moe_attn_router_body``'s tuple."""
+    ``_moe_attn_router_body``'s tuple. ``mesh``: the expert half
+    tensor-parallel (``_moe_expert_paged_impl``)."""
     x = _moe_expert_paged_impl(kn, x, h, gates, idx, slab, slab_map,
-                               pool_buf)
+                               pool_buf, mesh)
     lp, kc, vc = layer
     return _moe_attn_router_body(cfg, ctx_lens, positions, block_tables, x,
                                  lp, kc, vc)
@@ -510,12 +533,13 @@ def _moe_head_impl(cfg, params, layer, lengths, tokens, q_lens,
 def _moe_tail_impl(cfg, sched_cfg, sample_cfg, kv_aware, kn, final_norm,
                    lm_head, state, x, h, gates, idx, slab, slab_map,
                    pool_buf, k_new, v_new, q_lens, admitted, positions,
-                   block_tables, generator, spec=None):
-    """Tail of the streamed MoE step: the last layer's expert half and the
-    finish (``_finish_step``: final norm, sampling or verification, the
-    paged KV write, Algorithm 2). Returns what ``_finish_step`` returns."""
+                   block_tables, generator, spec=None, mesh=None):
+    """Tail of the streamed MoE step: the last layer's expert half (over
+    the ``mesh``'s shards when given) and the finish (``_finish_step``:
+    final norm, sampling or verification, the paged KV write, Algorithm
+    2). Returns what ``_finish_step`` returns."""
     x = _moe_expert_paged_impl(kn, x, h, gates, idx, slab, slab_map,
-                               pool_buf)
+                               pool_buf, mesh)
     return _finish_step(cfg, sched_cfg, sample_cfg, kv_aware, final_norm,
                         lm_head, state, x, k_new, v_new, q_lens, admitted,
                         positions, block_tables, generator, spec=spec)
@@ -596,19 +620,22 @@ class Engine:
     reference it needs the compiled data plane: ``compiled=False`` is
     refused (a streamed engine, eager by construction, is accepted).
 
-    ``StreamConfig(n_shards=S)`` with S > 1 serves the streamed dense
-    plane TENSOR-PARALLEL over a "model" mesh (``mesh``: a
+    ``StreamConfig(n_shards=S)`` with S > 1 serves either streamed plane
+    TENSOR-PARALLEL over a "model" mesh (``mesh``: a
     ``launch.mesh.ModelMesh`` or a list of S devices, which may repeat one;
     default ``make_model_mesh(S, device)``, S distinct devices, whose first
     must be ``device``). The weight page pool is a
     ``ShardedWeightPagePool``, one partition per shard on its device; the
-    DRAM tier, the KV pool, the bitmap, attention, lm_head and sampling
-    stay on the first device; each shard runs its column slice of w_gate /
-    w_up and the row slice of w_down, and ``core.erdpe.all_reduce_sum``
-    completes every FFN in f32 before the cast. ``device_budget_bytes``
-    stays the aggregate budget. A MoE engine refuses S > 1 (its expert axis
-    under shards is ROADMAP §A.4's next slice), and so does an engine with
-    no ``weight_store``.
+    DRAM tier, the KV pool, the bitmap, attention, the router, lm_head,
+    sampling and the expert ids' read to the host stay on the first
+    device. Each shard runs its column slice of w_gate / w_up and the row
+    slice of w_down: of the dense FFN, or of every routed expert through
+    the grouped paged ECDP on its partition, the gate-weighted combine in
+    f32 on its partial. ``core.erdpe.all_reduce_sum`` completes every FFN
+    (a layer's expert FFN) in f32 before the cast. ``device_budget_bytes``
+    stays the aggregate budget; each shard's pool is sized to its share.
+    A matrix the shards cannot split into whole 128-wide tiles is refused
+    ("cannot partition"), and so is S > 1 with no ``weight_store``.
 
     ``prefix_cache`` turns on hash-based prefix caching; ``registry`` is
     the ``obs.MetricsRegistry`` the step histogram and token counter live
@@ -636,11 +663,6 @@ class Engine:
                 raise ValueError(
                     f"n_shards={n_shards} shards the streamed plane's page "
                     "pool and FFN: pass a weight_store")
-            if cfg.family == "moe":
-                raise ValueError(
-                    f"n_shards={n_shards}: the port shards the streamed "
-                    "dense plane only; the MoE expert axis under shards is "
-                    "the next slice of ROADMAP §A.4")
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda" and not takes_head_dim(cfg.head_dim):
@@ -713,7 +735,7 @@ class Engine:
                 self.stream_cfg = stream_cfg or StreamConfig()
                 self.attn_flash = None
                 if self.streamed_moe:
-                    self._init_streamed_moe(max_slots)
+                    self._init_streamed_moe(max_slots, mesh)
                 else:
                     self._init_streamed(params, rber, seed, mesh)
             else:
@@ -1025,14 +1047,19 @@ class Engine:
 
     # --- streamed MoE mode (expert paging) ----------------------------------
 
-    def _init_streamed_moe(self, max_slots: int):
+    def _init_streamed_moe(self, max_slots: int, mesh=None):
         """MoE flash tier: the per-(layer, expert) bank slices live in the
         PageStore (``deploy`` splits the stacked (L, E, K, N) banks at
         ``name@li.ei``); router, attention and norms stay DRAM. Stands up
         the page pool, the ``ExpertCache`` ((layer, expert) residency) and
         the router-history prefetcher under the device budget; the per-layer
-        expert SLAB is budget-accounted like the dense prefetch windows."""
+        expert SLAB is budget-accounted like the dense prefetch windows.
+        With ``StreamConfig.n_shards`` > 1 the pool is partitioned over the
+        mesh's shards, every expert's w_gate / w_up by tile columns and
+        w_down by tile rows (``launch.sharding.tp_shard_axis``)."""
         cfg, sc = self.cfg, self.stream_cfg
+        self.mesh = self._make_mesh(mesh)
+        self._entry_plans: dict = {}
         if sc.group_size != 1:
             raise ValueError(
                 f"group_size={sc.group_size}: MoE streaming is per-layer "
@@ -1064,6 +1091,8 @@ class Engine:
         self._dram_params = {k: self.params[k]
                              for k in ("embed", "pos_embed", "final_norm")
                              if k in self.params}
+        self._check_shardable(
+            [ref.entry(0, 0) for ref in self._expert_refs.values()])
         self._expert_nbytes = [
             [sum(self.store.entry_nbytes(ref.entry(li, e))
                  for ref in self._expert_refs.values())
@@ -1096,9 +1125,12 @@ class Engine:
         # at the worst pages-per-payload-byte ratio, plus the slab's
         # misroute fetches and the prefetcher's in-flight traffic, capped
         # at the whole expert tier. Sized once: a grow mid-run would
-        # synchronize the card and swap the pool tensor.
+        # synchronize the card and swap the pool tensor. Sharded: LOCAL
+        # pages per expert against the AGGREGATE cache budget, as on the
+        # dense plane, and the cache clamped so that one shard's backing
+        # fits its budget share.
         expert_pages = [
-            [sum(self.store.entry_pages(ref.entry(li, e))
+            [sum(self._entry_pages_local(ref.entry(li, e))
                  for ref in self._expert_refs.values())
              for e in range(cfg.n_experts)]
             for li in range(cfg.n_layers)]
@@ -1110,17 +1142,24 @@ class Engine:
                     for li in range(cfg.n_layers)
                     for e in range(cfg.n_experts))
         self._pool_reserve_pages = 2 * self._e_slab * max_ep
+        if cache_cap is not None and sc.n_shards > 1:
+            cache_cap = min(cache_cap, int(sc.device_budget_bytes
+                                           / (sc.n_shards * worst)))
+            if cache_cap < max_expert:
+                raise ValueError(
+                    f"device_budget_bytes={sc.device_budget_bytes} over "
+                    f"{sc.n_shards} shards leaves a per-device share too "
+                    f"small for one cacheable expert ({max_expert}B); "
+                    "raise the budget or shrink StreamConfig.expert_slab")
         if cache_cap is None:
             n_pages = tier_pages
         else:
             n_pages = min(tier_pages,
                           -(-int(worst * cache_cap) // pb)
                           + self._pool_reserve_pages)
-        self.wpool = WeightPagePool(self.store, n_pages, device=self.device,
-                                    stream=self._stream)
-        self._expert_kn = {
-            name: tuple(self.store.table[ref.entry(0, 0)]["q"].shape)
-            for name, ref in self._expert_refs.items()}
+        self.wpool = self._make_wpool(n_pages)
+        self._expert_kn = {name: self._entry_kn(ref.entry(0, 0))
+                           for name, ref in self._expert_refs.items()}
         self.expert_cache = ExpertCache(cache_cap, cfg.n_layers,
                                         cfg.n_experts, n_slots=max_slots,
                                         on_evict=self._evict_window)
@@ -1208,7 +1247,9 @@ class Engine:
         p_slots, s_slots) device int32}}, slab_map (n_experts,) int32 device
         tensor
         with -1 = not in the slab, held keys and transient slot arrays to
-        release / free after the launch, the missing expert-id set)."""
+        release / free after the launch, the missing expert-id set). Under
+        a mesh each slab entry also carries ``"dev_shards"``, the same
+        tables on each shard's device (the slots are symmetric)."""
         routed = [int(e) for e in routed] or [0]
         if len(routed) > self._e_slab:
             raise ValueError(
@@ -1258,12 +1299,13 @@ class Engine:
                     transients.append(val["slots"])
                     vals[e] = val
         rows = [vals[e] for e in routed]
-        if self._stream is not None:
-            # read after write: each row's pages are in once its upload's
-            # event (on the pool's copy stream) has passed
-            for ev in {id(r["ready"]): r["ready"] for r in rows
-                       if r["ready"] is not None}.values():
-                self._stream.wait_event(ev)
+        # read after write: each row's pages are in once its upload's
+        # events (on the pool's copy streams: one per distinct device of a
+        # sharded pool) have passed, whoever uploaded it (this thread or
+        # the prefetch worker); the memoized slab below needs them too
+        for ready in {id(r["ready"]): r["ready"] for r in rows
+                      if r["ready"] is not None}.values():
+            self.wpool.wait_ready(ready)
         # slab memo: in steady decode a layer routes the same expert set
         # step after step, and its page tables move only when an expert is
         # re-fetched (a new generation stamp)
@@ -1276,11 +1318,18 @@ class Engine:
             for r, e in enumerate(routed):
                 slab_map[e] = r
             rows += [rows[0]] * (self._e_slab - len(rows))    # static rows
-            slab = {name: {"dev": tuple(
-                torch.from_numpy(np.stack([r[name][k] for r in rows])).to(
-                    self.device)
-                for k in ("q_tbl", "p_slots", "s_slots"))}
-                for name in self._expert_refs}
+            # a sharded pool's slots are symmetric: every shard binds the
+            # same (shard-local) tables, copied to each distinct device
+            devs = (self.mesh.devices if self.mesh is not None
+                    else (self.device,))
+            slab = {}
+            for name in self._expert_refs:
+                host = [torch.from_numpy(np.stack([r[name][k] for r in rows]))
+                        for k in ("q_tbl", "p_slots", "s_slots")]
+                on = {d: tuple(t.to(d) for t in host)
+                      for d in dict.fromkeys(devs)}
+                slab[name] = {"dev": on[devs[0]],
+                              "dev_shards": tuple(on[d] for d in devs)}
             dev_map = torch.from_numpy(slab_map).to(self.device)
             self._slab_memo[li] = (memo_key, slab, dev_map)
         return slab, dev_map, held, transients, set(missing)
@@ -1503,7 +1552,7 @@ class Engine:
                     (self._layers[li + 1], state["k"][li + 1],
                      state["v"][li + 1]),
                     x, h, gates, idx, slab, slab_map, self.wpool.buffer,
-                    positions, ctx_lens, block_tables)
+                    positions, ctx_lens, block_tables, self.mesh)
                 ks.append(k_l)
                 vs.append(v_l)
                 t = self._phase("fused_dispatch", t)
@@ -1514,7 +1563,7 @@ class Engine:
                     self._lm_head, state, x, h, gates, idx, slab, slab_map,
                     self.wpool.buffer, torch.stack(ks), torch.stack(vs),
                     q_lens, admitted, positions, block_tables,
-                    self._generator, spec=fin)
+                    self._generator, spec=fin, mesh=self.mesh)
                 t = self._phase("tail_dispatch", t)
             # the launches that read the slab are enqueued: the held
             # entries can go, and freeing the transients records the event

@@ -204,16 +204,21 @@ def test_refusals_carry_the_reference_messages(case):
      "§A.3"),
     (dict(arch="qwen3-moe-30b-a3b", stream=True, shards=2), "§A.4")])
 def test_what_the_port_lacks_names_its_roadmap_item(kw, item, tmp_path):
-    """What the port lacks names its ROADMAP item: ``--shards > 1`` on a
-    MoE arch (§A.4: the dense streamed plane shards,
-    tests/test_torch_sharded_serving.py). The streamed MoE plane (§A.3)
-    is ported: ``stream=True`` and
-    a MoE die image written by the port's ``deploy --store`` serve
-    expert-paged, with the port's resident ``build_engine``'s greedy
-    tokens (the same init; tests/test_torch_moe_engine.py holds them
-    against the JAX package)."""
+    """The items these cases named are ported. The streamed MoE plane
+    (§A.3): ``stream=True`` and a MoE die image written by the port's
+    ``deploy --store`` serve expert-paged, with the port's resident
+    ``build_engine``'s greedy tokens (the same init;
+    tests/test_torch_moe_engine.py holds them against the JAX package).
+    ``--shards > 1`` on a MoE arch (§A.4's serving share;
+    tests/test_torch_sharded_moe.py): over a mesh the engine takes the
+    expert axis, and at smoke width qwen3's d_ff 32 is no whole 128-wide
+    tile a shard, so it is refused loudly, never replicated; without a
+    mesh the CPU has no second device."""
     if item == "§A.4":
-        assert item in _refusal(tserve.build_engine, device="cpu", **kw)
+        with pytest.raises(ValueError, match="cannot partition"):
+            tserve.build_engine(device="cpu", mesh=["cpu"] * 2, **kw)
+        assert "distinct cpu devices" in _refusal(tserve.build_engine,
+                                                  device="cpu", **kw)
         return
     arch = kw["arch"]
     if "store_image" in kw:

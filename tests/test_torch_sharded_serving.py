@@ -13,6 +13,7 @@ tokens and pool counters. Inputs are numpy draws from fixed seeds.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -528,9 +529,10 @@ def test_sharded_engine_matches_the_reference_dump(params, reference_dump,
 
 def test_sharded_engine_refusals(params):
     """No fallback hides a shard: an FFN the shards cannot split whole is
-    refused, so are a MoE engine, a shard count with no store, a mesh of
-    another size, one whose first device is not the engine's, and a mesh
-    of distinct devices the host lacks."""
+    refused (a dense one, and a MoE expert bank: the reference's
+    ``test_sharded_rejects_unshardable_ffn``), so are a shard count with no
+    store, a mesh of another size, one whose first device is not the
+    engine's, and a mesh of distinct devices the host lacks."""
     cfg = get_config("llama3-405b", smoke=True)            # d_ff 256
     lp = family_module("dense").init(cfg, torch.Generator().manual_seed(0),
                                      device="cpu")
@@ -539,14 +541,14 @@ def test_sharded_engine_refusals(params):
                weight_store=PageStore(n_planes=8),
                stream_cfg=StreamConfig(n_shards=4), device="cpu",
                mesh=["cpu"] * 4)
-    mcfg = get_config("qwen3-moe-30b-a3b", smoke=True)
+    mcfg = get_config("qwen3-moe-30b-a3b", smoke=True)     # d_ff 32
     mp = family_module("moe").init(mcfg, torch.Generator().manual_seed(0),
                                    device="cpu")
-    with pytest.raises(ValueError, match="§A.4"):
+    with pytest.raises(ValueError, match="cannot partition"):
         Engine(mcfg, mp, max_slots=2, max_seq=MAX_SEQ,
                weight_store=PageStore(n_planes=8),
-               stream_cfg=StreamConfig(n_shards=2), device="cpu",
-               mesh=["cpu"] * 2)
+               stream_cfg=StreamConfig(n_shards=4), device="cpu",
+               mesh=["cpu"] * 4)
     with pytest.raises(ValueError, match="weight_store"):
         Engine(OPT_TINY, params, stream_cfg=StreamConfig(n_shards=2),
                device="cpu")
@@ -603,3 +605,49 @@ def test_serve_shards_a_die_image(tmp_path, monkeypatch):
         tserve.main()
     with pytest.raises(SystemExit, match="streamed planes"):
         tserve.build_engine(arch, shards=2, device="cpu")
+
+
+def test_serve_shards_a_moe_die_image(tmp_path, monkeypatch):
+    """``--shards 2`` on a MoE arch: a qwen3-moe-30b-a3b-smoke die image
+    and DRAM-tier checkpoint of the port's ``deploy --store``, d_ff patched
+    to 512 in both packages' configs (4 tiles of w_gate / w_up columns and
+    w_down rows, 2 a shard); over [cpu] * 2 ``build_engine`` emits the JAX
+    ``build_engine``'s greedy tokens on the same image, and ``serve`` runs
+    the burst with one transfer per shard per upload."""
+    import repro.launch.serve as jserve
+    from repro.configs import get_config as jget
+    from repro_torch.launch import deploy as tdeploy
+    from repro_torch.launch import serve as tserve
+    arch, img = "qwen3-moe-30b-a3b", str(tmp_path / "nand.img")
+
+    def patched(get):
+        def get_config_512(name, smoke=False):
+            cfg = get(name, smoke=smoke)
+            return (dataclasses.replace(cfg, d_ff=512) if name == arch
+                    else cfg)
+        return get_config_512
+    monkeypatch.setattr(tdeploy, "get_config", patched(get_config))
+    monkeypatch.setattr(tserve, "get_config", patched(get_config))
+    monkeypatch.setattr(jserve, "get_config", patched(jget))
+    tdeploy.run_deploy(arch, True, None, str(tmp_path), store_path=img,
+                       device="cpu")
+    prompt = [5, 17, 29, 3]
+    jeng = jserve.build_engine(arch, store_image=img, ckpt=str(tmp_path),
+                               sample_cfg=JSample())
+    rid = jeng.submit(prompt, max_new=8)
+    want = jeng.run()[rid]
+    jeng.close()
+    eng = tserve.build_engine(arch, store_image=img, ckpt=str(tmp_path),
+                              shards=2, mesh=["cpu"] * 2,
+                              sample_cfg=SampleConfig(), device="cpu")
+    assert eng.streamed_moe and eng.mesh.n_shards == 2
+    assert eng._expert_kn["w_down"] == (256, eng.cfg.d_model)
+    rid = eng.submit(prompt, max_new=8)
+    assert eng.run()[rid] == want
+    eng.close()
+    out = tserve.serve(arch, n_requests=3, max_new=4, store_image=img,
+                       ckpt=str(tmp_path), shards=2, mesh=["cpu"] * 2,
+                       device="cpu")
+    assert out["tokens"] == 12 and out["stream"]["pool_shards"] == 2
+    assert out["stream"]["pool_shard_transfers"] == \
+        2 * out["stream"]["pool_uploads"]
