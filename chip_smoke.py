@@ -20,7 +20,9 @@ dry-run of all 40 (arch x shape) cells, and the training cell's counted
 peak and bound against what the card measured; and serves the streamed
 dense plane tensor-parallel at OPT-6.7B width over 1, 2 and 4 shards of
 the one card, and the streamed MoE plane at qwen3-moe-30b-a3b width over
-1, 2 and 3.
+1, 2 and 3; and trains over a ("data", "model") mesh of one rank: granite-8b
+at full width through ``train()``'s DTensor path against the plain step,
+and its checkpoint across meshes.
 
     python3 chip_smoke.py
 
@@ -344,14 +346,14 @@ Phases (any failure exits non-zero; nothing is caught):
                 trained params bit for bit) served by build_engine (2
                 requests); ``python -m repro_torch.launch.train`` on the
                 card (its default, 40 steps) and ``--production``
-                refused. The straggler detector is live throughout
+                refused (the production mesh's size error). The straggler detector is live throughout
                 (train() reads each step's loss inside the timed call, so
                 a step's time is the device's). (c) card vs CPU: one
                 make_train_step step (n_micro 2, 2 x 128) at full width of
                 granite-8b (1 layer), rwkv6-3b (2), seamless-m4t-medium
-                (1 + 1) and qwen3-moe-30b-a3b (1; the CPU takes the card's
-                routes; recurrentgemma-9b is left out for the script's
-                time, see TRAIN_PARITY) from the same params:
+                (1 + 1), qwen3-moe-30b-a3b (1; the CPU takes the card's
+                routes) and recurrentgemma-9b (3, at 2 x 32: see
+                TRAIN_PARITY) from the same params:
                 the loss, the first moments and the params under the
                 bounds stated at TRAIN_LOSS_TOL and TRAIN_GRAD_TOL. Its
                 figures are the ``train`` JSON line.
@@ -425,9 +427,32 @@ Phases (any failure exits non-zero; nothing is caught):
                 check that the shards serve, not a scaling figure). Its
                 figures are the ``sharded_moe`` JSON line and the grouped
                 paged ECDP's ``sharded`` entry in the kernels line.
+ 19. mesh_train — training over a ("data", "model") mesh: an ``nccl``
+                process group of one rank on cuda:0 (a ``FileStore`` in a
+                temporary directory). (a) ``train()`` at granite-8b's full
+                width cut to TRAIN_LAYERS layers (its ``get_config``
+                patched for the cut), MESH_STEPS steps of 2 x 4096 tokens
+                (n_micro 2): the (1, 1) mesh, every param and moment a
+                DTensor placed by ``param_specs`` and ZeRO-1
+                ``opt_state_specs``, the step with ``grad_specs``
+                (``pin_grad`` calls counted, more than 0); then the same
+                params, schedule and batches through 15(a)'s plain step:
+                the losses within TRAIN_LOSS_TOL of each other, ms a step
+                of each (device and wall), peak memory of each. (b)
+                ``train()`` at smoke size over the mesh with a checkpoint;
+                ``remesh_restore`` onto ``plan_mesh(1)`` and, the process
+                group torn down, the plain ``train()``'s resume: every
+                leaf bit-equal to the run's final state;
+                ``train(production=True)`` raises the production mesh's
+                size error. No several ranks on the one card: NCCL takes
+                one rank a card, and ``gloo`` on the card's torch crashes
+                in DTensor's all-gather of CUDA tensors, so the (2, 2)
+                mesh is held by the CPU tests alone. Training launches
+                none of the four kernels. Its figures are the
+                ``mesh_train`` JSON line.
 
 The ``spec``, ``moe_stream``, ``families``, ``train``, ``dryrun``,
-``sharded``, ``sharded_moe`` and ``phase_seconds`` lines come before the card's name; the
+``sharded``, ``sharded_moe``, ``mesh_train`` and ``phase_seconds`` lines come before the card's name; the
 second-to-last line is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Times are CUDA-event medians with the
 L2 cache flushed before each timed call (the serving step streams more
@@ -4755,19 +4780,20 @@ TRAIN_WORK = ROOT / "build" / "chip_smoke_phase15"
 # detector live (it needs 4 timed steps before it can fire)
 TRAIN_CLI_STEPS = 40
 # 15(c): full width, depth cut; one n_micro-2 step of (batch, seq).
-# recurrentgemma-9b (3 layers: one (r, r, a) group; its first moments
-# 2.6-2.9 % apart, within 2^-4) is left out for the script's time: its CPU
-# step costs 57-65 s (2.8 B params, most of them its 256000-row embedding
-# and lm_head), and run in a thread beside 15(a) it cost as much (15(a)'s
-# first step 12.7-17.6 s instead of 2.9, the thread's step 104-107 s).
 # granite-8b, seamless-m4t-medium and qwen3-moe-30b-a3b run 1 layer, for
 # the script's time (the CPU's steps at 2 layers took 20, 13 and 39 s);
-# rwkv6-3b keeps 2, where its gap shows (tenfold its 1-layer one)
+# rwkv6-3b keeps 2, where its gap shows (tenfold its 1-layer one);
+# recurrentgemma-9b 3 (one (r, r, a) group) at a shorter sequence
+# (TRAIN_PARITY_SEQ): at 2 x 128 its CPU step cost 57-65 s (2.8 B params,
+# most of them its 256000-row embedding and lm_head, whose products scale
+# with the tokens)
 TRAIN_PARITY = {"granite-8b": dict(n_layers=1),
                 "rwkv6-3b": dict(n_layers=2),
                 "seamless-m4t-medium": dict(n_layers=1, n_enc_layers=1),
-                "qwen3-moe-30b-a3b": dict(n_layers=1)}
+                "qwen3-moe-30b-a3b": dict(n_layers=1),
+                "recurrentgemma-9b": dict(n_layers=3)}
 TRAIN_PARITY_IN = (2, 128)
+TRAIN_PARITY_SEQ = {"recurrentgemma-9b": (2, 32)}
 # 15(c)'s bounds, card vs CPU after one step: the loss within
 # TRAIN_LOSS_TOL of it (relative); each first moment m (0.1 x the clipped
 # gradient g) within TRAIN_GRAD_TOL[arch] of its leaf's largest |m|; and
@@ -4788,8 +4814,11 @@ TRAIN_LOSS_TOL = 2.0 ** -10
 # so the gap is the model's sensitivity to rounding, not the card
 # (scripts/train_diagnostics.py rwkv6; cuBLAS's reduced-precision bf16
 # reductions change no bit)
+# (recurrentgemma-9b's, 2^-4, is its CPU tests' GRAD_TOL, which its first
+# moments met at 2.6-2.9 % at 3 layers and 2 x 128 in PR 25)
 TRAIN_GRAD_TOL = {"granite-8b": 2.0 ** -5, "seamless-m4t-medium": 2.0 ** -5,
-                  "qwen3-moe-30b-a3b": 2.0 ** -5, "rwkv6-3b": 2.0 ** -4}
+                  "qwen3-moe-30b-a3b": 2.0 ** -5, "rwkv6-3b": 2.0 ** -4,
+                  "recurrentgemma-9b": 2.0 ** -4}
 
 
 def train_cfg(arch: str, **cut):
@@ -4806,65 +4835,103 @@ def train_profile(torch, run) -> dict:
     backward: from the grad reaching its output to the grads of q, k and
     v), the optimizer (``AdamW.apply_``), and the rest by kernel name (GEMM,
     elementwise / reduction / copy). The windows are cut by marker kernels
-    on the one stream (a bitwise_not of an int16 around each attention
-    window, a bitwise_xor before the optimizer), so each kernel's place
-    comes from the device's own order."""
+    on the one stream (a bitwise_not of an int16 opens an attention
+    window, a bitwise_or closes it, a bitwise_xor comes before the
+    optimizer), so each kernel's place comes from the device's own order.
+    The host counts the markers it launches; the trace must hold each
+    kind as often, opens and closes alternating. A trace that lacks a
+    marker the host launched (the profiler lost its record) is taken once
+    more, and said so; any other mismatch fails."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import common as cm
     from repro_torch.optim.adamw import AdamW
 
-    marks = torch.zeros(2, dtype=torch.int16, device="cuda")
+    marks = torch.zeros(3, dtype=torch.int16, device="cuda")
+    issued = {"open": 0, "close": 0, "optimizer": 0}
 
-    def mark():
-        marks[:1].bitwise_not_()
+    def mark(kind):
+        issued[kind] += 1
+        if kind == "open":
+            marks[:1].bitwise_not_()
+        elif kind == "close":
+            marks[1:2].bitwise_or_(1)
+        else:
+            marks[2:].bitwise_xor_(1)
 
     attn, apply_ = cm.chunked_attention, AdamW.apply_
 
     def traced_attn(q, k, v, **kw):
-        mark()
+        mark("open")
         out = attn(q, k, v, **kw)
-        mark()
+        mark("close")
         if out.requires_grad:
             left = [sum(t.requires_grad for t in (q, k, v))]
 
             def last(_):
                 left[0] -= 1
                 if left[0] == 0:
-                    mark()
-            out.register_hook(lambda _: mark())
+                    mark("close")
+            out.register_hook(lambda _: mark("open"))
             for t in (q, k, v):
                 if t.requires_grad:
                     t.register_hook(last)
         return out
 
     def traced_apply(self, *args):
-        marks[1:].bitwise_xor_(1)
+        mark("optimizer")
         return apply_(self, *args)
 
-    cm.chunked_attention, AdamW.apply_ = traced_attn, traced_apply
-    try:
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
+    def kind(name):
+        name = name.lower().replace("_", "")  # BitwiseXorFunctor, ...
+        return ("open" if "bitwisenot" in name
+                else "close" if "bitwiseor" in name
+                else "optimizer" if "bitwisexor" in name else None)
+
+    for attempt in (1, 2):
+        for k in issued:
+            issued[k] = 0
+        cm.chunked_attention, AdamW.apply_ = traced_attn, traced_apply
+        try:
             torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        cm.chunked_attention, AdamW.apply_ = attn, apply_
-    kernels = sorted((e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda e: e.time_range.start)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            cm.chunked_attention, AdamW.apply_ = attn, apply_
+        kernels = sorted((e for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA),
+                         key=lambda e: e.time_range.start)
+        seen = {k: 0 for k in issued}
+        for e in kernels:
+            if kind(e.name):
+                seen[kind(e.name)] += 1
+        if issued["open"] != issued["close"] or not issued["optimizer"]:
+            raise AssertionError(f"profile markers launched: {issued}")
+        if seen == issued:
+            break
+        if attempt == 2 or any(seen[k] > issued[k] for k in issued):
+            raise AssertionError(f"profile markers: launched {issued}, in "
+                                 f"the trace {seen}")
+        log(f"  the trace lacks {sum(issued.values()) - sum(seen.values())}"
+            f" of the {sum(issued.values())} marker kernels launched "
+            f"({seen} of {issued}): the profiler lost their records; "
+            f"profiling another step")
     groups: dict[str, float] = {}
     counts: dict[str, int] = {}
-    in_attn, in_opt, n_marks = False, False, 0
+    in_attn, in_opt = False, False
     for e in kernels:
-        name = e.name.lower().replace("_", "")   # BitwiseXorFunctor, ...
-        if "bitwisenot" in name:
-            in_attn, n_marks = not in_attn, n_marks + 1
+        what = kind(e.name)
+        if what in ("open", "close"):
+            if in_attn == (what == "open"):
+                raise AssertionError(f"profile markers: an attention window "
+                                     f"{what}s twice in a row")
+            in_attn = what == "open"
             continue
-        if "bitwisexor" in name:
+        if what == "optimizer":
             in_opt = True
             continue
         group = ("optimizer (AdamW.apply_)" if in_opt
@@ -4873,14 +4940,14 @@ def train_profile(torch, run) -> dict:
                  else _group(e.name))
         groups[group] = groups.get(group, 0.0) + e.time_range.elapsed_us()
         counts[group] = counts.get(group, 0) + 1
-    if in_attn or not in_opt or n_marks == 0:
-        raise AssertionError(f"profile markers: {n_marks} attention marks "
-                             f"(open at the end: {in_attn}), optimizer mark "
-                             f"seen: {in_opt}")
+    if in_attn or not issued["open"]:
+        raise AssertionError(f"profile markers: {issued['open']} attention "
+                             f"windows (open at the end: {in_attn})")
     busy = sum(groups.values()) / 1e3
     return dict(wall_ms=wall * 1e3, device_ms=busy,
                 groups_ms={g: us / 1e3 for g, us in groups.items()},
-                groups_count=counts, attention_windows=n_marks // 2)
+                groups_count=counts, attention_windows=issued["open"],
+                profiled_steps=attempt)
 
 
 def train_full(torch, lr: float = TRAIN_LR, profiled: bool = True,
@@ -5116,12 +5183,12 @@ def train_entry(torch) -> dict:
     try:                                 # main()'s parser, in this process
         train_mod.main()
         refused = ""
-    except SystemExit as e:
+    except ValueError as e:              # the production mesh's size error
         refused = str(e)
     finally:
         sys.argv = argv
         root.handlers[:], root.level = handlers, level
-    if "§A.4" not in refused:
+    if "needs a world of 256 ranks" not in refused:
         raise AssertionError(f"--production: {refused!r}")
     log(f"  python -m repro_torch.launch.train --steps {TRAIN_CLI_STEPS} (on "
         f"the card, its default; the straggler detector live) in "
@@ -5154,7 +5221,7 @@ def parity_inputs(torch, arch: str):
     cfg = train_cfg(arch, **TRAIN_PARITY[arch])
     params = family_module(cfg.family).init(
         cfg, torch.Generator(device="cuda").manual_seed(21), device="cuda")
-    b, s = TRAIN_PARITY_IN
+    b, s = TRAIN_PARITY_SEQ.get(arch, TRAIN_PARITY_IN)
     rng = np.random.default_rng(22)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s + 1),
                                          dtype=np.int32))
@@ -5224,7 +5291,7 @@ def train_parity(torch, arch: str) -> dict:
             p_over = max(p_over, (float(over.max()), name))
         split += int((~same).sum())
         n_all += same.numel()
-    b, s = TRAIN_PARITY_IN
+    b, s = TRAIN_PARITY_SEQ.get(arch, TRAIN_PARITY_IN)
     log(f"  {cfg.name} ({cfg.n_layers} layers"
         + (f" + {cfg.n_enc_layers} encoder" if cfg.n_enc_layers else "")
         + f" at full width), one step of {b} x {s} (n_micro 2), "
@@ -6034,6 +6101,252 @@ def phase_sharded_moe(torch) -> dict:
     return dict(ffn=ffn, runs=runs, seconds=secs)
 
 
+# --- phase 19: training over a ("data", "model") mesh ---------------------------
+
+# 19(a): train() over a mesh of one rank, 15(a)'s model and batches, fewer
+# steps for the script's time (15(a) runs 10; 4 until the whole script
+# passed 900 s with phase 19 at 4: 920.3 s): step 0 warms up, step 2 is
+# timed
+MESH_STEPS = 3
+MESH_WORK = ROOT / "build" / "chip_smoke_phase19"
+# 19(b): train() at smoke size with a checkpoint
+MESH_SMOKE = dict(smoke=True, steps=6, batch=8, seq=32, ckpt_every=3,
+                  lr=1e-3, seed=5)
+
+
+def _timed(torch, step, spans: list):
+    """``step`` with each call between CUDA events and host clocks, the
+    card synchronized before and after (the time of the whole step, host
+    dispatch included)."""
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = step(*args)
+        ev[1].record()
+        torch.cuda.synchronize()
+        spans.append((time.perf_counter() - t0, ev))
+        return out
+    return timed
+
+
+def _step_ms(spans: list) -> dict:
+    dev = [a.elapsed_time(b) for _, (a, b) in spans]
+    wall = [w * 1e3 for w, _ in spans]
+    steady = sorted(dev[TRAIN_TIMED_FROM:])
+    host = sorted(wall[TRAIN_TIMED_FROM:])
+    return dict(device_ms=steady[len(steady) // 2],
+                wall_ms=host[len(host) // 2], every_device_ms=dev,
+                every_wall_ms=wall)
+
+
+def mesh_train_full(torch) -> dict:
+    """19(a): granite-8b at full width, TRAIN_LAYERS layers, MESH_STEPS
+    steps of TRAIN_BATCH x TRAIN_SEQ tokens (n_micro TRAIN_MICRO) through
+    ``train()`` over the process group of this one rank: the (1, 1)
+    ("data", "model") mesh, every param and moment a DTensor placed by
+    ``param_specs`` / ZeRO-1 ``opt_state_specs``, the step with
+    ``grad_specs`` (``sharding.pin_grad`` counted). Then the same params
+    (seed 0), schedule and batches through 15(a)'s plain step. The losses
+    within TRAIN_LOSS_TOL (relative) of each other; ms a step of each,
+    device (CUDA events) and wall (host clock around a synchronized step:
+    the DTensor path's host dispatch shows there); peak memory of each."""
+    from repro_torch.data.pipeline import DataConfig, Prefetcher, make_source
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import train as train_mod
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import family_module
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.optim.schedule import warmup_cosine
+
+    cfg = train_cfg(TRAIN_ARCH, n_layers=TRAIN_LAYERS)
+    mesh_spans, plain_spans, pins = [], [], [0]
+    make, get, pin = (train_mod.make_train_step, train_mod.get_config,
+                      sh.pin_grad)
+
+    def counted_pin(w, spec):
+        pins[0] += 1
+        return pin(w, spec)
+
+    train_mod.make_train_step = lambda *a, **kw: _timed(
+        torch, make(*a, **kw), mesh_spans)
+    train_mod.get_config = lambda arch, smoke=True: cfg
+    sh.pin_grad = counted_pin
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        r = train_mod.train(TRAIN_ARCH, smoke=False, steps=MESH_STEPS,
+                            batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                            n_micro=TRAIN_MICRO, lr=TRAIN_LR, seed=0,
+                            device="cuda")
+    finally:
+        train_mod.make_train_step, train_mod.get_config = make, get
+        sh.pin_grad = pin
+    t_mesh = time.perf_counter() - t0
+    peak_mesh = torch.cuda.max_memory_allocated() / 2**30
+    params, state = r["params"], r["opt_state"]
+    mesh = sh.leaves_with_path(params)[0][1].device_mesh
+    pspecs = sh.param_specs(params, mesh)
+    specs = (pspecs, sh.opt_state_specs(state, pspecs, mesh, zero1=True))
+    got = sh.leaves_with_path((params, state))
+    wrong = [p for (p, x), (_, spec) in zip(got, sh.leaves_with_path(specs))
+             if not sh.is_dtensor(x)
+             or list(x.placements) != sh.placements(spec, mesh)]
+    if (tuple(mesh.shape) != (1, 1) or wrong or not pins[0]
+            or tuple(mesh.mesh_dim_names) != ("data", "model")):
+        raise AssertionError(f"19(a): mesh {tuple(mesh.shape)}, leaves not "
+                             f"placed by the specs {wrong[:4]}, pin_grad "
+                             f"calls {pins[0]}")
+    mesh_losses = list(r["losses"])
+    del r, params, state, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = family_module(cfg.family).init(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    opt = AdamW(lr=warmup_cosine(TRAIN_LR, MESH_STEPS // 10 + 1, MESH_STEPS))
+    state = opt.init(params)
+    step = _timed(torch, make_train_step(cfg, opt, n_micro=TRAIN_MICRO),
+                  plain_spans)
+    pf = Prefetcher(make_source(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        global_batch=TRAIN_BATCH, seed=0)))
+    plain_losses = []
+    try:
+        for i in range(MESH_STEPS):
+            got_step, host = pf.next()
+            assert got_step == i, (got_step, i)
+            batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+            params, state, met = step(params, state, batch)
+            plain_losses.append(float(met["loss"]))
+    finally:
+        pf.close()
+    t_plain = time.perf_counter() - t0
+    peak_plain = torch.cuda.max_memory_allocated() / 2**30
+    del params, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    gap = max(abs(a - b) / abs(b) for a, b in zip(mesh_losses, plain_losses))
+    mesh_ms, plain_ms = _step_ms(mesh_spans), _step_ms(plain_spans)
+    log(f"  {cfg.name} ({TRAIN_LAYERS} layers, full width), {MESH_STEPS} "
+        f"steps of {TRAIN_BATCH} x {TRAIN_SEQ} (n_micro {TRAIN_MICRO}): "
+        f"train() over the (1, 1) mesh {t_mesh:.1f} s, {pins[0]} pin_grad "
+        f"calls; loss {[round(x, 5) for x in mesh_losses]}; the plain step "
+        f"{[round(x, 5) for x in plain_losses]}; largest relative gap "
+        f"{gap:.3e} (tol {TRAIN_LOSS_TOL:.2e})")
+    log(f"  ms a step (median of steps {TRAIN_TIMED_FROM}..{MESH_STEPS - 1}"
+        f"): DTensor path device {mesh_ms['device_ms']:.1f}, wall "
+        f"{mesh_ms['wall_ms']:.1f}; plain device {plain_ms['device_ms']:.1f}"
+        f", wall {plain_ms['wall_ms']:.1f}; every step (device) "
+        f"{[round(x, 1) for x in mesh_ms['every_device_ms']]} / "
+        f"{[round(x, 1) for x in plain_ms['every_device_ms']]}; peak "
+        f"{peak_mesh:.2f} / {peak_plain:.2f} GiB (one rank: no scaling)")
+    bad = [x for x in mesh_losses + plain_losses if not math.isfinite(x)]
+    if bad or gap > TRAIN_LOSS_TOL:
+        raise AssertionError(f"19(a): losses {mesh_losses} (mesh) vs "
+                             f"{plain_losses} (plain)")
+    return dict(layers=TRAIN_LAYERS, steps=MESH_STEPS, mesh_losses=mesh_losses,
+                plain_losses=plain_losses, loss_gap=gap, pin_grad_calls=pins[0],
+                mesh=mesh_ms, plain=plain_ms, peak_gib=peak_mesh,
+                plain_peak_gib=peak_plain, mesh_s=t_mesh, plain_s=t_plain)
+
+
+def mesh_checkpoint(torch) -> dict:
+    """19(b): ``train()`` at smoke size (MESH_SMOKE) over the one rank's
+    mesh with a checkpoint; ``remesh_restore`` of it onto ``plan_mesh(1)``
+    and, with the process group torn down, the plain ``train()``'s resume
+    of it (nothing left to do): both bit-equal to the run's final state.
+    ``train(production=True)`` on the one card raises the production
+    mesh's size error."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import family_module
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.runtime.elastic import remesh_restore
+
+    shutil.rmtree(MESH_WORK, ignore_errors=True)
+    n = MESH_SMOKE["steps"]
+    r = train_mod.train(TRAIN_ARCH, ckpt_dir=str(MESH_WORK), device="cuda",
+                        **MESH_SMOKE)
+    final = {p: x.full_tensor().clone() for p, x in sh.leaves_with_path(
+        (r["params"], r["opt_state"]))}
+    del r
+    cfg = get_config(TRAIN_ARCH, smoke=True)
+    params = family_module(cfg.family).init(
+        cfg, torch.Generator(device="cuda").manual_seed(1), device="cuda")
+    state, es = remesh_restore(CheckpointManager(MESH_WORK),
+                               (params, AdamW().init(params)), 1,
+                               device="cuda")
+    remeshed = [p for p, x in sh.leaves_with_path(state)
+                if not torch.equal(x.full_tensor(), final[p])]
+    try:
+        train_mod.train(TRAIN_ARCH, production=True, device="cuda")
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    dist.destroy_process_group()
+    r2 = train_mod.train(TRAIN_ARCH, ckpt_dir=str(MESH_WORK), device="cuda",
+                         **MESH_SMOKE)
+    plain = [p for p, x in sh.leaves_with_path((r2["params"],
+                                                r2["opt_state"]))
+             if sh.is_dtensor(x) or not torch.equal(x, final[p])]
+    shutil.rmtree(MESH_WORK, ignore_errors=True)
+    log(f"  train() at smoke ({n} steps, checkpoint every "
+        f"{MESH_SMOKE['ckpt_every']}) over the mesh; remesh_restore onto "
+        f"plan_mesh(1) = {tuple(es.mesh.shape)} at step {es.step}: "
+        f"{len(final) - len(remeshed)} of {len(final)} leaves bit-equal; the "
+        f"plain train() resumed at step {r2['start_step']}: "
+        f"{len(final) - len(plain)} of {len(final)} bit-equal; --production: "
+        f"{refused!r}")
+    if (remeshed or plain or es.step != n - 1 or r2["start_step"] != n
+            or tuple(es.mesh.shape) != (1, 1)
+            or "needs a world of 256 ranks" not in refused):
+        raise AssertionError(f"19(b): remeshed {remeshed[:4]}, plain "
+                             f"{plain[:4]}, refused {refused!r}")
+    return dict(leaves=len(final), remesh_step=es.step,
+                resumed_at=r2["start_step"], production=refused)
+
+
+def phase_mesh_train(torch) -> dict:
+    """Phase 19: training over a ("data", "model") mesh on one rank (an
+    ``nccl`` process group of one on cuda:0): (a) the full-width step
+    through ``train()``'s mesh path against the plain step, (b) the
+    checkpoint across meshes and ``--production``'s refusal. No 19(c):
+    ``gloo`` on this torch crashes in DTensor's all-gather of CUDA tensors
+    (``_functional_collectives.all_gather_tensor``), and NCCL takes one
+    rank a card, so several ranks on the one card are held by the CPU tests
+    only (PERF.md §7)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_distributed
+
+    t0 = time.perf_counter()
+    init_distributed("cuda")
+    try:
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise AssertionError(f"19: process group {dist.get_backend()} "
+                                 f"of {dist.get_world_size()}")
+        full = mesh_train_full(torch)
+        ckpt = mesh_checkpoint(torch)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    secs = time.perf_counter() - t0
+    log(f"  phase 19 in {secs:.1f} s")
+    return dict(full=full, checkpoint=ckpt, seconds=secs)
+
+
 class PhaseClock:
     """The wall seconds of each phase, from its heading to the next one's
     (the ``phase_seconds`` JSON line): the script must end well inside its
@@ -6200,6 +6513,12 @@ def main() -> int:
                 "qwen3-moe-30b-a3b (4 layers) at 1, 2 and 3 shards on one "
                 "card")
     shard_moe = phase_sharded_moe(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    clock.start("19", "phase 19: training over a (data, model) mesh, one "
+                "rank: granite-8b at full width through train() against the "
+                "plain step; the checkpoint across meshes")
+    mesh_train = phase_mesh_train(torch)
     clock.stop()
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s; seconds "
         f"a phase: {clock.seconds}")
@@ -6212,6 +6531,7 @@ def main() -> int:
     print(json.dumps({"dryrun": dry_res}), flush=True)
     print(json.dumps({"sharded": shard_res}), flush=True)
     print(json.dumps({"sharded_moe": shard_moe}), flush=True)
+    print(json.dumps({"mesh_train": mesh_train}), flush=True)
     print(json.dumps({"phase_seconds": clock.seconds}), flush=True)
 
     step = serve["ecdp_step"]

@@ -17,6 +17,13 @@ Guarantees:
   * async: ``save_async`` snapshots to host memory synchronously and
     writes in a background thread.
   * retention: keep the last ``keep`` checkpoints.
+  * sharded state: a state with DTensor leaves (training over a mesh) is
+    saved by every rank of the process group together: each leaf's full
+    value is gathered (``full_tensor``) in the calling thread, rank 0
+    writes the same bytes as an unsharded save, and the others wait for it
+    at a barrier (after ``save``, or at the ``wait`` that joins a
+    ``save_async``). ``restore(template, placements=, mesh=)`` puts the
+    arrays onto a mesh (the reference's ``shardings=``).
 
 A state is a tree of nested dicts, tuples, NamedTuples (the optimizer's
 ``AdamWState``), lists, ``None`` and ``FlashWeight``s over tensor (or
@@ -42,8 +49,10 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.tiering import FlashWeight
+from repro_torch.launch.sharding import distribute, is_dtensor
 
 # npz cannot round-trip bf16 / fp8 (numpy has no such dtypes): they are
 # stored as a same-width integer view, named in the manifest by the JAX
@@ -164,6 +173,7 @@ class CheckpointManager:
         self.keep = keep
         self._lock = threading.Lock()
         self._pending: threading.Thread | None = None
+        self._barrier = False       # a sharded save_async not yet joined
 
     # --- save ------------------------------------------------------------------
 
@@ -171,23 +181,42 @@ class CheckpointManager:
         return self.root / f"step_{step:08d}"
 
     def _snapshot(self, state: Any):
+        """(host leaves or None, treedef token, sharded): a sharded state's
+        leaves are gathered on every rank (a collective), and only rank 0
+        keeps host copies (it alone writes)."""
         leaves, token = _flatten(state)
+        sharded = any(is_dtensor(x) for x, _ in leaves)
+        if sharded:
+            full = [(x.full_tensor() if is_dtensor(x) else x, w)
+                    for x, w in leaves]
+            if dist.get_rank() != 0:
+                return None, token, True
+            leaves = full
         host = [_to_host(*x) for x in leaves]       # device->host snapshot
-        return host, token
+        return host, token, sharded
 
     def save(self, step: int, state: Any, extras: dict | None = None):
         """Blocking save. ``state`` is any tree of tensors (see above).
         Joins a pending ``save_async`` first, so an older step's write never
-        lands after this one's (LATEST would go back to it)."""
+        lands after this one's (LATEST would go back to it). A sharded
+        state: every rank calls it, and it returns on each once the write
+        is durable."""
         self.wait()
-        host, token = self._snapshot(state)
-        self._write(step, host, token, extras or {})
+        host, token, sharded = self._snapshot(state)
+        if host is not None:
+            self._write(step, host, token, extras or {})
+        if sharded:
+            dist.barrier()
 
     def save_async(self, step: int, state: Any, extras: dict | None = None):
         """Snapshot now, write in background. Joins any previous pending write
-        first (at most one write in flight — bounded host memory)."""
+        first (at most one write in flight — bounded host memory). A
+        sharded state: every rank calls it (and, later, ``wait``)."""
         self.wait()
-        host, token = self._snapshot(state)
+        host, token, sharded = self._snapshot(state)
+        self._barrier = sharded
+        if host is None:
+            return
 
         def work():
             self._write(step, host, token, extras or {})
@@ -199,6 +228,9 @@ class CheckpointManager:
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
 
     def _write(self, step: int, host_leaves, token: str, extras: dict):
         with self._lock:
@@ -249,9 +281,16 @@ class CheckpointManager:
         return max(steps) if steps else None
 
     def restore(self, template: Any, step: int | None = None,
-                device="cuda") -> tuple[Any, dict]:
+                device="cuda", placements: Any = None,
+                mesh=None) -> tuple[Any, dict]:
         """Restore into the structure of ``template`` (its leaves are read
-        for nothing but their place), every tensor on ``device``."""
+        for nothing but their place), every tensor on ``device``; with a
+        ``mesh`` (a ``DeviceMesh``) every tensor a DTensor on it with the
+        placements of its leaf in ``placements`` (a tree of
+        ``launch.sharding.named``'s, the template's structure): each rank
+        reads the full arrays and keeps its own shards."""
+        if mesh is not None:
+            device = mesh.device_type
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -266,4 +305,6 @@ class CheckpointManager:
         if len(host) != len(t_leaves):
             raise ValueError("leaf count mismatch")
         out = _unflatten(template, host, manifest["dtypes"], device)
+        if mesh is not None:
+            out = distribute(out, placements, mesh)
         return out, manifest["extras"]

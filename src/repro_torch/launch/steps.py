@@ -8,9 +8,15 @@ each stacked (L, ...) param (under the family module's ``STACKED``
 subtrees) is handed to the loss as L detached views of
 its storage (``models.dense.layer_slice`` indexes a list as it indexes
 the stack), so a layer's backward writes its own gradient and never a
-full-stack zero buffer. The reference's ``grad_specs`` (a sharding
-argument) is not taken: sharding waits with tensor parallelism (ROADMAP
-§A.4).
+full-stack zero buffer.
+
+Over a ("data", "model") mesh (``launch/sharding.py``) the params, the
+moments and the batch are DTensors and the step runs inside
+``sharding.use_mesh``: ``grad_specs`` (the params' specs) puts every
+weight through ``sharding.pin_grad``, so each layer's gradient arrives in
+its param's shards; the accumulators carry the params' placements, and a
+gradient is added into its accumulator's local shards. The microbatch
+split keeps the batch dim data-sharded.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import weakref
 import torch
 
 from repro_torch import graphs
+from repro_torch.launch import sharding as sh
 from repro_torch.models import family_module
 from repro_torch.optim.adamw import AdamW, tree_leaves, tree_map
 
@@ -31,40 +38,66 @@ def make_loss_fn(cfg):
     return loss_fn
 
 
-def _grad_leaves(params, stacked_keys):
+def _grad_leaves(params, stacked_keys, grad_specs=None):
     """(the params as the loss sees them, their grad leaves): every leaf a
     detached tensor requiring grad, one under a ``stacked_keys`` subtree as
     a list of per-layer views. The leaves list holds, per param leaf in
-    sorted-key order, (its parts, whether it is stacked)."""
+    sorted-key order, (its parts, whether it is stacked). With
+    ``grad_specs`` the loss sees each part through ``sharding.pin_grad``
+    (a layer's part with its stack's spec less the layer dim)."""
     leaves = []
 
-    def rec(t, stacked):
+    def rec(t, spec, stacked):
         if isinstance(t, dict):
             out = {k: None for k in t}
             for k in sorted(t):
-                out[k] = rec(t[k], stacked)
+                out[k] = rec(t[k], None if spec is None else spec[k], stacked)
             return out
         if stacked:
             parts = [t[i].detach().requires_grad_() for i in range(len(t))]
             leaves.append((parts, True))
-            return parts
+            if spec is None:
+                return parts
+            return [sh.pin_grad(x, tuple(spec)[1:]) for x in parts]
         leaves.append(([t.detach().requires_grad_()], False))
-        return leaves[-1][0][0]
+        x = leaves[-1][0][0]
+        return x if spec is None else sh.pin_grad(x, tuple(spec))
 
     tree = {k: None for k in params}
     for k in sorted(params):
-        tree[k] = rec(params[k], k in stacked_keys)
+        tree[k] = rec(params[k], None if grad_specs is None else grad_specs[k],
+                      k in stacked_keys)
     return tree, leaves
 
 
-def accumulate_grads(cfg, params, batch, into) -> torch.Tensor:
+def _add_part(acc, j, g):
+    """acc (or its layer ``j``) += g. A DTensor gradient is brought to the
+    accumulator's placements (a layer's: the stack's, one dim down) and
+    added into the accumulator's local shards."""
+    if not sh.is_dtensor(acc):
+        (acc if j is None else acc[j]).add_(g.to(acc.dtype))
+        return
+    from torch.distributed.tensor import Shard
+    pls = acc.placements if j is None else [
+        Shard(p.dim - 1) if isinstance(p, Shard) else p
+        for p in acc.placements]
+    local = g.redistribute(acc.device_mesh, pls).to_local()
+    dst = acc.to_local()
+    (dst if j is None else dst[j]).add_(local.to(acc.dtype))
+
+
+def accumulate_grads(cfg, params, batch, into, grad_specs=None
+                     ) -> torch.Tensor:
     """The loss ``train_loss(cfg, params, batch)``, detached; its gradient
     is ADDED into ``into`` (a tree of the params' structure and shapes, in
     any float dtype), one part at a time as autograd hands it over (a
     stacked leaf's parts per layer), an unused leaf's part adding nothing.
+    ``grad_specs``: the params' specs, every weight pinned to them
+    (``_grad_leaves``); DTensor params and accumulators are called inside
+    ``sharding.use_mesh``. The loss is a plain tensor on every rank.
     """
     mod = family_module(cfg.family)
-    tree, leaves = _grad_leaves(params, mod.STACKED)
+    tree, leaves = _grad_leaves(params, mod.STACKED, grad_specs)
     flat = [x for parts, _ in leaves for x in parts]
     with torch.enable_grad():
         loss = mod.train_loss(cfg, tree, batch)
@@ -76,14 +109,19 @@ def accumulate_grads(cfg, params, batch, into) -> torch.Tensor:
             g, gs[n] = gs[n], None        # freed as soon as it is added
             n += 1
             if g is not None:
-                (acc[j] if stacked else acc).add_(g.to(acc.dtype))
-    return loss.detach()
+                _add_part(acc, j if stacked else None, g)
+    loss = loss.detach()
+    return loss.full_tensor() if sh.is_dtensor(loss) else loss
 
 
 def grads_like(params, dtype=None):
-    """Zeros of the params' shapes, in ``dtype`` (default: each param's)."""
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=dtype or p.dtype,
-                                          device=p.device), params)
+    """Zeros of the params' shapes, in ``dtype`` (default: each param's);
+    a DTensor param's with its placements."""
+    def zeros(p):
+        if sh.is_dtensor(p):
+            return torch.zeros_like(p, dtype=dtype or p.dtype)
+        return torch.zeros(p.shape, dtype=dtype or p.dtype, device=p.device)
+    return tree_map(zeros, params)
 
 
 def value_and_grad(cfg, params, batch):
@@ -176,7 +214,18 @@ def make_decode_step(cfg, compiled: bool = False):
     return step
 
 
-def make_train_step(cfg, opt: AdamW, n_micro: int = 1,
+def _microbatch(v, n_micro: int, i: int):
+    """Rows [i * B/n_micro, (i+1) * B/n_micro) of batch leaf ``v``; a
+    DTensor's taken from its whole value (token ids: small) and put back
+    in ``v``'s placements, so the microbatch stays batch-sharded (the
+    reference's constraint on the split)."""
+    m = v.shape[0] // n_micro
+    if not sh.is_dtensor(v):
+        return v.reshape((n_micro, m) + tuple(v.shape[1:]))[i]
+    return sh.like(sh.whole(v)[i * m:(i + 1) * m], v)
+
+
+def make_train_step(cfg, opt: AdamW, n_micro: int = 1, grad_specs=None,
                     accum_dtype=torch.float32):
     """step(params, opt_state, batch) -> (params, opt_state, metrics).
 
@@ -188,16 +237,20 @@ def make_train_step(cfg, opt: AdamW, n_micro: int = 1,
     state's moments are written IN PLACE (the port's counterpart of the
     reference's donated buffers), so a caller that needs the old ones
     passes copies; the returned params are the tensors passed in, which do
-    not require grad (an engine can serve them)."""
+    not require grad (an engine can serve them).
+
+    Over a mesh: params, moments and batch are DTensors
+    (``sharding.distribute``), ``grad_specs`` the params' specs
+    (``sharding.param_specs``), and the caller enters
+    ``sharding.use_mesh``; the metrics' loss is a plain tensor."""
 
     def step(params, opt_state, batch):
         grads = grads_like(params, None if n_micro == 1 else accum_dtype)
         losses = []
         for i in range(n_micro):
-            mb = {k: v.reshape((n_micro, v.shape[0] // n_micro)
-                               + tuple(v.shape[1:]))[i]
-                  for k, v in batch.items()}
-            losses.append(accumulate_grads(cfg, params, mb, grads))
+            mb = {k: _microbatch(v, n_micro, i) for k, v in batch.items()}
+            losses.append(accumulate_grads(cfg, params, mb, grads,
+                                           grad_specs))
         loss = losses[0]
         if n_micro > 1:
             loss = torch.zeros((), dtype=torch.float32, device=loss.device)

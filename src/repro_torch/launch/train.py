@@ -4,29 +4,41 @@ checkpointing, end to end — the port of ``repro/launch/train.py``.
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-32b \
         --smoke --steps 30 --batch 8 --seq 64 --ckpt /tmp/ckpt
 
-It trains on ``--device`` (``cuda`` unless ``--device cpu``), one device:
-the reference's single-host path (``production=False``, whose host mesh
-is one device here, so its sharding is the identity). ``--production``
-(the reference's multi-pod mesh) raises ``SystemExit``: it waits with
-tensor parallelism (ROADMAP §A.4). Restart-resume is exact: the data
-pipeline is step-functional and the checkpoint stores (params, opt_state)
-and the step, in the JAX package's on-disk format. Params come from the
-family's ``init`` seeded by ``seed`` (the two packages draw different
-numbers; the batches are the same).
+It trains on ``--device`` (``cuda`` unless ``--device cpu``). Alone, with
+no process group, it trains on that one device with plain tensors. Over a
+process group (``torchrun --nproc-per-node N -m repro_torch.launch.train
+...``, or a caller that made one) it follows the reference: the host mesh
+(world, 1) ("data", "model") (``--production``: the 16 x 16 mesh, which
+needs a world of 256 ranks and raises on any other), the params' specs
+and the ZeRO-1 moments' (``launch/sharding.py``), params and moments
+distributed as DTensors, the step with ``grad_specs`` inside
+``sharding.use_mesh``, and the restore onto the mesh. Every rank draws the
+same params from ``seed`` and the same step's batch, and keeps its
+shards. Restart-resume is exact: the data pipeline is step-functional and
+the checkpoint stores (params, opt_state) and the step, in the JAX
+package's on-disk format (rank 0 writes it; a mesh's checkpoint is the
+same bytes as one device's). Params come from the family's ``init``
+seeded by ``seed`` (the two packages draw different numbers; the batches
+are the same).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import logging
 import math
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig, Prefetcher, make_source
+from repro_torch.launch import sharding as sh
+from repro_torch.launch.mesh import (init_distributed, make_host_mesh,
+                                     make_production_mesh, under_torchrun)
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models import family_module
 from repro_torch.optim.adamw import AdamW
@@ -61,10 +73,11 @@ def train(arch: str, smoke: bool = True, steps: int = 20, batch: int = 8,
           production: bool = False, resume: bool = True, lr: float = 3e-3,
           n_micro: int = 1, seed: int = 0, fault_hook=None,
           device="cuda") -> dict:
+    mesh = None
     if production:
-        raise SystemExit("--production (the multi-pod mesh) waits with "
-                         "tensor parallelism (ROADMAP §A.4); the port "
-                         "trains on one device")
+        mesh = make_production_mesh(device=device)
+    elif dist.is_initialized():
+        mesh = make_host_mesh(device=device)
     cfg = get_config(arch, smoke=smoke)
     mod = family_module(cfg.family)
 
@@ -72,20 +85,32 @@ def train(arch: str, smoke: bool = True, steps: int = 20, batch: int = 8,
     params = mod.init(cfg, torch.Generator(device=device).manual_seed(seed),
                       device=device)
     opt_state = opt.init(params)
-    train_step = make_train_step(cfg, opt, n_micro=n_micro)
+    pspecs, where = None, {"device": device}
+    if mesh is not None:
+        pspecs = sh.param_specs(params, mesh)
+        named_p = sh.named(pspecs, mesh)
+        named_o = sh.named(sh.opt_state_specs(opt_state, pspecs, mesh,
+                                              zero1=True), mesh)
+        params = sh.distribute(params, named_p, mesh)
+        opt_state = sh.distribute(opt_state, named_o, mesh)
+        where = {"placements": (named_p, named_o), "mesh": mesh}
+    train_step = make_train_step(cfg, opt, n_micro=n_micro,
+                                 grad_specs=pspecs)
 
     def step_fn(*args):
         # the loss read back inside the call the executor times: on the
         # card the read waits for the whole step, so the straggler
         # detector sees the device's time, not that of the launches
-        params, opt_state, metrics = train_step(*args)
+        with (sh.use_mesh(mesh) if mesh is not None
+              else contextlib.nullcontext()):
+            params, opt_state, metrics = train_step(*args)
         return params, opt_state, {**metrics, "loss": float(metrics["loss"])}
 
     manager = CheckpointManager(ckpt_dir) if ckpt_dir else None
     start_step = 0
     if manager and resume and manager.latest_step() is not None:
         (params, opt_state), extras = manager.restore((params, opt_state),
-                                                      device=device)
+                                                      **where)
         start_step = int(extras["step"]) + 1
         log.info("resumed from step %d", start_step - 1)
 
@@ -96,7 +121,7 @@ def train(arch: str, smoke: bool = True, steps: int = 20, batch: int = 8,
     def restore_from_ckpt():
         # the reference's hook: reloads the checkpoint, and the executor
         # retries with the current arguments
-        manager.restore((params, opt_state), device=device)
+        manager.restore((params, opt_state), **where)
         return None
 
     executor = FaultTolerantExecutor(
@@ -112,6 +137,9 @@ def train(arch: str, smoke: bool = True, steps: int = 20, batch: int = 8,
             assert dstep == step, (dstep, step)
             batch_dict = {k: torch.from_numpy(v).to(device) for k, v in
                           _to_batch(cfg, host_batch, seq, cfg.d_model).items()}
+            if mesh is not None:       # each rank keeps its data shard
+                batch_dict = sh.distribute(batch_dict, sh.named(
+                    sh.batch_specs(batch_dict, mesh), mesh), mesh)
             params, opt_state, metrics = executor.run_step(
                 step, params, opt_state, batch_dict)
             losses.append(metrics["loss"])
@@ -151,12 +179,19 @@ def main():
                     help="where the model trains")
     args = ap.parse_args()
     logging.basicConfig(level=logging.INFO)
-    out = train(args.arch, smoke=args.smoke, steps=args.steps,
-                batch=args.batch, seq=args.seq, ckpt_dir=args.ckpt,
-                production=args.production, lr=args.lr, n_micro=args.n_micro,
-                device=args.device)
-    print(f"loss: {out['losses'][0]:.4f} -> {out['losses'][-1]:.4f} "
-          f"({out['seconds']:.1f}s)")
+    if under_torchrun():                 # each rank joins the process group
+        init_distributed(args.device)
+    try:
+        out = train(args.arch, smoke=args.smoke, steps=args.steps,
+                    batch=args.batch, seq=args.seq, ckpt_dir=args.ckpt,
+                    production=args.production, lr=args.lr,
+                    n_micro=args.n_micro, device=args.device)
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            print(f"loss: {out['losses'][0]:.4f} -> "
+                  f"{out['losses'][-1]:.4f} ({out['seconds']:.1f}s)")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

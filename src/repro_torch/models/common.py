@@ -23,8 +23,47 @@ from repro_torch.kernels.decode_attn import (decode_attention_state,
                                              group_decode_queries)
 from repro_torch.kernels.paged_attn import (paged_attention_state,
                                             paged_attention_state_plain)
+from repro_torch.launch import sharding as sh
 
 DEFAULT_KV_BLOCK = 1024
+
+
+# --- sharding pins (identities outside a mesh) ------------------------------
+
+def pin_layer_grads(lp):
+    """Every weight (ndim >= 2) of a layer's param dict ``lp`` through
+    ``sharding.pin_grad`` to its rule's spec, at the top of the layer body:
+    each layer's weight gradient is brought to the weight's shards where it
+    is made (a reduce-scatter), not all-reduced whole. ``lp`` itself
+    outside a mesh (``sharding.use_mesh``)."""
+    mesh = sh.current_mesh()
+    if mesh is None:
+        return lp
+
+    def one(path, w):
+        if w.ndim < 2:
+            return w
+        return sh.pin_grad(w, sh.spec_for_param(path, tuple(w.shape), mesh))
+
+    return sh.map_with_path(one, lp)
+
+
+def embed_rows(table, ids):
+    """``table[ids]``: the rows of an embedding table. A DTensor table
+    (training over a mesh) is read whole on every rank at its own ids
+    (``sharding.gather_rows``)."""
+    if sh.is_dtensor(table):
+        return sh.gather_rows(table, ids)
+    return table[ids.long()]
+
+
+def pin_batch(x):
+    """The residual stream ``x`` (B, ...) kept batch-sharded over the data
+    axes at the top of each layer body, so that no layer's activations
+    replicate across data. ``x`` itself outside a mesh. (The reference's
+    optimization barrier and its sequence-sharded residual knob are XLA's
+    concerns and have no counterpart here.)"""
+    return sh.constrain(x, sh.DATA_AXES, *([None] * (x.ndim - 1)))
 
 # --- initializers -----------------------------------------------------------
 # Same shapes, distributions and scales as the JAX initializers; the numbers
@@ -143,7 +182,15 @@ def chunked_attention(q, k, v, causal: bool = True, q_offset: int = 0,
     Scores are f32 sums of products of q (scaled in f32, rounded to the K/V
     dtype) and K; p stays f32 against an f32 V block. A fully masked row
     carries m = 0, as the reference's scan does.
+
+    DTensor q / k / v (training over a mesh) run on each rank's own batch
+    rows and heads (``sharding.per_shard``): every (row, head) attends by
+    itself, so the loop runs on local tensors.
     """
+    if sh.is_dtensor(q):
+        return sh.per_shard(chunked_attention, (0, 2), q, k, v,
+                            causal=causal, q_offset=q_offset, window=window,
+                            kv_block=kv_block)
     b, sq, h, dh = q.shape
     skv, n_kv = k.shape[1], k.shape[2]
     n_rep = h // n_kv
@@ -357,12 +404,15 @@ def qkv_project(p, x, cfg: AttnConfig, positions):
     """x: (B, S, D) -> q (B,S,H,Dh), k/v (B,S,KV,Dh) with rope + qk-norm;
     the projections through ``maybe_flash_matmul`` (DRAM or flash tier)."""
     b, s, _ = x.shape
-    q = maybe_flash_matmul(x, p["wq"]).reshape(b, s, cfg.n_heads,
-                                               cfg.head_dim)
-    k = maybe_flash_matmul(x, p["wk"]).reshape(b, s, cfg.n_kv_heads,
-                                               cfg.head_dim)
-    v = maybe_flash_matmul(x, p["wv"]).reshape(b, s, cfg.n_kv_heads,
-                                               cfg.head_dim)
+
+    def heads(w, n):
+        # a DTensor projection whose "model" shards cannot split its n heads
+        # whole is gathered first (GQA's few KV heads on a wide mesh)
+        y = sh.fit_dim(maybe_flash_matmul(x, w), x.ndim - 1, n)
+        return y.reshape(b, s, n, cfg.head_dim)
+    q = heads(p["wq"], cfg.n_heads)
+    k = heads(p["wk"], cfg.n_kv_heads)
+    v = heads(p["wv"], cfg.n_kv_heads)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
@@ -414,7 +464,13 @@ def gelu_ffn_apply(p, x, partial: bool = False):
 
 def softmax_xent(logits, labels):
     """Mean token cross-entropy in f32; logits (B, S, V) any float dtype;
-    labels (B, S)."""
+    labels (B, S). Logits that are a DTensor (sharded over the vocabulary
+    by ``lm_head``'s "model" rule) are first brought to batch shards over
+    the data axes, whole along every other dim, so the gold logit's gather
+    reads one shard."""
+    if sh.is_dtensor(logits):
+        logits = sh.redistribute(logits, sh.P(
+            sh.DATA_AXES, *([None] * (logits.ndim - 1))))
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]

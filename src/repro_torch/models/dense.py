@@ -72,6 +72,8 @@ def _final_norm(cfg, params, x):
 
 def _layer_fwd(cfg, x, lp, positions, collect_kv=True, ffn=dense_ffn):
     """Full-sequence layer forward; returns (x, (k, v) or None)."""
+    x = cm.pin_batch(x)
+    lp = cm.pin_layer_grads(lp)
     h = _norm(cfg, x, lp, "ln1")
     q, k, v = cm.qkv_project(lp["attn"], h, attn_cfg(cfg), positions)
     attn = cm.chunked_attention(q, k, v, causal=True, window=cfg.local_window)
@@ -83,9 +85,9 @@ def _layer_fwd(cfg, x, lp, positions, collect_kv=True, ffn=dense_ffn):
 
 
 def _embed(cfg, params, tokens, positions, extra_embeds=None):
-    x = params["embed"][tokens.long()]
+    x = cm.embed_rows(params["embed"], tokens)
     if not cfg.use_rope and "pos_embed" in params:
-        x = x + params["pos_embed"][positions.long()]
+        x = x + cm.embed_rows(params["pos_embed"], positions)
     if extra_embeds is not None:  # VLM: prepend patch embeddings (stub frontend)
         x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
     return x

@@ -91,7 +91,8 @@ def encode(cfg, params, src_embeds, remat=True):
     positions = torch.arange(x.shape[1], device=x.device)
 
     def layer(x, li):
-        lp = layer_slice(params["enc"], li)
+        x = cm.pin_batch(x)
+        lp = cm.pin_layer_grads(layer_slice(params["enc"], li))
         h = cm.rms_norm(x, lp["ln1"])
         q, k, v = cm.qkv_project(lp["attn"], h, dense.attn_cfg(cfg),
                                  positions)
@@ -125,6 +126,8 @@ def _cross_attend(cfg, p, x, enc_kv):
 
 
 def _dec_layer(cfg, x, lp, enc_out, positions):
+    x = cm.pin_batch(x)
+    lp = cm.pin_layer_grads(lp)
     h = cm.rms_norm(x, lp["ln1"])
     q, k, v = cm.qkv_project(lp["attn"], h, dense.attn_cfg(cfg), positions)
     attn = cm.chunked_attention(q, k, v, causal=True)
@@ -146,7 +149,7 @@ def forward(cfg, params, src_embeds, tgt_tokens, remat=True,
     remat = remat and not return_cache
     enc_out = encode(cfg, params, src_embeds, remat=remat)
     positions = torch.arange(tgt_tokens.shape[1], device=tgt_tokens.device)
-    x = params["embed"][tgt_tokens.long()]
+    x = cm.embed_rows(params["embed"], tgt_tokens)
 
     def layer(x, li):
         return _dec_layer(cfg, x, layer_slice(params["dec"], li), enc_out,

@@ -10,8 +10,9 @@ as in the reference:
     from an exclusive cumsum of the counts, assignments at rank >=
     capacity to a trash row; tokens go into an (E, C+1, D) buffer, every
     expert runs on its C+1 rows, and a gather brings them back, gate-
-    weighted and summed over the k copies. Outside a mesh the reference's
-    group count is 1, so there is one token group and no mesh code.
+    weighted and summed over the k copies, per token group: one outside a
+    mesh, the data axes' size inside one (the reference's grouping, which
+    decides which tokens are dropped).
   * ``serve_route`` + ``serve_expert_ffn`` — the serving engine's LOSSLESS
     dispatch: every (token, k) assignment owns its own row, so no capacity
     drops, and each expert's result is independent of the bank's
@@ -37,6 +38,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.erdpe import flash_matmul_grouped
 from repro_torch.core.tiering import FlashWeight, PagedWeight
+from repro_torch.launch import sharding as sh
 from repro_torch.models import dense
 
 # the top-level params whose leaves carry a leading layer axis: the train
@@ -154,15 +156,27 @@ def _combine_group(out_buf, meta, d):
 
 
 def moe_apply(cfg, p, x, capacity_factor: float = 1.25):
-    """x: (B, S, D) -> (B, S, D): one token group (the reference's group
-    count outside a mesh), its capacity dispatch, the experts on their
-    (C+1)-row buffers, the combine."""
+    """x: (B, S, D) -> (B, S, D). The B * S tokens split into G =
+    ``sharding.data_group_count(B * S)`` groups in order (1 outside a mesh;
+    inside one, the data axes' size), each with its own capacity dispatch
+    (capacity from its own token count), the experts on its (C+1)-row
+    buffers and its combine, as the reference's grouped dispatch. Under a
+    mesh the layer runs on the whole tokens and weights (gathered, and the
+    result handed back in ``x``'s placements), the same on every rank."""
     b, s, d = x.shape
-    buf, meta = _dispatch_group(cfg, x.reshape(b * s, d), p["router"],
-                                capacity_factor, x.dtype)
-    out_buf = _swiglu_bank(p["experts"], buf, x.dtype)        # (E, C+1, D)
-    out = _combine_group(out_buf, meta, d)
-    return out.reshape(b, s, d).to(x.dtype)
+    t = b * s
+    g = sh.data_group_count(t)
+    router = sh.whole(p["router"])
+    bank = {k: sh.whole(w) for k, w in p["experts"].items()}
+    xt = sh.whole(x).reshape(g, t // g, d)
+    outs = []
+    for i in range(g):
+        buf, meta = _dispatch_group(cfg, xt[i], router, capacity_factor,
+                                    x.dtype)
+        out_buf = _swiglu_bank(bank, buf, x.dtype)            # (E, C+1, D)
+        outs.append(_combine_group(out_buf, meta, d))
+    out = outs[0] if g == 1 else torch.cat(outs)
+    return sh.like(out.reshape(b, s, d).to(x.dtype), x)
 
 
 # --- serving-engine MoE FFN ---------------------------------------------------

@@ -196,6 +196,8 @@ def _rec_mix_step(p, x, conv_state, h_prev):
 # --- layers ------------------------------------------------------------------------
 
 def _rec_layer_seq(cfg, x, lp):
+    x = cm.pin_batch(x)
+    lp = cm.pin_layer_grads(lp)
     mix, state = _rec_mix_seq(lp["mix"], cm.rms_norm(x, lp["ln1"]))
     x = x + mix
     x = x + cm.swiglu_apply(lp["ffn"], cm.rms_norm(x, lp["ln2"]))
@@ -203,6 +205,8 @@ def _rec_layer_seq(cfg, x, lp):
 
 
 def _attn_layer_seq(cfg, x, lp, positions):
+    x = cm.pin_batch(x)
+    lp = cm.pin_layer_grads(lp)
     h = cm.rms_norm(x, lp["ln1"])
     q, k, v = cm.qkv_project(lp["attn"], h, dense.attn_cfg(cfg), positions)
     attn = cm.chunked_attention(q, k, v, causal=True,
@@ -223,7 +227,7 @@ def forward(cfg, params, tokens, remat=True, return_cache=False):
     reference's checkpointed scan bodies."""
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)
-    x = params["embed"][tokens.long()]
+    x = cm.embed_rows(params["embed"], tokens)
     n_super, n_tail = block_counts(cfg)
 
     def superblock(x, i):

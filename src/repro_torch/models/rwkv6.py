@@ -221,6 +221,8 @@ def cmix_seq(p, x, x_last=None):
 
 def _layer(cfg, x, lp, wkv_mode, tx=None, ts=None, cx=None):
     """One layer; returns (x, (tmix carry, wkv state, cmix carry))."""
+    x = cm.pin_batch(x)
+    lp = cm.pin_layer_grads(lp)
     mix, (tx, ts) = tmix_seq(cfg, lp["tmix"], cm.rms_norm(x, lp["ln1"]),
                              x_last=tx, s0=ts, wkv_mode=wkv_mode)
     x = x + mix
@@ -236,7 +238,7 @@ def forward(cfg, params, tokens, remat=True, return_cache=False,
     """tokens (B, S) -> logits (B, S, V) f32, and with ``return_cache`` the
     state after the last token. ``remat`` (while grad is enabled, without
     a cache): each layer's activations are recomputed in the backward."""
-    x = cm.rms_norm(params["embed"][tokens.long()], params["ln_in"])
+    x = cm.rms_norm(cm.embed_rows(params["embed"], tokens), params["ln_in"])
 
     def layer(x, li):
         return _layer(cfg, x, layer_slice(params["layers"], li), wkv_mode)[0]

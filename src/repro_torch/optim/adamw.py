@@ -13,6 +13,12 @@ weight decay only on leaves with ``ndim >= 2`` (with stacked layers the
 ``update`` + ``apply_updates`` done in place (the port's counterpart of
 the reference train step's donated buffers): one leaf at a time, so the
 f32 temporaries of a leaf are freed before the next leaf's exist.
+
+Over a mesh the grads, moments and params of ``apply_`` are DTensors:
+the global norm is summed over every shard, and each leaf's update is
+computed on the local shards in the moments' placements (ZeRO-1 shards
+them over "data" where the params are replicated), then brought to the
+params' placements before the in-place add.
 """
 from __future__ import annotations
 
@@ -20,6 +26,8 @@ import dataclasses
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from repro_torch.launch.sharding import is_dtensor
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -74,17 +82,19 @@ class AdamW:
                           m=tree_map(zeros, params), v=tree_map(zeros, params))
 
     def _coefs(self, grads, state: AdamWState):
-        """(new step, (clip scale or None, lr, bias corrections))."""
+        """(new step, (clip scale or None, lr, bias corrections)); the
+        coefficients plain tensors (a DTensor's full value)."""
         step = state.step + 1
         scale = None
         if self.clip_norm is not None:
-            gn = global_norm(grads)
+            gn = _full(global_norm(grads))
             scale = torch.clamp_max(
                 self.clip_norm / torch.clamp_min(gn, 1e-12), 1.0)
-        t = step.to(torch.float32)
+        now = _full(step)
+        t = now.to(torch.float32)
         bc1 = 1 - self.b1 ** t
         bc2 = 1 - self.b2 ** t
-        return step, (scale, self._lr(step), bc1, bc2)
+        return step, (scale, self._lr(now), bc1, bc2)
 
     def _leaf(self, g, m, v, p, coefs) -> torch.Tensor:
         """Advance one leaf's moments IN PLACE and return its update in p's
@@ -132,8 +142,28 @@ class AdamW:
         step, coefs = self._coefs(grads, state)
         for g, mi, vi, p in zip(tree_leaves(grads), tree_leaves(state.m),
                                 tree_leaves(state.v), tree_leaves(params)):
-            p.add_(self._leaf(g, mi, vi, p, coefs))
+            if is_dtensor(p):
+                _apply_sharded(self, g, mi, vi, p, coefs)
+            else:
+                p.add_(self._leaf(g, mi, vi, p, coefs))
         return AdamWState(step=step, m=state.m, v=state.v)
+
+
+def _full(x):
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def _apply_sharded(opt: AdamW, g, m, v, p, coefs):
+    """One DTensor leaf of ``apply_``: the gradient and the param brought
+    to the moments' placements, ``_leaf`` on the local shards (every
+    operand's shard covers the same elements), the update brought to the
+    param's placements and added into its local shards."""
+    from torch.distributed.tensor import DTensor
+    mesh, pls = m.device_mesh, m.placements
+    d = opt._leaf(g.redistribute(mesh, pls).to_local(), m.to_local(),
+                  v.to_local(), p.redistribute(mesh, pls).to_local(), coefs)
+    d = DTensor.from_local(d, mesh, pls, shape=p.shape, stride=p.stride())
+    p.to_local().add_(d.redistribute(p.device_mesh, p.placements).to_local())
 
 
 def apply_updates(params, updates):

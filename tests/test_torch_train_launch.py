@@ -3,8 +3,8 @@ and the train -> checkpoint -> deploy -> serve lifecycle, on the CPU:
 tests/test_integration.py's and tests/test_checkpoint_runtime.py's
 training scenarios on the port, (params, AdamWState) checkpoints
 byte-identical across the two packages, ``deploy --ckpt`` of a JAX
-training checkpoint writing the JAX deploy's bytes, the refusal of
-``--production``, and ``python -m repro_torch.launch.train``.
+training checkpoint writing the JAX deploy's bytes, ``--production``'s
+size error in a world of one, and ``python -m repro_torch.launch.train``.
 
 ``train()`` builds ``FaultPolicy()`` inside, whose straggler detector
 raises ``StepFault`` after 3 consecutive steps slower than 3x the
@@ -303,9 +303,13 @@ def test_deploy_takes_a_jax_training_checkpoint(jax_training_ckpt,
     assert _files(tmp_path / "port") == _files(tmp_path / "jax")
 
 
-def test_production_is_refused():
-    with pytest.raises(SystemExit, match="§A.4"):
+def test_production_is_refused(monkeypatch):
+    """``production=True`` in one process (a world of one): the production
+    mesh's size error, raised before any process group is made."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="needs a world of 256 ranks"):
         ttrain.train("granite-8b", production=True, device="cpu")
+    assert not torch.distributed.is_initialized()
 
 
 def _options(main) -> set:
@@ -338,4 +342,5 @@ def test_python_m_train_runs_on_the_cpu_and_refuses_production(tmp_path):
     assert CheckpointManager(tmp_path / "ck").latest_step() == 2
     prod = subprocess.run(base + ["--production"], env=env,
                           capture_output=True, text=True, timeout=120)
-    assert prod.returncode != 0 and "§A.4" in prod.stderr
+    assert prod.returncode != 0
+    assert "needs a world of 256 ranks" in prod.stderr
