@@ -370,7 +370,17 @@ Phases (any failure exits non-zero; nothing is caught):
                 live bytes within 20 % of 15(a)'s max_memory_allocated, its
                 step-time bound no larger than 15(a)'s median step (their
                 ratio printed: the cell's roofline fraction). Its figures
-                are the ``dryrun`` JSON line.
+                are the ``dryrun`` JSON line. (c) the reference's
+                production meshes, in subprocesses with no card visible
+                (no fake process group may remain for phase 19's nccl
+                one), started before (a) and collected after (b): ``--smoke
+                --mesh both`` (80 cells over 16x16 and 2x16x16, 6 worker
+                processes) beside granite-8b's full-size train_4k on
+                16x16, at once: every cell ok or
+                skipped by the reference's rule, the full cell's
+                collectives and wire bytes more than 0. Its figures
+                (each cell's status, collectives by kind, wire bytes by op,
+                count seconds) are the ``dryrun_mesh`` JSON line.
  17. sharded  — tensor-parallel streamed serving: Engine(OPT_6_7B) at full
                 width cut to 4 of 32 layers (the script's time), seeded
                 init, RBER 1e-4, streamed from PageStore(n_planes=32) under
@@ -452,7 +462,7 @@ Phases (any failure exits non-zero; nothing is caught):
                 ``mesh_train`` JSON line.
 
 The ``spec``, ``moe_stream``, ``families``, ``train``, ``dryrun``,
-``sharded``, ``sharded_moe``, ``mesh_train`` and ``phase_seconds`` lines come before the card's name; the
+``dryrun_mesh``, ``sharded``, ``sharded_moe``, ``mesh_train`` and ``phase_seconds`` lines come before the card's name; the
 second-to-last line is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Times are CUDA-event medians with the
 L2 cache flushed before each timed call (the serving step streams more
@@ -5445,13 +5455,112 @@ def dryrun_train_cell(torch, full: dict) -> dict:
                 argument_gib=r["memory"]["argument_size_in_bytes"] / 2**30)
 
 
+# 16(c): the mesh cells, counted in subprocesses with the card hidden (a
+# fake process group is global to its process: none may remain when phase
+# 19 makes its nccl group)
+MESH_FULL_CELL = ("granite-8b", "train_4k", "single")    # 16x16, full size
+MESH_JOBS = 6
+
+
+def _mesh_records(out: Path) -> dict:
+    recs = {}
+    for f in sorted(out.glob("*.json")):
+        r = json.loads(f.read_text())
+        recs[f"{r['arch']}/{r['shape']}/{r['mesh']}"] = dict(
+            status=r["status"], reason=r.get("reason"), error=r.get("error"),
+            n_collectives=r.get("n_collectives"),
+            collectives=r.get("collectives"),
+            wire_bytes_by_op=r.get("roofline", {}).get("collectives_by_op"),
+            collective_s=r.get("roofline", {}).get("collective_s"),
+            dominant=r.get("roofline", {}).get("dominant"),
+            seconds=r.get("build_s", 0) + r.get("count_s", 0))
+    return recs
+
+
+def start_dryrun_meshes() -> dict:
+    """16(c), started: ``python -m repro_torch.launch.dryrun`` over the
+    reference's production meshes, on the card's host and its torch, with
+    no card visible: every smoke cell on 16x16 and 2x16x16 (``--smoke
+    --mesh both``, MESH_JOBS worker processes) beside granite-8b's
+    full-size ``train_4k`` on 16x16, the two commands at once, while
+    16(a) and 16(b) run in this process (``finish_dryrun_meshes``)."""
+    import os
+    import tempfile
+
+    work = Path(tempfile.mkdtemp(prefix="dryrun_mesh"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="")
+    env.pop("WORLD_SIZE", None)
+    arch, shape, mesh = MESH_FULL_CELL
+    cmds = {"full": ["--arch", arch, "--shape", shape, "--mesh", mesh],
+            "smoke": ["--smoke", "--mesh", "both", "--jobs", str(MESH_JOBS)]}
+    procs = {k: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *cmd, "--out",
+         str(work / k)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for k, cmd in cmds.items()}
+    return dict(procs=procs, work=work, t0=time.perf_counter())
+
+
+def finish_dryrun_meshes(started: dict) -> dict:
+    """16(c), collected: every cell ok or skipped by the reference's rule,
+    the full cell's collectives and wire bytes more than 0. Each cell's
+    status, collectives, wire bytes by op and count seconds are the
+    ``dryrun_mesh`` JSON line."""
+    import shutil
+
+    procs, work, t0 = started["procs"], started["work"], started["t0"]
+    arch, shape, _ = MESH_FULL_CELL
+    runs, seconds = {}, {}
+    try:
+        for k, proc in procs.items():
+            runs[k] = proc.communicate(timeout=300) + (proc.returncode,)
+            seconds[k] = time.perf_counter() - t0
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    cells = {k: _mesh_records(work / k) for k in procs}
+    shutil.rmtree(work, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    for k, (stdout, stderr, rc) in runs.items():
+        for ln in stdout.splitlines():
+            if ln.startswith("["):
+                log("    " + ln[:150])
+        if rc != 0:
+            raise AssertionError(f"16(c) {k}: the dry-run exited {rc}: "
+                                 f"{stdout[-1500:]} {stderr[-1500:]}")
+    errors = [k for recs in cells.values() for k, c in recs.items()
+              if c["status"] != "ok" and c["status"] != "skipped"]
+    smoke = [c["status"] for c in cells["smoke"].values()]
+    full = cells["full"].get(f"{arch}/{shape}/16x16", dict(status="missing"))
+    if errors or len(smoke) != 80 or full["status"] != "ok":
+        raise AssertionError(f"16(c): {len(smoke)} smoke cells; not ok: "
+                             f"{errors}; the full cell {full['status']}")
+    wire = {k: round(v / 2**30, 2) for k, v in full["wire_bytes_by_op"].items()}
+    log(f"  16(c): {len(smoke)} smoke cells ({smoke.count('ok')} ok, "
+        f"{smoke.count('skipped')} skipped) in {seconds['smoke']:.1f} s; "
+        f"{arch} {shape} 16x16 at full size: {full['n_collectives']:.0f} "
+        f"collectives {full['collectives']}, wire GiB {wire}, collective "
+        f"{full['collective_s']:.3g} s, counted in {full['seconds']:.1f} s "
+        f"({seconds['full']:.1f} s with the process); 16(c) {wall:.1f} s")
+    if not (full["n_collectives"] > 0 and sum(wire.values()) > 0):
+        raise AssertionError(f"16(c): the full cell counted no collective: "
+                             f"{full}")
+    return dict(seconds=wall, smoke_seconds=seconds["smoke"],
+                full_seconds=seconds["full"], cells=cells)
+
+
 def phase_dryrun(torch, full: dict) -> dict:
     """Phase 16: (a) the dry-run of all 40 cells, allocating nothing on the
-    card; (b) 15(a)'s cell counted, against what 15(a) measured."""
+    card; (b) 15(a)'s cell counted, against what 15(a) measured; (c) the
+    mesh cells, counted in subprocesses beside (a) and (b)
+    (``start_dryrun_meshes``, ``finish_dryrun_meshes``)."""
     t0 = time.perf_counter()
+    mesh = start_dryrun_meshes()
     cells = dryrun_all(torch)
     train = dryrun_train_cell(torch, full)
-    return dict(all=cells, train_cell=train,
+    return dict(all=cells, train_cell=train, mesh=finish_dryrun_meshes(mesh),
                 seconds=time.perf_counter() - t0)
 
 
@@ -6499,7 +6608,7 @@ def main() -> int:
     train_res = phase_train(torch)
     log(f"  phase 15 in {time.perf_counter() - t0:.1f} s")
     clock.start("16", "phase 16: the cost tools (the dry-run of all 40 "
-                "cells; 15(a)'s cell against 15(a))")
+                "cells; 15(a)'s cell against 15(a); the production meshes)")
     dry_res = phase_dryrun(torch, train_res["full"])
     log(f"  phase 16 in {dry_res['seconds']:.1f} s")
     gc.collect()
@@ -6528,7 +6637,9 @@ def main() -> int:
     print(json.dumps({"families": dict(full=fam["full"],
                                        parity=fam["parity"])}), flush=True)
     print(json.dumps({"train": train_res}), flush=True)
+    mesh_res = dry_res.pop("mesh")
     print(json.dumps({"dryrun": dry_res}), flush=True)
+    print(json.dumps({"dryrun_mesh": mesh_res}), flush=True)
     print(json.dumps({"sharded": shard_res}), flush=True)
     print(json.dumps({"sharded_moe": shard_moe}), flush=True)
     print(json.dumps({"mesh_train": mesh_train}), flush=True)

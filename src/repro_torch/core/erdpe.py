@@ -23,6 +23,7 @@ import os
 import torch
 
 from repro_torch.core.tiering import FlashWeight, PagedWeight
+from repro_torch.launch import sharding as sh
 from repro_torch.kernels.ecdp import ecdp_matmul
 from repro_torch.kernels.grouped_ecdp import grouped_ecdp_matmul
 from repro_torch.kernels.paged_ecdp import (grouped_paged_ecdp_matmul,
@@ -52,7 +53,7 @@ def flash_matmul(x: torch.Tensor, w, ecc_enabled: bool = True,
                              "calling")
         k, n = w.q.shape
     lead = tuple(x.shape[:-1])
-    x2 = x.reshape(-1, k).contiguous()
+    x2 = sh.rows_whole_inside(x).reshape(-1, k).contiguous()
     if isinstance(w, PagedWeight):
         out = paged_ecdp_matmul(x2, w.pool, w.q_tbl, w.p_slots, w.s_slots,
                                 tuple(w.kn), ecc_enabled=ecc_enabled)
@@ -104,9 +105,12 @@ def flash_matmul_grouped(x: torch.Tensor, w, row_start: torch.Tensor,
 def maybe_flash_matmul(x: torch.Tensor, w, ecc_enabled: bool | None = None,
                        out_dtype=torch.bfloat16) -> torch.Tensor:
     """Dispatch on tier: FlashWeight / PagedWeight -> ERDPE; plain tensor
-    -> matmul in the activation dtype."""
+    -> matmul in the activation dtype (over a mesh, DTensors by
+    ``sharding.matmul``'s tensor-parallel rules)."""
     if isinstance(w, (FlashWeight, PagedWeight)):
         if ecc_enabled is None:
             ecc_enabled = serve_ecc_mode() == "inline"
         return flash_matmul(x, w, ecc_enabled=ecc_enabled, out_dtype=out_dtype)
+    if sh.is_dtensor(x) or sh.is_dtensor(w):
+        return sh.matmul(x, w.to(x.dtype)).to(out_dtype)
     return (x @ w.to(x.dtype)).to(out_dtype)

@@ -32,12 +32,51 @@ shapes to its plain version's.
 Peak live bytes: the arguments' storages, plus every storage an op makes,
 from its creation to its release (a ``weakref.finalize`` per storage).
 
+Under a mesh (``launch/dryrun.py``'s mesh cells: DTensors over a
+``DeviceMesh``) one process stands for every rank and ``count`` counts one
+chip's share, as the reference's ``hlo_cost`` counts one device's SPMD
+program:
+
+- an op on DTensors is left to DTensor (the mode returns
+  ``NotImplemented``); its local ops come back to the counter on the local
+  shards, one chip's shapes;
+- with ``skip_fake`` an op on ``FakeTensor``s is run and not charged: on a
+  meta cell those are DTensor's sharding propagation, at global shapes;
+- the arguments and the peak are counted on the local storages;
+- a collective (``_c10d_functional``'s and ``_c10d_functional_autograd``'s
+  all_reduce, all_gather_into_tensor, reduce_scatter_tensor,
+  all_to_all_single and their ``_coalesced`` forms; DTensor's
+  ``shard_dim_alltoall``) goes into ``Cost.wire`` under the reference's
+  name, by the reference's rule (``hlo_cost.py:206-224``): all-reduce 2 x
+  its result, reduce-scatter its operand, all-gather max(result - operand,
+  operand), all-to-all and collective-permute their result. Each adds 1 to
+  ``n_collectives`` and to its kind's ``Cost.collectives``, and its result
+  bytes to ``bytes``. A collective over a
+  group of one rank (its size read from the group's name) moves nothing
+  and is not charged; ``wait_tensor`` and ``_wrap_tensor_autograd`` are
+  free. On a "cpu" ``DeviceMesh`` DTensor moves a shard from one tensor dim
+  to another as an all-gather and a local chunk (gloo has no all-to-all),
+  and that is what is charged.
+
+At a boundary under a mesh each DTensor argument is charged on its local
+shards, and the output is a DTensor (``_mesh_rule``): the ECDP gives, on
+each mesh dim, ``Shard`` of the last dim where the weight's N is sharded
+(the activation gathered whole there), ``Partial`` where its K is (the
+activation split along K; the sum's all-reduce is counted at the next
+redistribution), and the activation's own placement where the weight is
+whole; the grouped ECDP gives ``Partial`` where the expert dim is sharded
+(each chip its own experts' rows, charged for its share of the rows) and
+otherwise as the ECDP; the paged ECDPs read their page pool and tables
+whole on every chip and give the activation's own placement; paged and
+decode attention run on each chip's (B, H) shard, as
+``sharding.per_shard`` runs attention, their (acc, m, l) placed as the
+query. An activation split along K or in strided shards is gathered
+first.
+
 Not ported: the HLO parser itself (instruction def-maps, while-loop trip
 counts, fusion-internal slicing, collective wire patterns), which reads
 text PyTorch does not produce; a loop body counted once and charged per
-trip is ``repeats``. The reference counts one chip of a 512-device mesh;
-here the step runs on one card and has no collectives, so ``wire`` stays
-empty until tensor parallelism (ROADMAP §A.4).
+trip is ``repeats``.
 """
 from __future__ import annotations
 
@@ -51,13 +90,18 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
+from repro_torch.launch import sharding as sh
+
 
 @dataclasses.dataclass
 class Cost:
+    """Flops, bytes, and the collectives' wire bytes and counts by kind
+    (``collectives``), one chip's."""
     flops: float = 0.0
     bytes: float = 0.0
     wire: dict[str, float] = dataclasses.field(default_factory=dict)
     n_collectives: float = 0.0
+    collectives: dict[str, float] = dataclasses.field(default_factory=dict)
 
     @property
     def wire_bytes(self) -> float:
@@ -67,8 +111,14 @@ class Cost:
         self.flops += other.flops * mult
         self.bytes += other.bytes * mult
         self.n_collectives += other.n_collectives * mult
-        for k, v in other.wire.items():
-            self.wire[k] = self.wire.get(k, 0.0) + v * mult
+        for mine, theirs in ((self.wire, other.wire),
+                             (self.collectives, other.collectives)):
+            for k, v in theirs.items():
+                mine[k] = mine.get(k, 0.0) + v * mult
+
+    def copy(self) -> "Cost":
+        return dataclasses.replace(self, wire=dict(self.wire),
+                                   collectives=dict(self.collectives))
 
 
 @dataclasses.dataclass
@@ -112,6 +162,22 @@ _SLICE_WRITES = {"copy_": 0, "index_put_": 2, "_index_put_impl_": 2,
                  "index_copy_": 3}
 # reductions without the reduction tag
 _REDUCTIONS = {"logsumexp", "cumsum", "cumprod", "var_mean", "std_mean"}
+# collectives (``_c10d_functional``, its autograd forms, DTensor's
+# all-to-all) by the reference's HLO names; waits and wraps are free
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd",
+                          "_dtensor")
+_COLLECTIVES = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_reduce_coalesced_": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all",
+}
+_FREE_COLLECTIVE_OPS = {"wait_tensor", "_wrap_tensor_autograd"}
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -122,6 +188,32 @@ def _nbytes(t: torch.Tensor) -> int:
         if stride:
             n *= size
     return n * t.element_size()
+
+
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard (one chip's tensor); any other tensor as it
+    is."""
+    return t._local_tensor if sh.is_dtensor(t) else t
+
+
+def wire_bytes(op: str, operand: float, result: float) -> float:
+    """Bytes a chip sends for one collective (``hlo_cost.py:206-224``)."""
+    if op == "all-reduce":
+        return 2.0 * result
+    if op == "reduce-scatter":
+        return float(operand or result)
+    if op == "all-gather":
+        return float(max(result - operand, operand))
+    return float(result)                 # all-to-all, collective-permute
+
+
+def _group_size(func, args, kwargs) -> int:
+    """The size of the process group a collective names."""
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    names = [a.name for a in func._schema.arguments]
+    i = names.index("group_name")
+    name = kwargs.get("group_name", args[i] if i < len(args) else None)
+    return _resolve_process_group(name).size()
 
 
 def _tensors(x, out=None) -> list:
@@ -140,6 +232,22 @@ def _tensors(x, out=None) -> list:
         for f in dataclasses.fields(x):
             _tensors(getattr(x, f.name), out)
     return out
+
+
+def _storages(args) -> dict[int, int]:
+    """{id: bytes} of the distinct storages of ``args``' tensors (a
+    DTensor's local shard's)."""
+    live: dict[int, int] = {}
+    for t in _tensors(args):
+        st = _local(t).untyped_storage()
+        live.setdefault(id(st), st.nbytes())
+    return live
+
+
+def argument_bytes(args) -> int:
+    """The bytes of ``args``' distinct storages, one chip's: what ``count``
+    reports as ``argument_bytes``."""
+    return sum(_storages(args).values())
 
 
 # --- the kernels' plain versions, counted at their boundaries ----------------
@@ -189,6 +297,110 @@ def _decode_attn(q, k_cache, *_, **__):
     return _attn_state(q, k_cache.shape[1])
 
 
+# --- the boundaries under a mesh ---------------------------------------------
+
+def _companion(pls_w, k_dim, is_scale: bool):
+    """Placements of a FlashWeight's parity (shards as the weight) or
+    scale (one row: shards as the weight but along K) matching
+    ``pls_w``."""
+    from torch.distributed.tensor import Replicate
+    return [p if p.is_shard() and not (is_scale and p.dim == k_dim)
+            else Replicate() for p in pls_w]
+
+
+def _mesh_ecdp(args, mesh, grouped: bool):
+    """The ECDP (grouped: over an (E, K, N) bank, ``row_start`` second)
+    on local shards: (local args, output placements, the share of the
+    rule's flops this chip does)."""
+    from torch.distributed.tensor import Replicate
+    i = 2 if grouped else 1
+    a, wq, parity, scale = (sh.replicated(t, mesh)
+                            for t in args[:1] + args[i:i + 3])
+    n_dim, k_dim = wq.ndim - 1, wq.ndim - 2
+    need, out = sh.product_placements(a.placements, wq.placements, 1,
+                                      k_dim, n_dim)
+    local = [a.redistribute(mesh, need).to_local(), wq.to_local(),
+             parity.redistribute(mesh, _companion(
+                 wq.placements, k_dim, False)).to_local(),
+             scale.redistribute(mesh, _companion(
+                 wq.placements, k_dim, True)).to_local()]
+    share = 1.0
+    if grouped:
+        rows = sh.replicated(args[1], mesh)
+        local.insert(1, rows.redistribute(
+            mesh, [Replicate()] * mesh.ndim).to_local())
+        share = wq.to_local().shape[0] / wq.shape[0]
+    return local + list(args[i + 3:]), out, share
+
+
+def _mesh_paged_ecdp(args, mesh):
+    """The paged ECDPs: the page pool and its tables (and the grouped
+    form's ``row_start``) whole on every chip, the activation rows as they
+    are placed (gathered if split along K)."""
+    from torch.distributed.tensor import Replicate
+    whole = [Replicate()] * mesh.ndim
+    a = sh.replicated(args[0], mesh)
+    need, out = sh.product_placements(a.placements, whole, 1, 0, 1)
+    rest = [sh.replicated(t, mesh).redistribute(mesh, whole).to_local()
+            if isinstance(t, torch.Tensor) else t for t in args[1:]]
+    return [a.redistribute(mesh, need).to_local()] + rest, out, 1.0
+
+
+# (batch dim, head dim) of each attention kernel's tensor arguments, in
+# order: q (B, KV, R, Dh), then the K / V caches (B, S, KV, Dh) or pools
+# (blocks, block, KV, Dh), then the lengths or the block tables and lengths
+_ATTN_DIMS = {"decode_attn_plain": ((0, 1), (0, 2), (0, 2), (0, None)),
+              "paged_attn_plain": ((0, 1), (None, 2), (None, 2), (0, None),
+                                   (0, None))}
+
+
+def _mesh_attn(name, args, mesh):
+    """Attention on each chip's (B, H) shard: per mesh dim, the query's
+    shard of its batch or head dim kept where every other tensor argument
+    is split along its own such dim (or has none and is whole), else
+    everything whole there; (acc, m, l) placed as the query."""
+    from torch.distributed.tensor import Replicate, Shard
+    dims = _ATTN_DIMS[name]
+    ts = [sh.replicated(t, mesh) for t in args[:len(dims)]]
+    pls = [[] for _ in ts]
+    for i in range(mesh.ndim):
+        keep = None
+        for role in (0, 1):
+            if ts[0].placements[i] == Shard(dims[0][role]) and all(
+                    t.placements[i] == (Shard(d[role]) if d[role] is not None
+                                        else Replicate())
+                    for t, d in zip(ts[1:], dims[1:])):
+                keep = role
+        for j, d in enumerate(dims):
+            pls[j].append(Replicate() if keep is None or d[keep] is None
+                          else Shard(d[keep]))
+    local = [t.redistribute(mesh, p).to_local() for t, p in zip(ts, pls)]
+    return local + list(args[len(dims):]), pls[0], 1.0
+
+
+_MESH_RULES = {
+    "ecdp_matmul_plain": lambda a, m: _mesh_ecdp(a, m, False),
+    "grouped_ecdp_plain": lambda a, m: _mesh_ecdp(a, m, True),
+    "paged_ecdp_matmul_plain": _mesh_paged_ecdp,
+    "grouped_paged_ecdp_plain": _mesh_paged_ecdp,
+    "paged_attn_plain": lambda a, m: _mesh_attn("paged_attn_plain", a, m),
+    "decode_attn_plain": lambda a, m: _mesh_attn("decode_attn_plain", a, m),
+}
+
+
+def _mesh_rule(name, rule, args, kwargs):
+    """A boundary with DTensor arguments: (its outputs as DTensors, this
+    chip's flops, the local tensors charged) by ``_MESH_RULES[name]``."""
+    mesh = next(t for t in _tensors(args) if sh.is_dtensor(t)).device_mesh
+    local, pls, share = _MESH_RULES[name](list(args), mesh)
+    kwargs = {k: _local(v) if isinstance(v, torch.Tensor) else v
+              for k, v in kwargs.items()}
+    out, flops = rule(*local, **kwargs)
+    wrapped = (sh.from_shard(out, mesh, pls) if isinstance(out, torch.Tensor)
+               else type(out)(sh.from_shard(t, mesh, pls) for t in out))
+    return wrapped, flops * share, _tensors((local, kwargs)) + _tensors(out)
+
+
 # (module, plain function, its outputs and flops from its arguments)
 BOUNDARIES = (
     ("repro_torch.kernels.ecdp", "ecdp_matmul_plain", _ecdp),
@@ -203,13 +415,19 @@ BOUNDARIES = (
 )
 
 
-_FREE, _NOTHING, _MATMUL, _MOVE, _REDUCE, _ELEMENTWISE = (
-    "free", "nothing", "matmul", "move", "reduction", "elementwise")
+_FREE, _NOTHING, _MATMUL, _MOVE, _REDUCE, _ELEMENTWISE, _COLLECTIVE = (
+    "free", "nothing", "matmul", "move", "reduction", "elementwise",
+    "collective")
 
 
 def _kind(func) -> tuple[str, str]:
     """(how an op is charged, its name)."""
     name = func._schema.name.split("::")[-1]
+    if func.namespace in _COLLECTIVE_NAMESPACES:
+        if name in _COLLECTIVES:
+            return _COLLECTIVE, name
+        if name in _FREE_COLLECTIVE_OPS:
+            return _FREE, name
     if func.namespace == "prim" or func.is_view:
         return _FREE, name
     if name in _NOTHING_OPS:
@@ -224,17 +442,17 @@ def _kind(func) -> tuple[str, str]:
 
 
 class _Counter(TorchDispatchMode):
-    def __init__(self, args):
+    def __init__(self, args, skip_fake: bool = False):
         super().__init__()
+        from torch._subclasses.fake_tensor import FakeTensor
+        self.skip_fake, self.fake_type = skip_fake, FakeTensor
+        self.dtensor_type = sh.dtensor_type()
         self.cost = Cost()
         self.n_ops = 0
         self.boundaries: dict[str, int] = {}
         self.by_kind: dict[str, float] = {}
         self.kinds: dict = {}
-        self.live: dict[int, int] = {}      # id(storage) -> its bytes
-        for t in _tensors(args):
-            st = t.untyped_storage()
-            self.live.setdefault(id(st), st.nbytes())
+        self.live = _storages(args)         # id(storage) -> its bytes
         self.argument_bytes = sum(self.live.values())
         self.live_bytes = self.peak = self.argument_bytes
 
@@ -243,7 +461,7 @@ class _Counter(TorchDispatchMode):
 
     def track(self, outs: list):
         for t in outs:
-            st = t.untyped_storage()
+            st = _local(t).untyped_storage()
             key = id(st)
             if key in self.live:
                 continue
@@ -268,15 +486,35 @@ class _Counter(TorchDispatchMode):
             self.cost.bytes += (sum(_nbytes(t) for t in ins)
                                 + sum(_nbytes(t) for t in outs))
 
+    def collective(self, name: str, ins: list, outs: list):
+        """One collective: its wire bytes under its reference name, one
+        more collective, its result's bytes."""
+        op = _COLLECTIVES[name]
+        result = sum(_nbytes(t) for t in outs)
+        self.n_ops += 1
+        self.cost.wire[op] = self.cost.wire.get(op, 0.0) + wire_bytes(
+            op, sum(_nbytes(t) for t in ins), result)
+        self.cost.n_collectives += 1
+        self.cost.collectives[op] = self.cost.collectives.get(op, 0.0) + 1
+        self.cost.bytes += result
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if self.dtensor_type in types:
+            return NotImplemented            # DTensor runs its local ops
         kwargs = kwargs or {}
+        if self.skip_fake and any(isinstance(t, self.fake_type)
+                                  for t in _tensors((args, kwargs))):
+            return func(*args, **kwargs)     # sharding propagation
         out = func(*args, **kwargs)
         kind, name = self.kinds.get(func) or self.kinds.setdefault(
             func, _kind(func))
         if kind == _FREE:
             return out
         outs = [out] if isinstance(out, torch.Tensor) else _tensors(out)
-        if kind == _NOTHING:
+        if kind == _COLLECTIVE:
+            if _group_size(func, args, kwargs) > 1:
+                self.collective(name, _tensors((args, kwargs)), outs)
+        elif kind == _NOTHING:
             self.charge(kind, 0.0, None, outs)
         else:
             ins = _tensors((args, kwargs))
@@ -319,10 +557,10 @@ def repeats(fn, counter: _Counter | None = None):
         if counter is None:
             first.update(key=key, out=fn(*args, **kwargs))
             return first["out"]
-        cost0 = dataclasses.replace(counter.cost, wire=dict(counter.cost.wire))
+        cost0 = counter.cost.copy()
         n0, kinds0 = counter.n_ops, dict(counter.by_kind)
         out = fn(*args, **kwargs)
-        delta = dataclasses.replace(counter.cost, wire=dict(counter.cost.wire))
+        delta = counter.cost.copy()
         delta.add(cost0, -1.0)
         first.update(key=key, cost=delta, n_ops=counter.n_ops - n0, out=out,
                      by_kind={k: v - kinds0.get(k, 0.0)
@@ -354,10 +592,13 @@ def _patched(counter: _Counter):
         original = getattr(importlib.import_module(mod_name), fn_name)
 
         def boundary(*args, _rule=rule, _name=fn_name, **kwargs):
-            out, flops = _rule(*args, **kwargs)
+            if any(sh.is_dtensor(t) for t in _tensors((args, kwargs))):
+                out, flops, charged = _mesh_rule(_name, _rule, args, kwargs)
+            else:
+                out, flops = _rule(*args, **kwargs)
+                charged = _tensors((args, kwargs)) + _tensors(out)
             counter.boundaries[_name] = counter.boundaries.get(_name, 0) + 1
-            counter.charge("kernel", flops, _tensors((args, kwargs)),
-                           _tensors(out))
+            counter.charge("kernel", flops, charged, [])
             return out
 
         for mod in list(sys.modules.values()):
@@ -368,12 +609,15 @@ def _patched(counter: _Counter):
     return swaps
 
 
-def count(fn, *args, loops: tuple = (), **kwargs) -> Counted:
-    """Run ``fn(*args, **kwargs)`` (on fake, meta or real tensors) and
-    count it. The kernels' plain versions are counted at their boundaries,
-    and each ``(module, name)`` of ``loops`` is a ``repeats`` loop body,
-    for the duration of the call."""
-    counter = _Counter((args, kwargs))
+def count(fn, *args, loops: tuple = (), skip_fake: bool = False,
+          **kwargs) -> Counted:
+    """Run ``fn(*args, **kwargs)`` (on fake, meta or real tensors, or
+    DTensors of them) and count it. The kernels' plain versions are counted
+    at their boundaries, and each ``(module, name)`` of ``loops`` is a
+    ``repeats`` loop body, for the duration of the call. ``skip_fake``: ops
+    on fake tensors are not charged (a meta cell on a mesh: DTensor's
+    sharding propagation)."""
+    counter = _Counter((args, kwargs), skip_fake)
     swaps = _patched(counter)
     try:
         with counter, loop_bodies(*loops, counter=counter):

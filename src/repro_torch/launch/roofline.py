@@ -6,9 +6,19 @@ one NVIDIA H100:
     memory term     = bytes / HBM_BW
     collective term = wire_bytes / LINK_BW
 
-The flops and bytes come from ``launch/cost.count`` over the step's ops
-(``launch/dryrun.py``). On one card no op crosses a link: the wire dict is
-empty and ``collective_s`` is 0 until tensor parallelism (ROADMAP §A.4).
+The flops, bytes and wire bytes come from ``launch/cost.count`` over the
+step's ops, per chip (``launch/dryrun.py``). On one card no op crosses a
+link: the wire dict is empty and ``collective_s`` is 0.
+
+The collective term's bandwidth is the port's assumption of how a mesh
+sits on H100 nodes: eight GPUs to an HGX node, joined by NVLink 4
+(``LINK_BW``), one 400 Gb/s NDR ConnectX-7 NIC a GPU between nodes
+(``NIC_BW``), and the ranks laid out row-major over the mesh's axes, eight
+consecutive ranks a node. A group that stays inside a node runs at
+``LINK_BW``; one that spans nodes at ``NIC_BW``. On the (16, 16) and (2,
+16, 16) meshes a "model" group of 16 spans two nodes and every "data" or
+"pod" group spans 16 or 2, so every collective there runs at ``NIC_BW``
+(``collective_bw``).
 
 Not ported: ``bytes_of_type``, ``collective_bytes`` and their HLO regexes.
 They parse XLA's compiled HLO text (instruction types, while-loop trip
@@ -23,6 +33,21 @@ from typing import Any
 PEAK_FLOPS = 989e12        # bf16 dense tensor-core FLOP/s
 HBM_BW = 3.35e12           # bytes/s
 LINK_BW = 450e9            # bytes/s each way, NVLink 4 (18 links)
+NIC_BW = 50e9              # bytes/s, 400 Gb/s NDR, one ConnectX-7 a GPU
+GPUS_PER_NODE = 8          # an HGX H100 node
+
+
+def collective_bw(mesh_shape: tuple | None) -> float:
+    """The bandwidth of a mesh's collectives: ``LINK_BW`` when every axis's
+    group stays inside one node (ranks row-major over the axes, eight
+    consecutive ranks a node; one card: None), else ``NIC_BW``."""
+    stride = 1
+    for size in reversed(tuple(mesh_shape or ())):
+        span = size * stride               # the ranks one group reaches
+        if size > 1 and (span > GPUS_PER_NODE or GPUS_PER_NODE % span):
+            return NIC_BW
+        stride = span
+    return LINK_BW
 
 
 def model_flops(cfg, shape) -> float:
@@ -39,12 +64,14 @@ def model_flops(cfg, shape) -> float:
 
 
 def roofline_terms(flops: float, hbm_bytes: float, wire_by_op: dict,
-                   n_chips: int, useful_flops: float) -> dict[str, Any]:
-    """All inputs are per card."""
+                   n_chips: int, useful_flops: float,
+                   link_bw: float = LINK_BW) -> dict[str, Any]:
+    """All inputs are per card; ``link_bw`` the collectives' bandwidth
+    (``collective_bw(mesh_shape)``)."""
     wire_bytes = sum(wire_by_op.values())
     t_compute = flops / PEAK_FLOPS
     t_memory = hbm_bytes / HBM_BW
-    t_coll = wire_bytes / LINK_BW
+    t_coll = wire_bytes / link_bw
     terms = {"compute_s": t_compute, "memory_s": t_memory,
              "collective_s": t_coll}
     dominant = max(terms, key=terms.get)

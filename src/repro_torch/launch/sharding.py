@@ -34,11 +34,22 @@ operands as replicated. ``constrain`` redistributes a DTensor to a spec
 identity forward and redistributes the cotangent to the spec backward.
 ``tp_shard_axis`` is the serving side: which axis of a page-store entry
 shards for tensor-parallel streamed serving, from the same ``_RULES``.
+
+A step over a mesh runs some of its work on local shards, where DTensor's
+own ops differ between torch releases or choose badly: ``matmul`` (a
+product by the specs' tensor-parallel rules, ``product_placements``, the
+weight gathered along the data axes first: FSDP), ``split_last`` /
+``merge_last`` (heads out of and into a projection), ``local_rows`` (a
+function of each batch row by itself: a scan, a causal conv, one token's
+attention), ``write_rows_`` (a decode step's cache row) and
+``rows_whole_inside`` (activations flattened into rows). ``from_shard``
+and ``replicated`` make DTensors of local or plain tensors.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import logging
 import re
 from typing import Any
@@ -348,9 +359,15 @@ def distribute(tree: Any, pls: Any, mesh) -> Any:
     return map_with_path(one, tree, pls)
 
 
-def is_dtensor(x) -> bool:
+@functools.cache
+def dtensor_type() -> type:
+    """torch's ``DTensor`` class (imported at first use)."""
     from torch.distributed.tensor import DTensor
-    return isinstance(x, DTensor)
+    return DTensor
+
+
+def is_dtensor(x) -> bool:
+    return isinstance(x, dtensor_type())
 
 
 # --- in-step hints ----------------------------------------------------------------
@@ -402,12 +419,164 @@ def redistribute(x, spec: P, mesh=None):
 def whole(x):
     """A DTensor's full value as a plain tensor on every rank (gathered;
     differentiable, its gradient the same on every rank); a plain tensor
-    as it is."""
+    as it is; a ``FlashWeight`` with each of its planes so."""
+    if isinstance(x, FlashWeight):
+        return FlashWeight(*(whole(t) for t in (x.q, x.parity, x.scale)))
     if not is_dtensor(x):
         return x
     from torch.distributed.tensor import Replicate
     mesh = x.device_mesh
     return x.redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+
+
+def gather_data(w):
+    """DTensor weight ``w`` whole along the data axes ("pod", "data"),
+    its "model" shards kept: FSDP's gather before a weight is used (the
+    gradient goes back to ``w``'s shards through DTensor's backward). Left
+    to DTensor, a product of batch-sharded activations with a weight
+    sharded along its contraction over "data" moves the activations
+    instead, and every chip then holds the whole batch. Anything else as
+    it is."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+    names = w.device_mesh.mesh_dim_names
+    pls = [Replicate() if names[i] in DATA_AXES else p
+           for i, p in enumerate(w.placements)]
+    if pls == list(w.placements):
+        return w
+    return w.redistribute(w.device_mesh, pls)
+
+
+def contiguous_stride(shape) -> tuple:
+    """The strides of a contiguous tensor of ``shape`` (nothing made)."""
+    stride, n = [], 1
+    for size in reversed(tuple(shape)):
+        stride.append(n)
+        n *= max(size, 1)
+    return tuple(reversed(stride))
+
+
+def replicated(t, mesh):
+    """``t`` as a DTensor on ``mesh``: a plain tensor (the same on every
+    rank) replicated; a DTensor as it is."""
+    if is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def from_shard(local, mesh, pls):
+    """One rank's ``local`` shard as a DTensor on ``mesh`` with placements
+    ``pls``: its global shape ``local``'s times the shards, contiguous
+    strides; nothing checked or sent (``DTensor.from_local`` with
+    ``run_check=False``)."""
+    from torch.distributed.tensor import DTensor
+    shape = list(local.shape)
+    for i, p in enumerate(pls):
+        if p.is_shard():
+            shape[p.dim] *= mesh.size(i)
+    return DTensor.from_local(local, mesh, pls, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
+def split_last(x, n):
+    """``x (..., n * d)`` as ``(..., n, d)`` (heads out of a projection).
+    A DTensor is reshaped on its local shards: a shard of the last dim
+    that splits the n blocks whole becomes a shard of the n dim, any other
+    is gathered first (``fit_dim``). DTensor's own view refuses to split a
+    sharded dim on some torch releases, in the backward too."""
+    if not is_dtensor(x):
+        return x.reshape(*x.shape[:-1], n, x.shape[-1] // n)
+    x = fit_dim(x, x.ndim - 1, n)
+    local = x.to_local()
+    ways = x.shape[-1] // local.shape[-1]
+    return from_shard(local.reshape(*local.shape[:-1], n // ways,
+                                    x.shape[-1] // n), x.device_mesh,
+                      list(x.placements))
+
+
+def merge_last(x):
+    """``x (..., n, d)`` as ``(..., n * d)`` (heads into a projection's
+    input): ``split_last``'s inverse. A DTensor is reshaped on its local
+    shards, a shard of the d dim gathered first."""
+    if not is_dtensor(x):
+        return x.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1])
+    x = fit_dim(x, x.ndim - 1, 1)
+    local = x.to_local()
+    return from_shard(local.reshape(*local.shape[:-2], -1), x.device_mesh,
+                      list(x.placements))
+
+
+def rows_whole_inside(x):
+    """DTensor ``x`` (B, ..., K) with every shard of a dim between the
+    first and the last gathered, so that flattening its leading dims into
+    rows keeps a plain shard of the rows (a sequence split by DTensor, one
+    of its choices for a replicated operand, would otherwise flatten into
+    strided rows), and its local shard contiguous (DTensor views a local
+    shard to flatten it); anything else as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    pls = [Replicate() if p.is_shard() and 0 < p.dim < x.ndim - 1 else p
+           for p in x.placements]
+    if pls != list(x.placements):
+        x = x.redistribute(x.device_mesh, pls)
+    return from_shard(x.to_local().contiguous(), x.device_mesh, pls)
+
+
+def product_placements(x_pls, w_pls, last: int, k_dim: int, n_dim: int):
+    """(the activation's placements for a product, the product's) of
+    activations placed ``x_pls`` (their contraction dim ``last``) with a
+    weight placed ``w_pls`` (its K dim ``k_dim``, N dim ``n_dim``): per
+    mesh dim, N split -> the activation whole, the product split along its
+    last dim; K split -> the activation split along K, the product a
+    pending sum; another weight dim split (an expert bank's) -> the
+    activation whole, the product a pending sum; the weight whole -> the
+    activation as it is (gathered where split along K or in strided
+    shards), the product placed so."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    need, out = [], []
+    for px, pw in zip(x_pls, w_pls):
+        if pw.is_shard(n_dim):
+            need.append(Replicate()), out.append(Shard(last))
+        elif pw.is_shard(k_dim):
+            need.append(Shard(last)), out.append(Partial())
+        elif pw.is_shard():
+            need.append(Replicate()), out.append(Partial())
+        elif px.is_shard(last) or type(px) not in (Shard, Replicate,
+                                                   Partial):
+            need.append(Replicate()), out.append(Replicate())
+        else:
+            need.append(px), out.append(px)
+    return need, out
+
+
+def matmul(x, w):
+    """``x (..., K) @ w (K, N)`` over a mesh, by ``product_placements``'
+    tensor-parallel rules, on each rank's local shards, ``w`` gathered
+    along the data axes first (``gather_data``). DTensor's own choice of
+    a strategy would be searched op by op, may split rows it cannot put
+    back, and on three mesh dims is slow to find. Differentiable: ``w``'s
+    gradient is a pending sum over the mesh dims that split ``x``'s rows
+    or hold a pending sum of it, ``x``'s over those that split N. Plain
+    tensors are the same on every rank."""
+    from torch.distributed.tensor import Partial, Replicate
+    mesh = (x if is_dtensor(x) else w).device_mesh
+    x, w = replicated(x, mesh), gather_data(replicated(w, mesh))
+    last = x.ndim - 1
+    need, out = product_placements(x.placements, w.placements, last, 0, 1)
+    x_grad = [Partial() if pw.is_shard(1) else
+              Replicate() if n.is_partial() else n
+              for n, pw in zip(need, w.placements)]
+    w_grad = [Partial() if n.is_partial() or (n.is_shard() and n.dim != last)
+              else pw for n, pw in zip(need, w.placements)]
+    x = x.redistribute(mesh, need)
+    y = (x.to_local(grad_placements=x_grad)
+         @ w.to_local(grad_placements=w_grad))
+    return from_shard(y, mesh, out)
 
 
 def like(t, ref):
@@ -430,8 +599,9 @@ def per_shard(fn, dims: tuple, x, *rest, **kw):
     batch row, an attention head): DTensor ``x`` and ``rest`` are brought
     to one placement over each mesh dim — a shard of one of ``dims`` where
     all of them are sharded so, else whole — the function runs on their
-    local tensors, and its result (``x``'s shape) is a DTensor with those
-    placements. Differentiable."""
+    local tensors, and its result (shaped as ``x`` along the dims those
+    placements split) is a DTensor with those placements.
+    Differentiable."""
     from torch.distributed.tensor import DTensor, Replicate
     mesh = x.device_mesh
     pls = []
@@ -441,6 +611,86 @@ def per_shard(fn, dims: tuple, x, *rest, **kw):
                    else Replicate())
     local = [t.redistribute(mesh, pls).to_local() for t in (x,) + rest]
     return DTensor.from_local(fn(*local, **kw), mesh, pls, run_check=False)
+
+
+def along(fn, x, dim: int):
+    """``fn(x)`` for a function that works along tensor dim ``dim`` alone
+    (a roll, a pad: every other dim's index by itself, the result placed
+    as ``x`` on them): a DTensor's shards along ``dim`` are gathered and
+    ``fn`` runs on its local shard."""
+    if not is_dtensor(x):
+        return fn(x)
+    x = fit_dim(x, dim, 1)
+    return from_shard(fn(x.to_local()), x.device_mesh, list(x.placements))
+
+
+def local_rows(fn, *rows, **whole_kw):
+    """``fn(*rows, **whole_kw)`` on each rank's own batch rows, for a
+    function that computes every batch row (dim 0) by itself (a scan over
+    the sequence, a causal conv, one token's attention): the ``rows``
+    tensors are split along dim 0 over the mesh dims that split the first
+    DTensor among them so, whole along every other dim; each ``whole_kw``
+    tensor (or dict of tensors: parameters) is whole. The function runs on
+    local tensors, where DTensor's ops are not all available on every
+    torch release; its result (a tensor or a tuple of them, batch rows
+    leading) is split along dim 0 as the rows were. Without a DTensor
+    among ``rows`` it is ``fn`` itself. Differentiable."""
+    first = next((t for t in rows if is_dtensor(t)), None)
+    if first is None:
+        return fn(*rows, **whole_kw)
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = first.device_mesh
+    pls = [Shard(0) if type(p) is Shard and p.dim == 0 else Replicate()
+           for p in first.placements]
+    whole_ = [Replicate()] * mesh.ndim
+
+    def local(t, placed):
+        if isinstance(t, dict):
+            return {k: local(v, placed) for k, v in t.items()}
+        if not isinstance(t, torch.Tensor):
+            return t
+        return replicated(t, mesh).redistribute(mesh, placed).to_local()
+    out = fn(*(local(t, pls) for t in rows),
+             **{k: local(v, whole_) for k, v in whole_kw.items()})
+    if isinstance(out, tuple):
+        return tuple(from_shard(t, mesh, pls) for t in out)
+    return from_shard(out, mesh, pls)
+
+
+def write_rows_(cache, dim, index, src):
+    """``cache.index_copy_(dim, index, src)``, in place. A DTensor cache
+    (a step over a mesh; DTensor's own ``index_copy_`` re-labels a cache
+    split along ``dim`` as whole without gathering it) is written on its
+    local shards: ``src`` brought to the cache's placements, whole along
+    ``dim``, and where mesh dims split the cache along ``dim`` each rank
+    writes the rows of ``index`` (global positions, distinct, in one
+    shard: a decode step's one row) that it holds. Nothing is sent but
+    ``src``'s redistribution."""
+    if not is_dtensor(cache):
+        return cache.index_copy_(dim, index, src)
+    from torch.distributed.tensor import Replicate
+    mesh = cache.device_mesh
+    pls = [Replicate() if p.is_shard(dim) else p for p in cache.placements]
+    src = replicated(src, mesh).redistribute(mesh, pls).to_local().to(
+        cache.dtype)
+    index = whole(index).long()
+    local = cache.to_local()
+    split = [i for i, p in enumerate(cache.placements)
+             if p.is_shard(dim) and mesh.size(i) > 1]
+    if not split:
+        local.index_copy_(dim, index, src)
+        return cache
+    chunk = 0
+    for i in split:
+        chunk = chunk * mesh.size(i) + mesh.get_local_rank(i)
+    n = local.shape[dim]
+    rows = index - chunk * n
+    mine = ((rows >= 0) & (rows < n)).reshape(
+        [-1 if d == dim else 1 for d in range(local.ndim)])
+    rows = rows.clamp(0, n - 1)
+    local.index_copy_(dim, rows, torch.where(
+        mine, src, local.index_select(dim, rows)))
+    return cache
 
 
 def gather_rows(table, ids):

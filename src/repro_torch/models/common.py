@@ -274,8 +274,15 @@ def decode_attention_incremental(q, k_cache, v_cache, kv_len, k_new, v_new,
     both halves (the kernel on CUDA tensors, its plain version, the
     reference's XLA branch, on the CPU);
     windowed attention (keys at positions >= kv_len - window + 1) takes
-    the plain path on any device, as in the reference.
+    the plain path on any device, as in the reference. DTensors (a step
+    over a mesh) run on each rank's own batch rows, everything else whole
+    (``sharding.local_rows``).
     """
+    if sh.is_dtensor(q):
+        return sh.local_rows(
+            lambda q, kc, vc, kn, vn, kv_len: decode_attention_incremental(
+                q, kc, vc, kv_len, kn, vn, window=window),
+            q, k_cache, v_cache, k_new, v_new, kv_len=kv_len)
     b, s, n_kv, dh = k_cache.shape
     h = q.shape[2]
     cdt = k_cache.dtype
@@ -301,7 +308,15 @@ def decode_attention(q, k_cache, v_cache, kv_len, window: int | None = None):
     windowed attention (keys at positions >= kv_len - window) take the
     reference's XLA branch: a masked softmax, p rounded to the cache dtype
     before the PV product.
+
+    DTensors (a step over a mesh) run on each rank's own batch rows,
+    everything else whole (``sharding.local_rows``).
     """
+    if sh.is_dtensor(q):
+        return sh.local_rows(
+            lambda q, kc, vc, kv_len: decode_attention(q, kc, vc, kv_len,
+                                                       window=window),
+            q, k_cache, v_cache, kv_len=kv_len)
     b, s, n_kv, dh = k_cache.shape
     h = q.shape[2]
     cdt = k_cache.dtype
@@ -408,8 +423,7 @@ def qkv_project(p, x, cfg: AttnConfig, positions):
     def heads(w, n):
         # a DTensor projection whose "model" shards cannot split its n heads
         # whole is gathered first (GQA's few KV heads on a wide mesh)
-        y = sh.fit_dim(maybe_flash_matmul(x, w), x.ndim - 1, n)
-        return y.reshape(b, s, n, cfg.head_dim)
+        return sh.split_last(maybe_flash_matmul(x, w), n)
     q = heads(p["wq"], cfg.n_heads)
     k = heads(p["wk"], cfg.n_kv_heads)
     v = heads(p["wv"], cfg.n_kv_heads)
@@ -462,19 +476,25 @@ def gelu_ffn_apply(p, x, partial: bool = False):
 
 # --- losses and rematerialization ----------------------------------------------
 
-def softmax_xent(logits, labels):
-    """Mean token cross-entropy in f32; logits (B, S, V) any float dtype;
-    labels (B, S). Logits that are a DTensor (sharded over the vocabulary
-    by ``lm_head``'s "model" rule) are first brought to batch shards over
-    the data axes, whole along every other dim, so the gold logit's gather
-    reads one shard."""
-    if sh.is_dtensor(logits):
-        logits = sh.redistribute(logits, sh.P(
-            sh.DATA_AXES, *([None] * (logits.ndim - 1))))
+def _xent_rows(logits, labels):
+    """Each token's cross-entropy in f32: (B, S, V) logits, (B, S) labels
+    -> (B, S)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return torch.mean(logz - gold)
+    return logz - gold
+
+
+def softmax_xent(logits, labels):
+    """Mean token cross-entropy in f32; logits (B, S, V) any float dtype;
+    labels (B, S). Logits that are a DTensor (sharded over the vocabulary
+    by ``lm_head``'s "model" rule) are taken on each rank's own batch rows,
+    whole along the vocabulary (``sharding.per_shard``): DTensor's own
+    gather of the gold logit would bring every row to every rank."""
+    if sh.is_dtensor(logits):
+        labels = sh.replicated(labels, logits.device_mesh)
+        return torch.mean(sh.per_shard(_xent_rows, (0,), logits, labels))
+    return torch.mean(_xent_rows(logits, labels))
 
 
 def remat(fn, *args):

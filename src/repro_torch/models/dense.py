@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.erdpe import maybe_flash_matmul
+from repro_torch.launch import sharding as sh
 from repro_torch.models import common as cm
 
 # the top-level params whose leaves carry a leading layer axis: the train
@@ -77,8 +78,7 @@ def _layer_fwd(cfg, x, lp, positions, collect_kv=True, ffn=dense_ffn):
     h = _norm(cfg, x, lp, "ln1")
     q, k, v = cm.qkv_project(lp["attn"], h, attn_cfg(cfg), positions)
     attn = cm.chunked_attention(q, k, v, causal=True, window=cfg.local_window)
-    b, s, _, _ = attn.shape
-    attn = maybe_flash_matmul(attn.reshape(b, s, -1), lp["attn"]["wo"])
+    attn = maybe_flash_matmul(sh.merge_last(attn), lp["attn"]["wo"])
     x = x + attn
     x = x + ffn(cfg, lp, _norm(cfg, x, lp, "ln2"))
     return x, ((k, v) if collect_kv else None)
@@ -191,13 +191,14 @@ def decode_body(cfg, params, cache, token, kv_len, ffn=dense_ffn):
         attn = cm.decode_attention_incremental(
             q, cache["k"][li], cache["v"][li], positions, k, v,
             window=cfg.local_window)
-        b = attn.shape[0]
-        attn = maybe_flash_matmul(attn.reshape(b, 1, -1), lp["attn"]["wo"])
+        attn = maybe_flash_matmul(sh.merge_last(attn), lp["attn"]["wo"])
         x = x + attn
         x = x + ffn(cfg, lp, _norm(cfg, x, lp, "ln2"))
         # rows >= kv_len are masked in every later read of this step
-        cache["k"][li].index_copy_(1, positions, k.to(cache["k"].dtype))
-        cache["v"][li].index_copy_(1, positions, v.to(cache["v"].dtype))
+        sh.write_rows_(cache["k"][li], 1, positions,
+                       k.to(cache["k"].dtype))
+        sh.write_rows_(cache["v"][li], 1, positions,
+                       v.to(cache["v"].dtype))
     x = _final_norm(cfg, params, x)
     return maybe_flash_matmul(x[:, 0], params["lm_head"],
                               out_dtype=torch.float32)

@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.erdpe import maybe_flash_matmul
+from repro_torch.launch import sharding as sh
 from repro_torch.models import common as cm
 from repro_torch.models import dense
 from repro_torch.models.dense import layer_slice
@@ -97,8 +98,7 @@ def encode(cfg, params, src_embeds, remat=True):
         q, k, v = cm.qkv_project(lp["attn"], h, dense.attn_cfg(cfg),
                                  positions)
         attn = cm.chunked_attention(q, k, v, causal=False)
-        b, s = attn.shape[:2]
-        x = x + maybe_flash_matmul(attn.reshape(b, s, -1), lp["attn"]["wo"])
+        x = x + maybe_flash_matmul(sh.merge_last(attn), lp["attn"]["wo"])
         return x + cm.gelu_ffn_apply(lp["ffn"], cm.rms_norm(x, lp["ln2"]))
 
     for li in range(cfg.n_enc_layers):
@@ -109,7 +109,7 @@ def encode(cfg, params, src_embeds, remat=True):
 # --- decoder -----------------------------------------------------------------------
 
 def _heads(cfg, t):
-    return t.reshape(t.shape[0], t.shape[1], cfg.n_heads, cfg.head_dim)
+    return sh.split_last(t, cfg.n_heads)
 
 
 def _cross_kv(cfg, p, enc_out):
@@ -131,8 +131,7 @@ def _dec_layer(cfg, x, lp, enc_out, positions):
     h = cm.rms_norm(x, lp["ln1"])
     q, k, v = cm.qkv_project(lp["attn"], h, dense.attn_cfg(cfg), positions)
     attn = cm.chunked_attention(q, k, v, causal=True)
-    b, s = attn.shape[:2]
-    x = x + maybe_flash_matmul(attn.reshape(b, s, -1), lp["attn"]["wo"])
+    x = x + maybe_flash_matmul(sh.merge_last(attn), lp["attn"]["wo"])
     enc_kv = _cross_kv(cfg, lp["cross"], enc_out)
     x = x + _cross_attend(cfg, lp["cross"], cm.rms_norm(x, lp["ln_x"]),
                           enc_kv)
@@ -217,7 +216,7 @@ def decode_body(cfg, params, cache, token, kv_len):
     int64 device tensor (a checked one). Reads no tensor on the host, so
     ``launch.steps.make_decode_step(compiled=True)`` captures it. Returns
     the logits (B, V) f32; the self-KV row kv_len is written in place."""
-    x = params["embed"][token.long()[:, None]]
+    x = cm.embed_rows(params["embed"], token.long()[:, None])
     b = x.shape[0]
     for li in range(cfg.n_layers):
         lp = layer_slice(params["dec"], li)
@@ -225,18 +224,18 @@ def decode_body(cfg, params, cache, token, kv_len):
         q, k, v = cm.qkv_project(lp["attn"], h, dense.attn_cfg(cfg), kv_len)
         attn = cm.decode_attention_incremental(
             q, cache["k"][li], cache["v"][li], kv_len, k, v)
-        x = x + maybe_flash_matmul(attn.reshape(b, 1, -1), lp["attn"]["wo"])
+        x = x + maybe_flash_matmul(sh.merge_last(attn), lp["attn"]["wo"])
         # cross-attention against the fixed encoder KV, at its full length
         hx = cm.rms_norm(x, lp["ln_x"])
         qx = _heads(cfg, maybe_flash_matmul(hx, lp["cross"]["wq"]))
         ck, cv = cache["ck"][li], cache["cv"][li]
         xattn = cm.decode_attention(qx, ck, cv, ck.shape[1])
-        x = x + maybe_flash_matmul(xattn.reshape(b, 1, -1),
+        x = x + maybe_flash_matmul(sh.merge_last(xattn),
                                    lp["cross"]["wo"])
         x = x + cm.gelu_ffn_apply(lp["ffn"], cm.rms_norm(x, lp["ln2"]))
         # row kv_len is masked in every later read of this step
-        cache["k"][li].index_copy_(1, kv_len, k.to(cache["k"].dtype))
-        cache["v"][li].index_copy_(1, kv_len, v.to(cache["v"].dtype))
+        sh.write_rows_(cache["k"][li], 1, kv_len, k.to(cache["k"].dtype))
+        sh.write_rows_(cache["v"][li], 1, kv_len, v.to(cache["v"].dtype))
     x = cm.rms_norm(x, params["final_norm"])
     return maybe_flash_matmul(x[:, 0], params["lm_head"],
                               out_dtype=torch.float32)

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.erdpe import maybe_flash_matmul
+from repro_torch.launch import sharding as sh
 from repro_torch.models import common as cm
 from repro_torch.models import dense
 from repro_torch.models.dense import layer_slice
@@ -160,13 +161,24 @@ def rg_lru_step(p, u, h_prev):
     return h.to(u.dtype)[:, None], h
 
 
+def _gate_params(p):
+    return {k: p[k] for k in ("conv_w", "conv_b", "rg_a_w", "rg_a_b",
+                              "rg_x_w", "rg_x_b", "lam")}
+
+
+def _conv_scan(u, p):
+    """The causal conv, then the RG-LRU over the sequence."""
+    return rg_lru_seq(p, _causal_conv(u, p["conv_w"], p["conv_b"]))
+
+
 def _rec_mix_seq(p, x):
     """Recurrent temporal mix over a sequence from a zero state. Returns
     (out, (conv tail: the last W-1 rows of u, h_last))."""
     gate = F.gelu(maybe_flash_matmul(x, p["w_in_y"]).float(),
                   approximate="tanh")
     u = maybe_flash_matmul(x, p["w_in_x"])
-    h, h_last = rg_lru_seq(p, _causal_conv(u, p["conv_w"], p["conv_b"]))
+    # over a mesh: on each rank's own rows (sharding.local_rows)
+    h, h_last = sh.local_rows(_conv_scan, u, p=_gate_params(p))
     tail = u[:, -(p["conv_w"].shape[0] - 1):]
     out = maybe_flash_matmul((gate * h.float()).to(x.dtype), p["w_out"])
     return out, (tail, h_last)
@@ -211,8 +223,7 @@ def _attn_layer_seq(cfg, x, lp, positions):
     q, k, v = cm.qkv_project(lp["attn"], h, dense.attn_cfg(cfg), positions)
     attn = cm.chunked_attention(q, k, v, causal=True,
                                 window=cfg.local_window)
-    b, s = attn.shape[:2]
-    x = x + maybe_flash_matmul(attn.reshape(b, s, -1), lp["attn"]["wo"])
+    x = x + maybe_flash_matmul(sh.merge_last(attn), lp["attn"]["wo"])
     x = x + cm.swiglu_apply(lp["ffn"], cm.rms_norm(x, lp["ln2"]))
     return x, (k, v)
 
@@ -285,12 +296,13 @@ def _ring_from_prefill(cfg, k, v, s):
     """Prefill K/V (N, B, S, KV, Dh) -> ring caches (N, B, W, KV, Dh),
     position p at slot p % window."""
     w = cfg.local_window
-    if s >= w:
-        shift = s % w
-        return (torch.roll(k[:, :, -w:], shift, dims=2),
-                torch.roll(v[:, :, -w:], shift, dims=2))
-    pad = (0, 0, 0, 0, 0, w - s)
-    return F.pad(k, pad), F.pad(v, pad)
+
+    def ring(t):
+        if s >= w:
+            return torch.roll(t[:, :, -w:], s % w, dims=2)
+        return F.pad(t, (0, 0, 0, 0, 0, w - s))
+    # over a mesh: on each rank's shards, the sequence whole
+    return sh.along(ring, k, 2), sh.along(ring, v, 2)
 
 
 def _pack_cache(cfg, rec_states, kv, tail_states, s):
@@ -352,12 +364,11 @@ def _ring_attention_step(cfg, lp, x, k_cache, v_cache, kv_len):
     q, k, v = cm.qkv_project(lp["attn"], h, dense.attn_cfg(cfg), kv_len)
     w = cfg.local_window
     slot = torch.remainder(kv_len, w)
-    k_cache.index_copy_(1, slot, k.to(k_cache.dtype))
-    v_cache.index_copy_(1, slot, v.to(v_cache.dtype))
+    sh.write_rows_(k_cache, 1, slot, k.to(k_cache.dtype))
+    sh.write_rows_(v_cache, 1, slot, v.to(v_cache.dtype))
     attn = cm.decode_attention(q, k_cache, v_cache,
                                torch.clamp_max(kv_len + 1, w))
-    b = attn.shape[0]
-    x = x + maybe_flash_matmul(attn.reshape(b, 1, -1), lp["attn"]["wo"])
+    x = x + maybe_flash_matmul(sh.merge_last(attn), lp["attn"]["wo"])
     return x + cm.swiglu_apply(lp["ffn"], cm.rms_norm(x, lp["ln2"]))
 
 
@@ -377,7 +388,7 @@ def decode_body(cfg, params, cache, token, kv_len):
     (``launch.steps.make_decode_step(compiled=True)``) serves every step,
     the wrap past the window included. Returns the logits (B, V) f32;
     every cache tensor is written in place."""
-    x = params["embed"][token.long()[:, None]]
+    x = cm.embed_rows(params["embed"], token.long()[:, None])
     n_super, n_tail = block_counts(cfg)
     for i in range(n_super):
         bp = layer_slice(params["blocks"], i)

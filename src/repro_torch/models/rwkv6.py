@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.erdpe import maybe_flash_matmul
+from repro_torch.launch import sharding as sh
 from repro_torch.models import common as cm
 from repro_torch.models.dense import layer_slice
 
@@ -190,20 +191,22 @@ def tmix_seq(cfg, p, x, x_last=None, s0=None, wkv_mode="chunked"):
     h = d // kk
     xp = _shift(x, x_last)
     xr, xk, xv, xw, xg = _ddlerp(p, x, xp)
-    r = maybe_flash_matmul(xr, p["w_r"]).float().reshape(b, s, h, kk)
-    k = maybe_flash_matmul(xk, p["w_k"]).float().reshape(b, s, h, kk)
-    v = maybe_flash_matmul(xv, p["w_v"]).float().reshape(b, s, h, kk)
+    r = sh.split_last(maybe_flash_matmul(xr, p["w_r"]).float(), h)
+    k = sh.split_last(maybe_flash_matmul(xk, p["w_k"]).float(), h)
+    v = sh.split_last(maybe_flash_matmul(xv, p["w_v"]).float(), h)
     g = maybe_flash_matmul(xg, p["w_g"]).float()
     dec = p["dec_base"].float() + (
         torch.tanh(xw.float() @ p["dec_A"].float()) @ p["dec_B"].float())
-    logw = -torch.exp(dec).reshape(b, s, h, kk)              # <= 0
+    logw = -sh.split_last(torch.exp(dec), h)                 # <= 0
     u = p["u"].float().reshape(h, kk)
     if s0 is None:
         s0 = torch.zeros((b, h, kk, kk), dtype=torch.float32,
                          device=x.device)
     wkv = wkv_scan if wkv_mode == "scan" else wkv_chunked
-    o, s_last = wkv(r, k, v, logw, u, s0)
-    o = _group_norm_heads(o, p["gn_scale"], p["gn_bias"]).reshape(b, s, d)
+    # over a mesh: on each rank's own rows (sharding.local_rows)
+    o, s_last = sh.local_rows(lambda *t, u: wkv(*t[:4], u, t[4]),
+                              r, k, v, logw, s0, u=u)
+    o = sh.merge_last(_group_norm_heads(o, p["gn_scale"], p["gn_bias"]))
     o = (o * F.silu(g)).to(x.dtype)
     return maybe_flash_matmul(o, p["w_o"]), (x[:, -1], s_last)
 
@@ -301,7 +304,8 @@ def decode_body(cfg, params, cache, token, kv_len):
     ``launch.steps.make_decode_step(compiled=True)`` captures it. Returns
     the logits (B, V) f32; the state is written in place."""
     del kv_len
-    x = cm.rms_norm(params["embed"][token.long()[:, None]], params["ln_in"])
+    x = cm.rms_norm(cm.embed_rows(params["embed"], token.long()[:, None]),
+                    params["ln_in"])
     bf = torch.bfloat16
     for li in range(cfg.n_layers):
         x, (tx, ts, cx) = _layer(cfg, x, layer_slice(params["layers"], li),

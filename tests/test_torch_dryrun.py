@@ -323,19 +323,27 @@ def test_meta_counts_equal_fake_counts(arch, shape):
 
 
 def test_dryrun_smoke_subprocess(tmp_path):
-    """The reference's plumbing check through the port's entry point; the
-    multi-device meshes are refused, naming tensor parallelism."""
+    """The reference's plumbing check through the port's entry point:
+    ``--mesh card`` keeps the one-card cell (``1xH100``), and ``--mesh
+    both`` counts the reference's two production meshes (16x16 and
+    2x16x16, named as the reference names them)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env.pop("WORLD_SIZE", None)
     cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
            "granite-8b", "--shape", "train_4k", "--smoke", "--out",
            str(tmp_path)]
-    r = subprocess.run(cmd + ["--mesh", "single"], capture_output=True,
+    r = subprocess.run(cmd + ["--mesh", "card"], capture_output=True,
                        text=True, timeout=300, env=env, cwd=ROOT)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
     assert "[ok" in r.stdout
     rec = json.loads((tmp_path / "granite-8b_train_4k_1xH100_smoke.json")
                      .read_text())
     assert rec["status"] == "ok" and rec["mesh"] == "1xH100"
+    assert rec["n_collectives"] == 0
     r = subprocess.run(cmd + ["--mesh", "both"], capture_output=True,
                        text=True, timeout=300, env=env, cwd=ROOT)
-    assert r.returncode != 0 and "§A.4" in r.stderr
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-2000:]
+    for mesh in ("16x16", "2x16x16"):
+        rec = json.loads((tmp_path / f"granite-8b_train_4k_{mesh}_smoke.json")
+                         .read_text())
+        assert rec["status"] == "ok" and rec["mesh"] == mesh

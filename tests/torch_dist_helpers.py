@@ -1,5 +1,5 @@
-"""Shared machinery for ``tests/test_torch_dist_train.py`` (not a test
-file): ``spawn`` runs a case on N ``gloo`` ranks of a CPU process group
+"""Shared machinery for ``tests/test_torch_dist_train.py`` and
+``tests/test_torch_dryrun_mesh.py`` (not a test file): ``spawn`` runs a case on N ``gloo`` ranks of a CPU process group
 (``torch.multiprocessing``, a ``FileStore`` under the test's tmp dir, no
 ports), with a deadline; the rank cases below write what they found into
 ``.npz`` / ``.pkl`` files for the test to hold against the reference;
@@ -195,6 +195,53 @@ def case_remesh(rank: int, out: Path):
                          "step": es.step, "state": got}, f)
 
 
+def case_collectives(rank: int, out: Path):
+    """granite-8b's smoke ``train_4k`` cell (``launch/dryrun``'s shapes
+    and knobs, n_micro 1) as one real step over the (2, 2) host mesh:
+    params from a seeded init placed by ``param_specs``, ZeRO-1 moments,
+    a seeded batch placed by ``batch_specs``; counted by
+    ``launch/cost.count``. Rank 0 writes the collectives by kind and
+    their wire bytes (``collectives.json``)."""
+    import json
+
+    from repro_torch.configs import ShapeSpec, batch_specs, get_config
+    from repro_torch.configs.shapes import SMOKE_OVERRIDES
+    from repro_torch.launch import cost
+    from repro_torch.launch import sharding as sh
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import family_module
+    from repro_torch.optim import AdamW
+
+    mesh = make_host_mesh(2, device="cpu")
+    cfg = get_config("granite-8b", smoke=True)
+    s, b = SMOKE_OVERRIDES["train"]
+    shape = ShapeSpec("train_4k", "train", s, b)
+    gen = torch.Generator().manual_seed(0)
+    params = family_module(cfg.family).init(cfg, gen, device="cpu")
+    opt = AdamW()
+    state = opt.init(params)
+    pspecs = sh.param_specs(params, mesh)
+    params = sh.distribute(params, sh.named(pspecs, mesh), mesh)
+    state = sh.distribute(state, sh.named(sh.opt_state_specs(
+        state, pspecs, mesh, zero1=True), mesh), mesh)
+    batch = {k: torch.randint(0, cfg.vocab_size, tuple(v.shape),
+                              generator=gen, dtype=v.dtype)
+             for k, v in batch_specs(cfg, shape).items()}
+    batch = sh.distribute(batch, sh.named(sh.batch_specs(batch, mesh), mesh),
+                          mesh)
+    step = steps.make_train_step(cfg, opt, n_micro=1, grad_specs=pspecs)
+
+    def run(*args):
+        with sh.use_mesh(mesh):
+            return step(*args)
+    got = cost.count(run, params, state, batch)
+    if rank == 0:
+        (out / "collectives.json").write_text(json.dumps(
+            {"collectives": got.cost.collectives, "wire": got.cost.wire,
+             "n_collectives": got.cost.n_collectives}))
+
+
 def _no_straggler():
     """``FaultPolicy`` with the straggler detector off (a loaded CPU trips
     it; the CPU tests of ``train`` all patch it so)."""
@@ -204,7 +251,7 @@ def _no_straggler():
 
 
 CASES = {"steps": case_steps, "compress": case_compress, "train": case_train,
-         "remesh": case_remesh}
+         "remesh": case_remesh, "collectives": case_collectives}
 
 
 # --- the reference's side (a subprocess with forced devices) --------------------
