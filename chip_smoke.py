@@ -22,7 +22,8 @@ dense plane tensor-parallel at OPT-6.7B width over 1, 2 and 4 shards of
 the one card, and the streamed MoE plane at qwen3-moe-30b-a3b width over
 1, 2 and 3; and trains over a ("data", "model") mesh of one rank: granite-8b
 at full width through ``train()``'s DTensor path against the plain step,
-and its checkpoint across meshes.
+and its checkpoint across meshes; and runs the port's four examples and
+serves qwen3-moe-30b-a3b at all 48 layers through ``build_engine``.
 
     python3 chip_smoke.py
 
@@ -460,9 +461,31 @@ Phases (any failure exits non-zero; nothing is caught):
                 mesh is held by the CPU tests alone. Training launches
                 none of the four kernels. Its figures are the
                 ``mesh_train`` JSON line.
+ 20. moe_depth — (a) the four ``examples/torch_*.py`` (quickstart,
+                train_tiny, deploy_nvllm, edge_serve) on the card at their
+                default sizes, each a subprocess, started together: exit 0
+                and the example's ``OK`` line last. (b) qwen3-moe-30b-a3b
+                at full width and all 48 layers through
+                ``build_engine(MOE_ARCH, smoke=False, rber=1e-4)``, the
+                flash tier encoded as it is drawn
+                (``tiering.deploy_init``): the build's seconds, its device
+                peak (at least 8 GiB under the card's memory) beside the
+                bytes of the bf16 tree, its flash tier and the resident
+                tier from the config's shapes, the resident bytes; two
+                prompts (64 and 33 tokens, 4 greedy tokens each) compiled,
+                one capture, the warm-up's and the capture's counters each
+                a step's 48 x 3 grouped ECDP, 1 ECDP and 48 paged
+                attention; ms a step. The examples run beside (b)'s
+                build and are collected before its steps. The streamed
+                engine at 48 layers, bit-equal to the resident one, is
+                ``scripts/moe_full_depth.py``'s: its host store takes
+                about 100 s to program, past the phase's share of the
+                script's time. Its figures are the ``moe_depth`` JSON
+                line.
 
 The ``spec``, ``moe_stream``, ``families``, ``train``, ``dryrun``,
-``dryrun_mesh``, ``sharded``, ``sharded_moe``, ``mesh_train`` and ``phase_seconds`` lines come before the card's name; the
+``dryrun_mesh``, ``sharded``, ``sharded_moe``, ``mesh_train``,
+``moe_depth`` and ``phase_seconds`` lines come before the card's name; the
 second-to-last line is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Times are CUDA-event medians with the
 L2 cache flushed before each timed call (the serving step streams more
@@ -6456,6 +6479,231 @@ def phase_mesh_train(torch) -> dict:
     return dict(full=full, checkpoint=ckpt, seconds=secs)
 
 
+EXAMPLES = ("torch_quickstart", "torch_train_tiny", "torch_deploy_nvllm",
+            "torch_edge_serve")
+EXAMPLE_OK = {"torch_quickstart": "quickstart OK",
+              "torch_train_tiny": "train_tiny OK",
+              "torch_deploy_nvllm": "deploy_nvllm OK — corrupted flash "
+                                    "reads decode identically",
+              "torch_edge_serve": "edge_serve OK"}
+
+
+def start_examples() -> dict:
+    """20(a): the four ``examples/torch_*.py`` on the card at their
+    default sizes, each a subprocess, all four started together (beside
+    20(b)'s build, which holds the card's memory, not its time)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return dict(t0=time.perf_counter(), procs={name: subprocess.Popen(
+        [sys.executable, str(ROOT / "examples" / f"{name}.py")], cwd=ROOT,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for name in EXAMPLES})
+
+
+def finish_examples(started: dict) -> dict:
+    """20(a)'s gate: each example exits 0 with its ``OK`` line last."""
+    out = {}
+    for name, proc in started["procs"].items():
+        stdout, stderr = proc.communicate(timeout=300)
+        lines = stdout.strip().splitlines()
+        if proc.returncode != 0 or not lines or lines[-1] != EXAMPLE_OK[name]:
+            raise AssertionError(f"examples/{name}.py: exit "
+                                 f"{proc.returncode}\n{stdout}\n{stderr}")
+        out[name] = dict(seconds=round(time.perf_counter() - started["t0"],
+                                       1), lines=lines)
+        log(f"  examples/{name}.py: exit 0, {len(lines)} lines, last "
+            f"{lines[-1]!r} ({out[name]['seconds']} s after the start)")
+        for ln in lines[:-1]:
+            log(f"    {ln}")
+    return out
+
+
+# 20(b): qwen3-moe-30b-a3b at all 48 layers through build_engine. Two
+# prompts, MOE_DEPTH_NEW greedy tokens each; the streamed engine under a
+# device budget of half the expert store.
+MOE_DEPTH_PROMPTS, MOE_DEPTH_NEW = (64, 33), 4
+MOE_DEPTH_SPARE_GIB = 8                 # the build's peak under the card's
+
+
+def _peak_rss_gib() -> float:
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def _depth_run(torch, eng, prompts, counts, zero) -> dict:
+    """``prompts`` served to completion, MOE_DEPTH_NEW greedy tokens each,
+    the launch counters zeroed just before and read just after: each
+    step's synchronized host wall, logits and slots with lanes on the
+    host, and the engine's stats."""
+    rids = [eng.submit(p, max_new=MOE_DEPTH_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero()
+    logits, live, wall = [], [], []
+    while True:
+        t0 = time.perf_counter()
+        if not eng.step():
+            break
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+        logits.append(eng.last_logits.cpu())
+        live.append(eng._host_in["q_lens"].numpy() > 0)
+    out = [list(eng.requests[r].out) for r in rids]
+    assert all(len(o) == MOE_DEPTH_NEW for o in out), out
+    assert all(bool(torch.isfinite(lg).all()) for lg in logits)
+    return dict(out=out, logits=logits, live=live, wall=wall,
+                launches=counts(), stats=list(eng.stats),
+                peak_bytes=torch.cuda.max_memory_allocated())
+
+
+def moe_depth_arithmetic(cfg) -> dict:
+    """The bytes the build should hold, from the config's shapes: the
+    bf16 tree, its flash tier (int8 + 1/8 parity + f32 scales) and the
+    DRAM tier the resident engine keeps (attention in f32, the rest bf16)."""
+    from repro_torch.core.tiering import _walk, init_template, is_flash_path
+
+    bf16 = flash = dram = 0
+    for path, t in _walk(init_template(cfg)):
+        bf16 += 2 * t.numel()
+        if is_flash_path(path) and t.ndim >= 2:
+            k, n = t.shape[-2:]
+            flash += t.numel() // (k * n) * _payload(k, n)
+        else:
+            dram += (4 if path.startswith("layers/attn/w") else 2) * t.numel()
+    return dict(bf16_tree=bf16, flash_tier=flash, dram_tier=dram,
+                expected_resident=flash + dram)
+
+
+def moe_depth_build(torch) -> dict:
+    """20(b)'s build: qwen3-moe-30b-a3b at full width and all 48 layers
+    through ``build_engine(MOE_ARCH, smoke=False, rber=1e-4)`` (the flash
+    tier encoded as it is drawn, ``tiering.deploy_init``): the seconds, the
+    device peak (at least MOE_DEPTH_SPARE_GIB under the card's memory)
+    beside the bytes of ``moe_depth_arithmetic``, the resident bytes.
+    Returns the engine with them."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tiering import flash_bytes
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.serving.sampler import SampleConfig
+
+    cfg = get_config(MOE_ARCH)
+    assert cfg.n_layers == 48, cfg.n_layers
+    want = moe_depth_arithmetic(cfg)
+    total = torch.cuda.get_device_properties(0).total_memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = serve_mod.build_engine(MOE_ARCH, smoke=False, device="cuda",
+                                 rber=1e-4, sample_cfg=SampleConfig())
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    resident = torch.cuda.memory_allocated() - base
+    fb, _ = flash_bytes(eng.params)
+    assert fb == want["flash_tier"], (fb, want["flash_tier"])
+    gib = 2 ** 30
+    log(f"  build_engine {MOE_ARCH} (48 of 48 layers, {cfg.n_experts} "
+        f"experts top-{cfg.top_k} of d_ff {cfg.d_ff}, RBER 1e-4): "
+        f"{build_s:.1f} s; device peak while deploying {peak / gib:.2f} "
+        f"GiB of the card's {total / gib:.2f} (the bf16 tree alone: "
+        f"{want['bf16_tree'] / gib:.2f} GiB; its flash tier "
+        f"{want['flash_tier'] / gib:.2f} GiB; the resident tier and DRAM "
+        f"weights {want['expected_resident'] / gib:.2f} GiB); resident "
+        f"{resident / gib:.2f} GiB; the process's host peak RSS so far "
+        f"{_peak_rss_gib():.2f} GiB")
+    if peak > total - MOE_DEPTH_SPARE_GIB * gib:
+        raise AssertionError(
+            f"build peak {peak / gib:.2f} GiB leaves less than "
+            f"{MOE_DEPTH_SPARE_GIB} GiB of the card's {total / gib:.2f}")
+    return dict(engine=eng, build_s=build_s, build_peak_bytes=peak,
+                resident_bytes=resident, card_bytes=total, arithmetic=want)
+
+
+def moe_depth_serve(torch, built: dict, reference: bool = False) -> dict:
+    """20(b)'s steps: the built engine serves the two prompts compiled,
+    one capture, the warm-up's and the capture's counters each a step's
+    48 x 3 grouped ECDP, 1 ECDP and 48 paged attention; ms a step. Then
+    the same engine serves the same prompts again through its step body
+    run eagerly: the same tokens, and the logits of the slots with lanes
+    bit-equal to the replayed ones at every step, each step's launches
+    counted. The engine is closed and freed. With ``reference`` every
+    replayed step's logits are kept on the host (the streamed engine's
+    reference, ``scripts/moe_full_depth.py``)."""
+    import numpy as np
+
+    eng = built.pop("engine")
+    cfg = eng.cfg
+    rng = np.random.default_rng(20)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist()
+               for n in MOE_DEPTH_PROMPTS]
+    per_step = {"grouped_ecdp": cfg.n_layers * 3, "ecdp": 1,
+                "paged_attn": cfg.n_layers}
+    run = _depth_run(torch, eng, prompts, moe_counts, moe_zero_counts)
+    steps = len(run["logits"])
+    assert eng.step_traces == 1, eng.step_traces
+    # a replay ticks no counter: the warm-up's and the capture's launches
+    assert run["launches"] == {k: 2 * n for k, n in per_step.items()}, \
+        run["launches"]
+    # the same engine, its step body eager: the replays' check at 48 layers
+    eng.compiled = False
+    eager = _depth_run(torch, eng, prompts, moe_counts, moe_zero_counts)
+    assert eager["out"] == run["out"], (eager["out"], run["out"])
+    _same_live_logits(torch, f"{cfg.name} eager", eager, run)
+    assert eager["launches"] == {k: steps * n for k, n in per_step.items()}, \
+        (eager["launches"], steps)
+    eng.close()
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms = [w * 1e3 for w in run["wall"]]
+    eager_ms = sum(eager["wall"]) / steps * 1e3
+    log(f"  compiled: {steps} steps, {ms[0]:.1f} ms the first (warm-up and "
+        f"capture), then {sum(ms[1:]) / max(steps - 1, 1):.2f} ms a step "
+        f"(replays); peak {run['peak_bytes'] / 2**30:.2f} GiB serving; "
+        f"launches (warm-up + capture) {run['launches']} = 2 x {per_step}; "
+        f"tokens {run['out']}; the same engine eager: {eager_ms:.2f} ms a "
+        f"step, the tokens and the logits of the slots with lanes bit-equal "
+        f"to the replays' at all {steps} steps, launches "
+        f"{eager['launches']} = {steps} x {per_step}")
+    out = dict(built, steps=steps, first_step_ms=ms[0],
+               ms_per_step=sum(ms[1:]) / max(steps - 1, 1),
+               eager_ms_per_step=eager_ms, peak_bytes=run["peak_bytes"],
+               launches=run["launches"], eager_launches=eager["launches"],
+               per_step=per_step, prompts=prompts)
+    if reference:
+        out["reference"] = {k: run[k] for k in ("out", "logits", "live",
+                                                "stats")}
+    return out
+
+
+def depth_launches(depth: dict, kernel: str) -> dict:
+    """A kernel's launches in 20(b)'s run at 48 layers, for the kernels
+    line: the compiled engine's counters hold its warm-up and capture."""
+    run = depth["resident"]
+    return dict(launches=run["launches"][kernel],
+                per_step=run["per_step"][kernel], steps=run["steps"],
+                at="20(b): qwen3-moe-30b-a3b, 48 of 48 layers, compiled; "
+                   "the counters are the warm-up's and the capture's (2 x "
+                   "per_step)")
+
+
+def phase_moe_depth(torch) -> dict:
+    """Phase 20: (a) the four torch examples, started beside (b)'s build;
+    (b) qwen3-moe-30b-a3b at all 48 layers through build_engine, resident,
+    compiled and then eager. The streamed half at 48 layers is
+    ``scripts/moe_full_depth.py``'s (the host store's programming alone
+    takes about 100 s)."""
+    started = start_examples()
+    built = moe_depth_build(torch)
+    examples = finish_examples(started)
+    resident = moe_depth_serve(torch, built)
+    return dict(examples={k: v["seconds"] for k, v in examples.items()},
+                resident=resident)
+
+
 class PhaseClock:
     """The wall seconds of each phase, from its heading to the next one's
     (the ``phase_seconds`` JSON line): the script must end well inside its
@@ -6628,6 +6876,12 @@ def main() -> int:
                 "rank: granite-8b at full width through train() against the "
                 "plain step; the checkpoint across meshes")
     mesh_train = phase_mesh_train(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    clock.start("20", "phase 20: the four torch examples; qwen3-moe-30b-a3b "
+                "at all 48 layers through build_engine, resident, compiled "
+                "and eager")
+    depth = phase_moe_depth(torch)
     clock.stop()
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s; seconds "
         f"a phase: {clock.seconds}")
@@ -6643,6 +6897,7 @@ def main() -> int:
     print(json.dumps({"sharded": shard_res}), flush=True)
     print(json.dumps({"sharded_moe": shard_moe}), flush=True)
     print(json.dumps({"mesh_train": mesh_train}), flush=True)
+    print(json.dumps({"moe_depth": depth}), flush=True)
     print(json.dumps({"phase_seconds": clock.seconds}), flush=True)
 
     step = serve["ecdp_step"]
@@ -6672,6 +6927,7 @@ def main() -> int:
                               per_step=moe_res["full"]["per_step"]["ecdp"],
                               at="lm_head alone (the MoE step's one ECDP "
                                  "call)"),
+         "at_qwen3_moe_48": depth_launches(depth, "ecdp"),
          "at_families": {
              arch: dict(fam["ecdp"][arch],
                         launches=fam["full"][arch]["launches"]["ecdp"],
@@ -6701,6 +6957,7 @@ def main() -> int:
          "at_qwen3_moe": dict(moe_res["kernels"]["paged_attn"],
                               launches=moe_res["full"]["launches"][
                                   "paged_attn"]),
+         "at_qwen3_moe_48": depth_launches(depth, "paged_attn"),
          "instances": pa_inst},
         {"name": "paged_ecdp_matmul", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/paged_ecdp.cu",
@@ -6780,6 +7037,7 @@ def main() -> int:
          "per_launch": moe_res["kernels"]["grouped"]["per_launch"],
          "capacity_layouts": moe_res["kernels"]["grouped"][
              "capacity_layouts"],
+         "at_qwen3_moe_48": depth_launches(depth, "grouped_ecdp"),
          "routed_rows": moe_res["kernels"]["grouped"]["route"],
          "bf16_instances": ge_inst},
         {"name": "grouped_paged_ecdp_matmul", "route": "cuda",

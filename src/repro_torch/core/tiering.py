@@ -16,6 +16,7 @@ device page pool as ``PagedWeight``s.
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 import zlib
 from typing import Any
@@ -53,6 +54,10 @@ class FlashWeight:
         """Index the leading (layer) dim of a stacked weight."""
         return FlashWeight(self.q[i], self.parity[i], self.scale[i])
 
+    def to(self, device) -> "FlashWeight":
+        return FlashWeight(self.q.to(device), self.parity.to(device),
+                           self.scale.to(device))
+
     @property
     def shape(self):
         return tuple(self.q.shape)
@@ -87,30 +92,62 @@ def is_flash_path(path: str, patterns=DEFAULT_FLASH_PATTERNS) -> bool:
     return any(re.fullmatch(p, path) for p in patterns)
 
 
+def flash_seed(seed: int, path: str) -> int:
+    """The RBER seed of flash leaf ``path``: crc32, not hash(): Python
+    string hashing is randomized per process, and the seed must be the
+    same in every run."""
+    return seed + zlib.crc32(path.encode()) % (2**31)
+
+
+class FlashEncoder:
+    """Encodes a (*lead, K, N) flash leaf one (K, N) matrix at a time into
+    its preallocated int8 / uint8 / f32 buffers on ``device``: ``put(i,
+    w)`` quantizes and ECC-encodes matrix i (row-major over the lead dims)
+    on ``w``'s device and copies the codes into the buffers, ``finish()``
+    draws the bit errors over the whole leaf with one seed, as the JAX
+    version does, and returns the ``FlashWeight``. No f32 or bf16 copy of
+    the stack exists. The buffers may live in host memory while the
+    matrices are drawn and encoded on the card (a leaf bound for a host
+    page store): the bytes are the same."""
+
+    def __init__(self, shape: tuple, device, rber: float = 0.0,
+                 seed: int = 0):
+        if len(shape) < 2:
+            raise ValueError("flash tier holds matrices")
+        self.shape, self.rber, self.seed = tuple(shape), rber, seed
+        m, (k, n) = math.prod(shape[:-2]), shape[-2:]
+        self.q = torch.empty((m, k, n), dtype=torch.int8, device=device)
+        self.parity = torch.empty((m, k // 8, n), dtype=torch.uint8,
+                                  device=device)
+        self.scale = torch.empty((m, 1, n), dtype=torch.float32,
+                                 device=device)
+
+    def put(self, i: int, w: torch.Tensor) -> None:
+        q, scale = quantize_int8(w, axis=0)
+        self.q[i].copy_(q)
+        self.scale[i].copy_(scale)
+        self.parity[i].copy_(ecc.encode(ecc.weights_to_bytes(q)))
+
+    def finish(self) -> FlashWeight:
+        if self.rber > 0.0:
+            ecc.inject_bit_errors_(ecc.weights_to_bytes(self.q), self.rber,
+                                   self.seed)
+        lead = self.shape[:-2]
+        return FlashWeight(q=self.q.reshape(self.shape),
+                           parity=self.parity.reshape(
+                               lead + self.parity.shape[1:]),
+                           scale=self.scale.reshape(
+                               lead + self.scale.shape[1:]))
+
+
 def encode_flash(w: torch.Tensor, rber: float = 0.0, seed: int = 0
                  ) -> FlashWeight:
     """Quantize + ECC-encode one weight matrix (leading dims = layer stack),
-    on ``w``'s device. Each (K, N) slice is quantized and encoded on its
-    own, so no full-stack f32 temporary exists; the bit errors are drawn
-    over the whole stack with one seed, as the JAX version does."""
-    if w.ndim < 2:
-        raise ValueError("flash tier holds matrices")
-    flat = w.reshape((-1,) + tuple(w.shape[-2:]))
-    k, n = flat.shape[-2:]
-    q = torch.empty(flat.shape, dtype=torch.int8, device=w.device)
-    parity = torch.empty((flat.shape[0], k // 8, n), dtype=torch.uint8,
-                         device=w.device)
-    scale = torch.empty((flat.shape[0], 1, n), dtype=torch.float32,
-                        device=w.device)
-    for i in range(flat.shape[0]):
-        q[i], scale[i] = quantize_int8(flat[i], axis=0)
-        parity[i] = ecc.encode(ecc.weights_to_bytes(q[i]))
-    if rber > 0.0:
-        ecc.inject_bit_errors_(ecc.weights_to_bytes(q), rber, seed)
-    lead = tuple(w.shape[:-2])
-    return FlashWeight(q=q.reshape(w.shape),
-                       parity=parity.reshape(lead + (k // 8, n)),
-                       scale=scale.reshape(lead + (1, n)))
+    on ``w``'s device, a (K, N) slice at a time (``FlashEncoder``)."""
+    enc = FlashEncoder(tuple(w.shape), w.device, rber, seed)
+    for i, m in enumerate(w.reshape((-1,) + tuple(w.shape[-2:]))):
+        enc.put(i, m)
+    return enc.finish()
 
 
 def _walk(tree: dict, prefix: str = ""):
@@ -132,21 +169,27 @@ def deploy(params: dict, patterns=DEFAULT_FLASH_PATTERNS, rber: float = 0.0,
 
     Returns (tiered_params, tier_map). Flash-tier leaves become
     ``FlashWeight``s (encoded on the leaf's device); DRAM-tier leaves are
-    cast to bf16. Param paths are the JAX package's ("layers/ffn/w_up").
-    With ``store`` each flash leaf is encoded the same way, programmed into
-    the store's pages (``put_param``) and replaced by its ``StoreRef``, so
-    device memory holds the DRAM tier plus one encoded leaf at a time.
+    cast to bf16. A leaf that is a ``FlashWeight`` already (``deploy_init``'s)
+    is flash tier and passes through as it is, and so does a ``StoreRef``
+    (a leaf ``deploy_init`` programmed into ``store`` already). Param
+    paths are the JAX package's ("layers/ffn/w_up"). With ``store`` each
+    flash leaf is programmed into the store's pages (``put_param``), in
+    sorted path order, and replaced by its ``StoreRef``, so device memory
+    holds the DRAM tier plus one encoded leaf at a time.
     """
     tier_map: dict[str, str] = {}
     tiered: dict[str, Any] = {}
     for p, leaf in _walk(params):
-        flash = is_flash_path(p, patterns) and leaf.ndim >= 2
+        programmed = getattr(leaf, "is_store_ref", False)
+        encoded = isinstance(leaf, FlashWeight)
+        flash = (programmed or encoded
+                 or (is_flash_path(p, patterns) and leaf.ndim >= 2))
         tier_map[p] = FLASH if flash else DRAM
-        if flash:
-            # crc32, not hash(): Python string hashing is randomized per
-            # process, and the seed must be the same in every run.
-            out = encode_flash(leaf, rber=rber,
-                               seed=seed + zlib.crc32(p.encode()) % (2**31))
+        if programmed:
+            out = leaf
+        elif flash:
+            out = leaf if encoded else encode_flash(
+                leaf, rber=rber, seed=flash_seed(seed, p))
             if store is not None:
                 out = store.put_param(p, out)
         else:
@@ -157,6 +200,61 @@ def deploy(params: dict, patterns=DEFAULT_FLASH_PATTERNS, rber: float = 0.0,
             node = node.setdefault(key, {})
         node[last] = out
     return tiered, tier_map
+
+
+def deploy_init(cfg, generator: torch.Generator, rber: float = 0.0,
+                seed: int = 0, store=None, device="cuda"
+                ) -> tuple[dict, dict[str, str]]:
+    """``deploy(family_module(cfg.family).init(cfg, generator, device),
+    rber=rber, seed=seed, store=store)``, the same tiered tree, tier map
+    and store pages, with every flash-tier (K, N) matrix of a dense- or
+    moe-family model quantized and ECC-encoded as it is drawn (the
+    family's ``init`` hands it to a ``FlashEncoder``): no flash leaf ever
+    exists in bf16, so the peak is about the tiered bytes, not the bf16
+    tree's beside them (qwen3-moe-30b-a3b: 56.9 GiB of bf16 against 30.8
+    of tier).
+
+    - The bit errors are drawn over each whole stacked leaf with one seed
+      (``flash_seed``), after its last matrix is encoded
+      (``FlashEncoder.finish``), as ``encode_flash`` draws them.
+    - Without a store the encoded leaves are made on ``device``. With one,
+      a leaf bound for the host pages is encoded on ``device`` into host
+      memory, so the device never holds the tier.
+    - The generator draws a MoE layer's router, w_gate, w_up, w_down, but
+      a store is programmed in sorted path order (``_walk``: w_down
+      first). The encoded leaves are kept until ``init`` returns and then
+      programmed in that order, so page ids are ``deploy(store=)``'s; each
+      leaves memory once the store holds it.
+    - Attention is DRAM tier and drawn whole, bf16: the dense family's
+      Algorithm 2 flash copies (``program_attn_flash``, the engine's) are
+      encoded from it.
+
+    The other families stack whole layers in their ``init``
+    (``common.stack_layers``): they are drawn whole and deployed."""
+    from repro_torch.models import family_module
+
+    held = device if store is None else "cpu"
+
+    def sink(path: str, shape: tuple):
+        if is_flash_path(path) and len(shape) >= 2:
+            return FlashEncoder(shape, held, rber, flash_seed(seed, path))
+        return None
+
+    kw = dict(sink=sink) if cfg.family in ("dense", "moe") else {}
+    params = family_module(cfg.family).init(cfg, generator, device=device,
+                                            **kw)
+    if store is not None:
+        # the only reference to each encoded leaf is its node's: replaced
+        # by its StoreRef, the leaf is freed before the next is programmed
+        encoded = [p for p, leaf in _walk(params)
+                   if isinstance(leaf, FlashWeight)]
+        for p in encoded:
+            *parents, last = p.split("/")
+            node = params
+            for key in parents:
+                node = node[key]
+            node[last] = store.put_param(p, node[last])
+    return deploy(params, rber=rber, seed=seed, store=store)
 
 
 def tile_parity(parity: np.ndarray, k_tile: int, n_tile: int,
@@ -225,6 +323,18 @@ def dram_tier(params: dict, patterns=DEFAULT_FLASH_PATTERNS) -> dict:
                 out[k] = v.to(torch.bfloat16)
         return out
     return rec(params, "")
+
+
+def init_template(cfg) -> dict:
+    """The family's ``init`` tree for ``cfg`` on the meta device: shapes
+    and dtypes with no memory and no numbers drawn, a restore's template
+    (``CheckpointManager.restore`` reads its leaves for their place only).
+    A real draw at qwen3-moe-30b-a3b's 48 layers makes 56.9 GiB of bf16
+    to throw away."""
+    from repro_torch.models import family_module
+
+    return family_module(cfg.family).init(cfg, torch.Generator(),
+                                          device="meta")
 
 
 def flash_bytes(tiered: dict) -> tuple[int, int]:

@@ -18,9 +18,10 @@ package's formats: given the same params, the two packages write the same
 bytes.
 
 Params come from ``--ckpt`` (a training checkpoint of (params, AdamW
-state), or a params checkpoint, in the JAX package's format) or, without
-it, from the family's ``init`` seeded by ``seed`` (random: the two
-packages draw different numbers). Encoding runs on
+state), or a params checkpoint, in the JAX package's format), restored
+whole, or, without it, from the family's ``init`` seeded by ``seed``
+(random: the two packages draw different numbers), the flash tier encoded
+as it is drawn (``tiering.deploy_init``). Encoding runs on
 ``--device`` (``cuda`` unless ``--device cpu``).
 """
 from __future__ import annotations
@@ -32,8 +33,8 @@ import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
-from repro_torch.core.tiering import deploy, flash_bytes
-from repro_torch.models import family_module
+from repro_torch.core.tiering import (deploy, deploy_init, flash_bytes,
+                                      init_template)
 from repro_torch.optim.adamw import AdamWState
 
 
@@ -41,14 +42,17 @@ def run_deploy(arch: str, smoke: bool, ckpt_dir: str | None, out_dir: str,
                rber: float = 0.0, seed: int = 0,
                store_path: str | None = None, device="cuda") -> dict:
     cfg = get_config(arch, smoke=smoke)
-    mod = family_module(cfg.family)
-    params = mod.init(cfg, torch.Generator(device=device).manual_seed(seed),
-                      device=device)
+    store = None
+    if store_path is not None:
+        from repro_torch.store import PageStore
+        store = PageStore()
     if ckpt_dir:
         # a training checkpoint holds (params, AdamW state); a deploy's
         # own, params alone. The template's leaves are read for their
-        # place only, so the AdamW state's is the params tree itself (the
-        # tree of AdamW().init(params), without its moments' memory)
+        # place only: the init tree on the meta device, nothing drawn, and
+        # the AdamW state's is the params tree itself (the tree of
+        # AdamW().init(params), without its moments' memory)
+        params = init_template(cfg)
         mgr = CheckpointManager(ckpt_dir)
         state = AdamWState(step=torch.zeros((), dtype=torch.int32),
                            m=params, v=params)
@@ -56,11 +60,14 @@ def run_deploy(arch: str, smoke: bool, ckpt_dir: str | None, out_dir: str,
             (params, _), _ = mgr.restore((params, state), device=device)
         except ValueError:
             params, _ = mgr.restore(params, device=device)
-    store = None
-    if store_path is not None:
-        from repro_torch.store import PageStore
-        store = PageStore()
-    tiered, tier_map = deploy(params, rber=rber, seed=seed, store=store)
+        tiered, tier_map = deploy(params, rber=rber, seed=seed, store=store)
+    else:
+        # the flash tier encoded as it is drawn: no flash leaf in bf16;
+        # attention is DRAM tier, drawn whole, bf16
+        tiered, tier_map = deploy_init(
+            cfg, torch.Generator(device=device).manual_seed(seed),
+            rber=rber, seed=seed, store=store, device=device)
+        params = tiered
     if store is not None and cfg.family == "dense":
         # the streamed engine also needs per-layer flash Q/K/V/O copies
         # (Alg. 2's in-flash projection targets); program them into the

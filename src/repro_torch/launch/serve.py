@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import OPT_TINY, get_config
+from repro_torch.core.tiering import deploy_init, init_template
 from repro_torch.models import family_module
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.sampler import SampleConfig
@@ -74,9 +75,12 @@ def build_engine(arch: str = "opt-tiny", smoke: bool = True,
     """Deploy ``arch`` into the tiered form and construct the serving
     engine on ``device`` — shared by the burst loop (``serve``) and the
     HTTP frontend (``--serve-http``). Params are the family's ``init``
-    drawn from a generator on ``device`` seeded by ``seed``, or, with
-    ``store_image``, the die image's flash tier and the DRAM tier restored
-    from ``ckpt``. ``fault_cfg`` (a store.faults FaultConfig) arms
+    drawn from a generator on ``device`` seeded by ``seed``, the flash
+    tier encoded as it is drawn (``tiering.deploy_init``: the tier and
+    tokens are those of ``Engine(cfg, init(...))``, and no flash leaf
+    exists in bf16), or, with ``store_image``, the die image's flash tier
+    and the DRAM tier restored from ``ckpt``. ``fault_cfg`` (a
+    store.faults FaultConfig) arms
     read-time NAND fault injection on the streamed page store — attached
     AFTER programming, so program-time rber and injected read faults
     compose. ``shards`` > 1 serves the streamed plane tensor-parallel over
@@ -96,9 +100,8 @@ def build_engine(arch: str = "opt-tiny", smoke: bool = True,
             raise SystemExit(f"--shards {shards}: {e}") from None
     mod = family_module(cfg.family)
 
-    def init(c, s):
-        gen = torch.Generator(device=device).manual_seed(s)
-        return mod.init(c, gen, device=device)
+    def generator(s):
+        return torch.Generator(device=device).manual_seed(s)
 
     store = stream_cfg = None
     if store_image is not None:
@@ -118,19 +121,24 @@ def build_engine(arch: str = "opt-tiny", smoke: bool = True,
                              "errors (re-run deploy --store with --rber)")
         store = PageStore.open(
             store_image, n_shards=(shards if shards > 1 else None))
-        template = dram_tier(init(cfg, seed))
-        params, _ = CheckpointManager(ckpt).restore(template, device=device)
-        del template
+        params, _ = CheckpointManager(ckpt).restore(
+            dram_tier(init_template(cfg)), device=device)
         stream = True
     else:
-        params = init(cfg, seed)
+        # flash leaves arrive encoded, and the engine's deploy passes them
+        # through: resident, FlashWeights on ``device``; streamed, StoreRefs
+        # to the host pages of ``store``, which ``deploy_init`` programs a
+        # leaf at a time (the device never holds the tier)
+        if stream:
+            from repro_torch.store import PageStore
+            store = PageStore()
+        params, _ = deploy_init(cfg, generator(seed), rber=rber, seed=seed,
+                                store=store, device=device)
     if stream:
         # flash tier host-resident in the page store, streamed per layer
         # group under a device weight budget, or (MoE) expert-paged by the
         # router
-        from repro_torch.store import PageStore, StreamConfig
-        if store is None:
-            store = PageStore()
+        from repro_torch.store import StreamConfig
         budget = (None if device_budget_mib is None
                   else int(device_budget_mib * 2**20))
         stream_cfg = StreamConfig(device_budget_bytes=budget,
@@ -153,7 +161,8 @@ def build_engine(arch: str = "opt-tiny", smoke: bool = True,
                 n_heads=max(cfg.n_heads // 2, 1),
                 n_kv_heads=max(cfg.n_kv_heads // 2, 1),
                 d_ff=max(cfg.d_ff // 2, 128))
-            draft_params = init(draft_cfg, seed + 1)
+            draft_params = mod.init(draft_cfg, generator(seed + 1),
+                                    device=device)
     if sample_cfg is None:
         sample_cfg = SampleConfig(temperature=0.8, top_k=40)
     eng = Engine(cfg, params, max_slots=4, max_seq=256, rber=rber,

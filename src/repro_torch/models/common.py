@@ -71,16 +71,25 @@ def pin_batch(x):
 # not the JAX ones — the tests carry JAX params across instead.
 
 
+def _randn(gen: torch.Generator, shape: tuple, device) -> torch.Tensor:
+    """N(0, 1) in f32 drawn from ``gen`` on its device; for the meta
+    device an empty meta tensor, drawing nothing (a template's leaf:
+    shapes and dtypes, no numbers)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, device="meta")
+    return torch.randn(shape, generator=gen, device=gen.device)
+
+
 def dense_init(gen: torch.Generator, k: int, n: int, dtype=torch.bfloat16,
                device=None) -> torch.Tensor:
     scale = (2.0 / (k + n)) ** 0.5
-    w = torch.randn((k, n), generator=gen, device=gen.device) * scale
+    w = _randn(gen, (k, n), device) * scale
     return w.to(device=device, dtype=dtype)
 
 
 def embed_init(gen: torch.Generator, v: int, d: int, dtype=torch.bfloat16,
                device=None) -> torch.Tensor:
-    w = torch.randn((v, d), generator=gen, device=gen.device) * 0.02
+    w = _randn(gen, (v, d), device) * 0.02
     return w.to(device=device, dtype=dtype)
 
 
@@ -89,7 +98,7 @@ def normal_init(gen: torch.Generator, shape: tuple, std: float,
                 device=None) -> torch.Tensor:
     """``N(mean, std^2)`` drawn in f32, then cast (the reference's
     ``jax.random.normal(...) * std + mean``)."""
-    w = torch.randn(shape, generator=gen, device=gen.device) * std + mean
+    w = _randn(gen, shape, device) * std + mean
     return w.to(device=device, dtype=dtype)
 
 

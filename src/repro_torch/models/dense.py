@@ -15,6 +15,8 @@ tensors in a stacked tensor's place: the train step's per-layer leaves). Cache l
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
@@ -231,28 +233,41 @@ def cache_shape(cfg, batch: int, max_seq: int) -> dict:
 
 
 def init_stack(generator: torch.Generator, lead: tuple, k: int, n: int,
-               device) -> torch.Tensor:
+               device, sink=None):
     """A (*lead, K, N) bf16 stack of ``common.dense_init`` matrices, drawn
-    one (K, N) matrix at a time."""
-    w = torch.empty(lead + (k, n), dtype=torch.bfloat16, device=device)
-    flat = w.view((-1, k, n))
-    for i in range(flat.shape[0]):
-        flat[i] = cm.dense_init(generator, k, n, torch.bfloat16, device)
-    return w
+    one (K, N) matrix at a time. With ``sink`` (a ``tiering.FlashEncoder``
+    of that shape) each matrix goes to ``sink.put`` as it is drawn and the
+    encoded ``FlashWeight`` is returned: the bf16 stack is never made."""
+    if sink is None:
+        w = torch.empty(lead + (k, n), dtype=torch.bfloat16, device=device)
+        put = w.view((-1, k, n)).__setitem__
+    else:
+        put = sink.put
+    for i in range(math.prod(lead)):
+        put(i, cm.dense_init(generator, k, n, torch.bfloat16, device))
+    return w if sink is None else sink.finish()
 
 
 def init(cfg, generator: torch.Generator, device="cuda",
-         ffn: bool = True) -> dict:
+         ffn: bool = True, sink=None) -> dict:
     """Random params with the shapes, distributions and scales of the JAX
     ``dense.init`` (bf16; dense_init / embed_init scales; LayerNorm gains 1
     and biases 0, RMSNorm gammas 0, qk-norm gammas 0 too). Numbers are
     drawn on the generator's device and placed on ``device`` one (K, N)
     matrix at a time, so no full-model f32 temporary exists. ``ffn=False``
-    leaves the FFN out (the MoE family draws its expert banks itself)."""
+    leaves the FFN out (the MoE family draws its expert banks itself).
+    This is the one home of the draw order. ``sink(path, shape)`` (from
+    ``tiering.deploy_init``) may return a ``FlashEncoder`` for a matrix
+    stack: its leaf is then encoded as drawn (``init_stack``)."""
     bf = torch.bfloat16
     d, h, kv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_ff)
     n_l = cfg.n_layers
+
+    def stack(path, lead, k, n):
+        return init_stack(generator, lead, k, n, device,
+                          None if sink is None else sink(path, lead + (k, n)))
+
     mats = {"attn": {"wq": (d, h * dh), "wk": (d, kv * dh),
                      "wv": (d, kv * dh), "wo": (h * dh, d)}}
     if ffn:
@@ -261,7 +276,7 @@ def init(cfg, generator: torch.Generator, device="cuda",
                        else {"w_up": (d, f), "w_down": (f, d)})
     layers: dict = {}
     for group, shapes in mats.items():
-        layers[group] = {name: init_stack(generator, (n_l,), k, n, device)
+        layers[group] = {name: stack(f"layers/{group}/{name}", (n_l,), k, n)
                          for name, (k, n) in shapes.items()}
     if cfg.qk_norm:                      # per-head RMSNorm gammas, zeros
         for name in ("q_norm", "k_norm"):
@@ -280,7 +295,7 @@ def init(cfg, generator: torch.Generator, device="cuda",
                        if cfg.norm_type == "rms"
                        else {"g": torch.ones((d,), dtype=bf, device=device),
                              "b": torch.zeros((d,), dtype=bf, device=device)}),
-        "lm_head": cm.dense_init(generator, d, cfg.vocab_size, bf, device),
+        "lm_head": stack("lm_head", (), d, cfg.vocab_size),
     }
     if not cfg.use_rope:  # OPT-style learned positions
         params["pos_embed"] = cm.embed_init(generator, cfg.max_seq, d, bf,

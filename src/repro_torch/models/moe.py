@@ -50,28 +50,33 @@ STACKED = ("layers",)
 # --- init ---------------------------------------------------------------------
 
 def moe_init(cfg, generator: torch.Generator, device="cuda",
-             lead: tuple = ()) -> dict:
+             lead: tuple = (), sink=None, prefix: str = "") -> dict:
     """One MoE FFN's params (``lead`` stacks them, e.g. (L,)): the router
     (D, E) and the expert banks w_gate/w_up (E, D, F), w_down (E, F, D),
-    bf16 with the JAX ``moe_init``'s shapes and scales."""
+    bf16 with the JAX ``moe_init``'s shapes and scales, drawn in that
+    order. ``sink`` as ``dense.init``'s, over the paths under ``prefix``."""
     e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
-    return {"router": dense.init_stack(generator, lead, d, e, device),
+
+    def stack(path, lead, k, n):
+        return dense.init_stack(
+            generator, lead, k, n, device,
+            None if sink is None else sink(prefix + path, lead + (k, n)))
+
+    return {"router": stack("router", lead, d, e),
             "experts": {
-                "w_gate": dense.init_stack(generator, lead + (e,), d, f,
-                                           device),
-                "w_up": dense.init_stack(generator, lead + (e,), d, f,
-                                         device),
-                "w_down": dense.init_stack(generator, lead + (e,), f, d,
-                                           device)}}
+                "w_gate": stack("experts/w_gate", lead + (e,), d, f),
+                "w_up": stack("experts/w_up", lead + (e,), d, f),
+                "w_down": stack("experts/w_down", lead + (e,), f, d)}}
 
 
-def init(cfg, generator: torch.Generator, device="cuda") -> dict:
+def init(cfg, generator: torch.Generator, device="cuda", sink=None) -> dict:
     """Random params with the JAX ``moe.init``'s tree, shapes and scales:
     the dense family's attention, norms, embedding and lm_head, and a
-    layer-stacked ``layers/moe`` (router (L, D, E), banks (L, E, K, N))."""
-    params = dense.init(cfg, generator, device, ffn=False)
+    layer-stacked ``layers/moe`` (router (L, D, E), banks (L, E, K, N)).
+    ``sink`` as ``dense.init``'s."""
+    params = dense.init(cfg, generator, device, ffn=False, sink=sink)
     params["layers"]["moe"] = moe_init(cfg, generator, device,
-                                       (cfg.n_layers,))
+                                       (cfg.n_layers,), sink, "layers/moe/")
     return params
 
 

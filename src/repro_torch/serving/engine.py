@@ -96,8 +96,9 @@ import torch
 from repro_torch import graphs, obs
 from repro_torch.core import scheduler as sched
 from repro_torch.core.erdpe import all_reduce_sum, flash_matmul
-from repro_torch.core.tiering import (ATTN_FLASH_KEYS, PagedWeight, deploy,
-                                      encode_flash, program_attn_flash)
+from repro_torch.core.tiering import (ATTN_FLASH_KEYS, PagedWeight, _walk,
+                                      deploy, encode_flash,
+                                      program_attn_flash)
 from repro_torch.kernels.paged_attn import _HEAD_DIMS, takes_head_dim
 from repro_torch.models import common as cm
 from repro_torch.models import dense
@@ -559,7 +560,10 @@ class Engine:
 
     ``params`` is a raw param tree (``models.dense.init`` or params carried
     across with ``interop``); it is moved to ``device`` and deployed there
-    (flash tier with ``rber``/``seed``). ``block_size``/``n_blocks`` size
+    (flash tier with ``rber``/``seed``). A tree from
+    ``tiering.deploy_init`` is deployed already: its FlashWeight leaves
+    (or, streamed, its StoreRefs into ``weight_store``) pass through, and
+    must have been made with the same ``rber``/``seed``. ``block_size``/``n_blocks`` size
     the paged KV pool; ``admission_cfg`` sets the chunk width and the
     Alg.2-coupled per-step token budget; ``max_waiting`` bounds the queue
     (``submit`` then blocks). ``last_logits`` holds the latest step's
@@ -708,11 +712,20 @@ class Engine:
                              "compiled=False")
         # a store that already holds a page table was programmed before (a
         # die image): NAND programming is write-once, so the flash tier
-        # comes from its table and ``params`` is the DRAM tier only
-        self.store_preprogrammed = (self.streamed
+        # comes from its table and ``params`` is the DRAM tier only. A tree
+        # that carries StoreRefs (``tiering.deploy_init``'s) was programmed
+        # into this store by its caller: deploy passes them through
+        carries_refs = any(isinstance(t, StoreRef)
+                           for _, t in _walk(params))
+        if carries_refs and not self.streamed:
+            raise ValueError("StoreRef leaves need the streamed engine's "
+                             "weight_store, the store they were put in")
+        self.store_preprogrammed = (self.streamed and not carries_refs
                                     and len(weight_store.table) > 0)
         with torch.no_grad():
-            params = _map_tree(lambda t: t.to(self.device), params)
+            params = _map_tree(
+                lambda t: t if isinstance(t, StoreRef) else t.to(self.device),
+                params)
             if self.store_preprogrammed:
                 if rber > 0.0:
                     raise ValueError(

@@ -153,7 +153,8 @@ def test_build_engine_on_the_jax_init_emits_the_reference_tokens(
     """``build_engine("opt-tiny")`` with the family's init handed the JAX
     init's params (the two packages' generators draw different numbers)."""
     np_params = jax.tree.map(np.asarray, opt_tiny_params)
-    monkeypatch.setattr(tdense, "init", lambda cfg, gen, device="cuda":
+    monkeypatch.setattr(tdense, "init",
+                        lambda cfg, gen, device="cuda", sink=None:
                         interop.params_from_numpy(np_params, device))
     want = _greedy(jserve.build_engine("opt-tiny", spec_k=spec_k,
                                        sample_cfg=JSample()))

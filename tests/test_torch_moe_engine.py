@@ -221,7 +221,8 @@ def test_build_engine_on_the_jax_init_emits_the_reference_tokens(
     slots, max_seq 256, RBER 0)."""
     arch = "qwen3-moe-30b-a3b"
     np_params = jax.tree.map(np.asarray, _params(arch)[0])
-    monkeypatch.setattr(tmoe, "init", lambda cfg, gen, device="cuda":
+    monkeypatch.setattr(tmoe, "init",
+                        lambda cfg, gen, device="cuda", sink=None:
                         interop.params_from_numpy(np_params, device))
     outs = []
     for eng in (jserve.build_engine(arch, spec_k=spec_k,
@@ -274,7 +275,8 @@ def test_streamed_moe_is_refused_with_its_roadmap_item(arch, kw, monkeypatch,
     slots, RBER 0), expert-paged (only routed experts fetched); and
     ``Engine(weight_store=...)`` emits the JAX engine's (2 slots)."""
     np_params = jax.tree.map(np.asarray, _params(arch)[0])
-    monkeypatch.setattr(tmoe, "init", lambda cfg, gen, device="cuda":
+    monkeypatch.setattr(tmoe, "init",
+                        lambda cfg, gen, device="cuda", sink=None:
                         interop.params_from_numpy(np_params, device))
     if "store_image" in kw:
         JManager(tmp_path / "params").save(0, _params(arch)[0])

@@ -82,7 +82,8 @@ _BAD_IMPORT = re.compile(
 def _port_sources():
     files = sorted(PORT.rglob("*.py"))
     smoke = ROOT / "chip_smoke.py"
-    return files + ([smoke] if smoke.exists() else [])
+    return (files + ([smoke] if smoke.exists() else [])
+            + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -90,6 +91,36 @@ def _port_sources():
 def test_port_source_has_no_jax_or_repro_import(path):
     hits = _BAD_IMPORT.findall(path.read_text())
     assert not hits, hits
+
+
+@pytest.mark.parametrize(
+    "path", sorted((ROOT / "examples").glob("torch_*.py")),
+    ids=lambda p: p.name)
+def test_torch_example_loads_no_jax_and_no_repro(path):
+    """Importing a port example (its ``main`` not run) loads neither JAX
+    nor the JAX package."""
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('ex', {str(path)!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "bad = sorted(k for k in sys.modules if k == 'jax' "
+        "or k.startswith('jax.') or k == 'repro' or k.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "assert 'repro_torch' in sys.modules\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_the_four_examples_have_port_counterparts():
+    ported = {p.name[len("torch_"):]
+              for p in (ROOT / "examples").glob("torch_*.py")}
+    jax_examples = {p.name for p in (ROOT / "examples").glob("*.py")
+                    if not p.name.startswith("torch_")}
+    assert jax_examples == ported == {"quickstart.py", "train_tiny.py",
+                                      "deploy_nvllm.py", "edge_serve.py"}
 
 
 CONFIGS = ["OPT_1_3B", "OPT_2_7B", "OPT_6_7B", "OPT_13B", "OPT_30B",
